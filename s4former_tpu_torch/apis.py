@@ -1,0 +1,176 @@
+"""High-level serving API (counterpart of ``s4former_tpu/apis.py``;
+reference: mmseg/apis/inference.py).
+
+- ``init_segmentor(config, checkpoint=None, seed=0, device='cuda')``: config
+  (+ reference-layout ``.pth``) -> a ``Segmentor`` on ``device``. Seeded
+  weights come from a ``torch.Generator`` on the CPU, so a seed gives the
+  same model on every device.
+- ``inference_segmentor``: image path or HWC array -> [H, W] label map.
+- ``inference_with_teacher_pasa``: the EMA teacher's confidence builds the
+  PASA bias for the student's forward.
+- ``inference_segmentor_with_attn``: also returns logits and attention maps.
+
+Images are NHWC, normalised and padded to the crop as in the JAX package.
+The runs are eval mode under ``torch.inference_mode``. Evaluation over a
+dataset (``single_device_test``) and TTA come with the eval slice.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.func import functional_call
+
+_DEFAULT_NORM = dict(mean=[123.675, 116.28, 103.53],
+                     std=[58.395, 57.12, 57.375])
+
+
+class Segmentor:
+    """A built model on its device + config, ready for inference."""
+
+    def __init__(self, model, cfg, device):
+        self.model = model
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.num_classes = model.num_classes
+        test_cfg = (cfg.get('model', {}).get('test_cfg') or {}) \
+            if cfg is not None else {}
+        self.mode = test_cfg.get('mode', 'whole')
+        default_crop = tuple(cfg.get('crop_size', (512, 512))) \
+            if cfg is not None else (512, 512)
+        self.crop_size = tuple(test_cfg.get('crop_size', default_crop))
+        self.stride = tuple(test_cfg.get('stride', (341, 341)))
+
+    def apply_fn(self, img: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return self.model(img)
+
+    def probs(self, img: torch.Tensor, flip: bool = False) -> torch.Tensor:
+        """Softmax probabilities [B, H, W, classes] in the config's test
+        mode (whole or slide)."""
+        from s4former_tpu_torch.models.segmentors.inference import inference
+        with torch.inference_mode():
+            return inference(self.apply_fn, img, self.num_classes,
+                             mode=self.mode, crop_size=self.crop_size,
+                             stride=self.stride, flip=flip)
+
+    def predict(self, img: torch.Tensor) -> torch.Tensor:
+        """argmax label map [B, H, W] int32."""
+        from s4former_tpu_torch.models.segmentors.inference import predict
+        with torch.inference_mode():
+            return predict(self.apply_fn, img, self.num_classes,
+                           mode=self.mode, crop_size=self.crop_size,
+                           stride=self.stride)
+
+
+def init_segmentor(config, checkpoint: Optional[str] = None,
+                   seed: int = 0, device='cuda') -> Segmentor:
+    """(reference inference.py:12). ``config``: a path or a ``Config``;
+    ``checkpoint``: an mmseg-layout ``.pth``, whose entries overlay the
+    seeded weights (a backbone-only file keeps the seeded heads)."""
+    import s4former_tpu_torch.models  # noqa: F401  (registers modules)
+    from s4former_tpu_torch.config import Config
+    from s4former_tpu_torch.core.checkpoint import load_reference_state_dict
+    from s4former_tpu_torch.models import (build_segmentor,
+                                           init_segmentor_weights)
+
+    if isinstance(config, str):
+        config = Config.fromfile(config)
+    model = build_segmentor(config.model)
+    init_segmentor_weights(model, torch.Generator().manual_seed(seed))
+    if checkpoint:
+        bb = config.model.get('backbone', {})
+        crop = tuple(config.get('crop_size', (512, 512)))
+        patch = bb.get('patch_size', 16)
+        sd = load_reference_state_dict(
+            checkpoint, dst_grid=(crop[0] // patch, crop[1] // patch))
+        own = model.state_dict()
+        model.load_state_dict({k: v for k, v in sd.items() if k in own},
+                              strict=False)
+    model.to(device).eval()
+    return Segmentor(model, config, device)
+
+
+def _prepare_image(segmentor: Segmentor, img) -> Tuple[np.ndarray,
+                                                       Tuple[int, int]]:
+    """Path or HWC array -> normalised [1, H', W', 3] f32 padded (bottom/
+    right, zeros) to at least the crop, and the original (h, w)."""
+    if isinstance(img, str):
+        from PIL import Image
+        with Image.open(img) as im:
+            img = np.asarray(im.convert('RGB'))
+    img = np.asarray(img).astype(np.float32)
+    norm = segmentor.cfg.get('img_norm_cfg', _DEFAULT_NORM) \
+        if segmentor.cfg is not None else _DEFAULT_NORM
+    x = (img - np.asarray(norm['mean'], np.float32)) / \
+        np.asarray(norm['std'], np.float32)
+    h, w = x.shape[:2]
+    ch, cw = segmentor.crop_size
+    ph, pw = max(ch, h), max(cw, w)
+    x = np.pad(x, ((0, ph - h), (0, pw - w), (0, 0)))
+    return x[None], (h, w)
+
+
+def inference_segmentor(segmentor: Segmentor, img) -> np.ndarray:
+    """(reference inference.py:70): path or HWC array -> [H, W] int32."""
+    x, (h, w) = _prepare_image(segmentor, img)
+    seg = segmentor.predict(torch.from_numpy(x).to(segmentor.device))[0]
+    return seg.cpu().numpy()[:h, :w]
+
+
+def inference_segmentor_with_attn(segmentor: Segmentor, img):
+    """(reference inference.py:102): (seg_map, logits, attention maps at
+    the backbone's out_indices)."""
+    from s4former_tpu_torch.ops.resize import resize_bilinear
+    x, (h, w) = _prepare_image(segmentor, img)
+    x = torch.from_numpy(x).to(segmentor.device)
+    model = segmentor.model
+    with torch.inference_mode():
+        feats, (attns, _) = model.extract_feat(x, return_attn=True)
+        logits = model.decode_logits(feats)
+        if tuple(logits.shape[1:3]) != tuple(x.shape[1:3]):
+            logits = resize_bilinear(logits, tuple(x.shape[1:3]), False)
+    seg = logits.argmax(dim=-1)[0].to(torch.int32).cpu().numpy()[:h, :w]
+    return seg, logits.float().cpu().numpy()[:, :h, :w], \
+        [a.cpu().numpy() for a in attns]
+
+
+def inference_with_teacher_pasa(segmentor: Segmentor, img,
+                                ema_state_dict: Dict[str, torch.Tensor],
+                                attn_mask_weight: float = 5.0,
+                                patch_size: int = 16) -> np.ndarray:
+    """Test-time PASA (reference encode_decode, encoder_decoder.py:265-296):
+    the EMA teacher (the same model run with ``ema_state_dict``, in the
+    student's key names) gives a continuous max-softmax confidence, which
+    builds the additive attention bias for the student's forward."""
+    from s4former_tpu_torch.ops.resize import resize_bilinear
+    from s4former_tpu_torch.semi.pasa import build_pasa_bias
+    x, (h, w) = _prepare_image(segmentor, img)
+    x = torch.from_numpy(x).to(segmentor.device)
+    model = segmentor.model
+    teacher = {k: v.to(segmentor.device) for k, v in ema_state_dict.items()
+               if k.startswith(('backbone.', 'decode_head.'))}
+    with torch.inference_mode():
+        feats = functional_call(
+            model.backbone, _strip(teacher, 'backbone.'), (x,), strict=True)
+        t_logits = functional_call(
+            model.decode_head, _strip(teacher, 'decode_head.'), (feats,),
+            strict=True)
+        max_prob = torch.softmax(t_logits.float(), dim=-1).amax(dim=-1)
+        bsz, hh, ww = max_prob.shape
+        # pool the confidence map to the backbone token grid
+        grid_h = x.shape[1] // patch_size
+        pool = max(hh // grid_h, 1)
+        unconf = (1.0 - max_prob).reshape(bsz, hh // pool, pool,
+                                          ww // pool, pool)
+        unconf = unconf.mean(dim=(2, 4)).reshape(bsz, -1)
+        bias = build_pasa_bias(unconf, attn_mask_weight, adaptive=True)
+        logits = model.forward_decode_from_img(x, attn_bias=bias)
+        if tuple(logits.shape[1:3]) != tuple(x.shape[1:3]):
+            logits = resize_bilinear(logits, tuple(x.shape[1:3]), False)
+    return logits.argmax(dim=-1)[0].to(torch.int32).cpu().numpy()[:h, :w]
+
+
+def _strip(sd: Dict[str, torch.Tensor], prefix: str) -> Dict:
+    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}

@@ -1,0 +1,184 @@
+"""Weight bridge (counterpart of the torch-facing half of
+``s4former_tpu/core/checkpoint.py``).
+
+The port's modules carry the reference (mmseg) parameter names, so its
+``state_dict`` is the reference layout:
+
+- ``state_dict_from_jax_variables(variables)``: the JAX package's
+  ``{'params', 'batch_stats'[, 'ema_params', 'ema_batch_stats']}`` tree, as
+  numpy arrays, -> reference-layout tensors. It unstacks the scanned ViT
+  layers and the vmapped aux heads and transposes dense and conv kernels.
+  Same keys and values as JAX ``export_reference_state_dict`` (l.2739).
+- ``load_reference_state_dict(path)``: an mmseg/S4Former ``.pth`` ->
+  tensors, with the bicubic pos-embed resize on load of JAX
+  ``_resize_pos_embed_np`` (l.169).
+- ``ema_state_dict(sd)``: the EMA twin's keys (``backbone_ema.``,
+  ``decode_head_ema.``) renamed onto the student's.
+
+Orbax checkpoint directories need JAX and are not read here.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
+
+
+def _conv(kernel) -> torch.Tensor:
+    """flax HWIO conv kernel -> torch OIHW."""
+    return _t(np.transpose(np.asarray(kernel), (3, 2, 0, 1)))
+
+
+def _vit(p: Mapping, prefix: str) -> StateDict:
+    sd: StateDict = {}
+    for name in ('cls_token', 'pos_embed'):
+        if name in p:
+            sd[prefix + name] = _t(p[name])
+    if 'patch_embed' in p:
+        sd[prefix + 'patch_embed.projection.weight'] = _conv(
+            p['patch_embed']['kernel'])
+        sd[prefix + 'patch_embed.projection.bias'] = _t(
+            p['patch_embed']['bias'])
+    if 'layers' in p:
+        blk = p['layers']['block']
+        dense = {'attn.attn.in_proj': blk['attn']['qkv'],
+                 'attn.attn.out_proj.': blk['attn']['proj'],
+                 'ffn.layers.0.0.': blk['ffn']['fc1'],
+                 'ffn.layers.1.': blk['ffn']['fc2']}
+        for i in range(np.asarray(blk['ln1']['scale']).shape[0]):
+            pre = f'{prefix}layers.{i}.'
+            for ln in ('ln1', 'ln2'):
+                sd[f'{pre}{ln}.weight'] = _t(blk[ln]['scale'][i])
+                sd[f'{pre}{ln}.bias'] = _t(blk[ln]['bias'][i])
+            for key, leaf in dense.items():
+                # torch MHA names its fused qkv in_proj_weight/in_proj_bias
+                sep = '_' if key.endswith('in_proj') else ''
+                sd[f'{pre}{key}{sep}weight'] = _t(
+                    np.asarray(leaf['kernel'][i]).T)
+                sd[f'{pre}{key}{sep}bias'] = _t(leaf['bias'][i])
+    return sd
+
+
+def _setr_up(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
+    sd: StateDict = {}
+    if 'norm' in p:
+        sd[prefix + 'norm.weight'] = _t(p['norm']['scale'])
+        sd[prefix + 'norm.bias'] = _t(p['norm']['bias'])
+    i = 0
+    while f'up_convs_{i}' in p:
+        c = p[f'up_convs_{i}']
+        pre = f'{prefix}up_convs.{i}.0.'
+        sd[pre + 'conv.weight'] = _conv(c['conv']['kernel'])
+        sd[pre + 'bn.weight'] = _t(c['bn']['scale'])
+        sd[pre + 'bn.bias'] = _t(c['bn']['bias'])
+        stats = bs.get(f'up_convs_{i}', {}).get('bn', {})
+        if stats:
+            sd[pre + 'bn.running_mean'] = _t(stats['mean'])
+            sd[pre + 'bn.running_var'] = _t(stats['var'])
+        i += 1
+    if 'conv_seg' in p:
+        sd[prefix + 'conv_seg.weight'] = _conv(p['conv_seg']['kernel'])
+        sd[prefix + 'conv_seg.bias'] = _t(p['conv_seg']['bias'])
+    return sd
+
+
+def _index_tree(tree, j: int):
+    if isinstance(tree, Mapping):
+        return {k: _index_tree(v, j) for k, v in tree.items()}
+    return np.asarray(tree)[j]
+
+
+def state_dict_from_jax_variables(variables: Mapping) -> StateDict:
+    """JAX variables tree (numpy leaves) -> reference-layout state dict."""
+    params = variables.get('params', variables)
+    bs = variables.get('batch_stats', {})
+    sd: StateDict = {}
+    if 'backbone_m' in params:
+        sd.update(_vit(params['backbone_m'], 'backbone.'))
+    if 'decode_head_m' in params:
+        sd.update(_setr_up(params['decode_head_m'],
+                           bs.get('decode_head_m', {}), 'decode_head.'))
+    if 'aux_heads' in params:     # the vmapped stack of identical aux heads
+        stacked_p = params['aux_heads']['head']
+        stacked_b = bs.get('aux_heads', {}).get('head', {})
+        n = np.asarray(stacked_p['conv_seg']['bias']).shape[0]
+        for j in range(n):
+            sd.update(_setr_up(_index_tree(stacked_p, j),
+                               _index_tree(stacked_b, j),
+                               f'auxiliary_head.{j}.'))
+    j = 0
+    while f'aux_heads_{j}' in params:   # unfused per-level aux heads
+        sd.update(_setr_up(params[f'aux_heads_{j}'],
+                           bs.get(f'aux_heads_{j}', {}),
+                           f'auxiliary_head.{j}.'))
+        j += 1
+    ema = variables.get('ema_params')
+    if ema:
+        ebs = variables.get('ema_batch_stats', {})
+        if 'backbone_m' in ema:
+            sd.update(_vit(ema['backbone_m'], 'backbone_ema.'))
+        if 'decode_head_m' in ema:
+            sd.update(_setr_up(ema['decode_head_m'],
+                               ebs.get('decode_head_m', {}),
+                               'decode_head_ema.'))
+    return sd
+
+
+def resize_pos_embed(pos: torch.Tensor, dst_grid: Tuple[int, int],
+                     with_cls: bool = True) -> torch.Tensor:
+    """Bicubic pos-embed grid resize on load (reference vit.py:381-395)."""
+    grid = pos[:, 1:] if with_cls else pos
+    src = int(round(grid.shape[1] ** 0.5))
+    if (src, src) == tuple(dst_grid):
+        return pos
+    t = grid.reshape(1, src, src, -1).permute(0, 3, 1, 2).float()
+    t = F.interpolate(t, size=tuple(dst_grid), mode='bicubic',
+                      align_corners=False)
+    out = t.permute(0, 2, 3, 1).reshape(1, dst_grid[0] * dst_grid[1], -1)
+    if with_cls:
+        out = torch.cat([pos[:, :1].float(), out], dim=1)
+    return out.to(pos.dtype)
+
+
+def load_reference_state_dict(path: str,
+                              dst_grid: Optional[Tuple[int, int]] = None
+                              ) -> StateDict:
+    """An mmseg-layout ``.pth`` -> state dict: unwraps ``state_dict``/
+    ``model``, strips a ``module.`` prefix, drops BN ``num_batches_tracked``
+    counters, and resizes the (EMA) backbone pos-embed to ``dst_grid``."""
+    obj = torch.load(path, map_location='cpu', weights_only=True)
+    for key in ('state_dict', 'model'):
+        if isinstance(obj, dict) and isinstance(obj.get(key), dict):
+            obj = obj[key]
+            break
+    sd: StateDict = {}
+    for k, v in obj.items():
+        if not isinstance(v, torch.Tensor) or \
+                k.endswith('num_batches_tracked'):
+            continue
+        k = k[len('module.'):] if k.startswith('module.') else k
+        if dst_grid is not None and k in ('backbone.pos_embed',
+                                          'backbone_ema.pos_embed'):
+            v = resize_pos_embed(v, dst_grid)
+        sd[k] = v
+    return sd
+
+
+def ema_state_dict(sd: Mapping[str, torch.Tensor]) -> StateDict:
+    """The EMA twin's entries (``backbone_ema.*``, ``decode_head_ema.*``)
+    under the student's names; empty when the file holds no twin."""
+    out: StateDict = {}
+    for src, dst in (('backbone_ema.', 'backbone.'),
+                     ('decode_head_ema.', 'decode_head.')):
+        for k, v in sd.items():
+            if k.startswith(src):
+                out[dst + k[len(src):]] = v
+    return out

@@ -1,0 +1,2 @@
+"""Backbones; importing registers them."""
+from s4former_tpu_torch.models.backbones.vit import VisionTransformer  # noqa: F401

@@ -1,0 +1,81 @@
+"""Shared fixtures of the port's CPU parity tests (tests/test_torch_*.py).
+
+One tiny SETR-PUP model (2-layer ViT, embed 64, 4 heads of dim 16, 64²
+crops, two aux heads) is built by the JAX package; its variables are
+perturbed with seeded numpy noise, so zero biases, the zero cls token and
+identity BN statistics all matter, and the same numbers go to both packages
+as numpy arrays.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+TINY_CFG = """
+crop_size = (64, 64)
+img_norm_cfg = dict(
+    mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375], to_rgb=True)
+model = dict(
+    type='EncoderDecoder',
+    backbone=dict(
+        type='VisionTransformer', img_size=(64, 64), patch_size=16,
+        embed_dims=64, num_layers=2, num_heads=4, out_indices=(0, 1)),
+    decode_head=dict(
+        type='SETRUPHead', in_channels=64, channels=16, num_classes=5,
+        in_index=1, num_convs=2, up_scale=2, kernel_size=3),
+    auxiliary_head=[dict(
+        type='SETRUPHead', in_channels=64, channels=16, num_classes=5,
+        in_index=i, num_convs=1, up_scale=4, kernel_size=3)
+        for i in range(2)],
+    test_cfg=dict(mode='whole'))
+"""
+
+
+def write_tiny_config(directory, mode: str = 'whole') -> str:
+    text = TINY_CFG
+    if mode == 'slide':
+        text = text.replace(
+            "test_cfg=dict(mode='whole')",
+            "test_cfg=dict(mode='slide', crop_size=(64, 64), stride=(40, 40))")
+    path = directory / f'tiny_{mode}.py'
+    path.write_text(text)
+    return str(path)
+
+
+def perturbed(tree, seed: int, std: float = 0.1):
+    """numpy copy of a JAX variables tree with every float leaf perturbed;
+    BN variances are scaled by exp(noise), so they stay positive."""
+    import jax
+    rs = np.random.RandomState(seed)
+    flat, treedef = jax.tree_util.tree_flatten_with_path(tree)
+    out = []
+    for path, leaf in flat:
+        a = np.asarray(leaf, np.float32)
+        noise = rs.normal(0.0, std, a.shape).astype(np.float32)
+        if getattr(path[-1], 'key', None) == 'var':
+            out.append(a * np.exp(noise))
+        else:
+            out.append(a + noise)
+    return jax.tree_util.tree_unflatten(treedef, out)
+
+
+def jax_variables(jax_segmentor, seed: int = 0):
+    """Perturbed numpy variables {'params', 'batch_stats'} of a JAX
+    Segmentor."""
+    return perturbed({'params': jax_segmentor.variables['params'],
+                      'batch_stats': jax_segmentor.variables['batch_stats']},
+                     seed)
+
+
+def image_batch(seed: int, h: int, w: int) -> np.ndarray:
+    """[1, h, w, 3] normalised-image-like float32 input."""
+    return np.random.RandomState(seed).normal(
+        0.0, 1.0, (1, h, w, 3)).astype(np.float32)
+
+
+def assert_argmax_agrees(p_ref: np.ndarray, p: np.ndarray, tol: float):
+    """Labels must agree wherever the reference's top-2 margin exceeds
+    ``tol`` (elsewhere the order is within the stated tolerance)."""
+    top2 = np.sort(p_ref, axis=-1)[..., -2:]
+    sure = (top2[..., 1] - top2[..., 0]) > tol
+    assert sure.mean() > 0.5
+    np.testing.assert_array_equal(p_ref.argmax(-1)[sure], p.argmax(-1)[sure])
