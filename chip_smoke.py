@@ -3,13 +3,24 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from the sources in this checkout, holds each kernel
-to its plain PyTorch version on the card, then serves the flagship model
-(DeiT-B SETR-PUP at 512², seeded random weights) through the port's entry
-points: once in f32 against the same model on the CPU, then in the config's
-bf16 over the fixture images, plain and with the teacher-PASA bias. Every
-phase prints one JSON line; any failed check raises and the script exits
-nonzero without its last line. The last line is the device summary
+Builds the CUDA kernels from the sources in this checkout (one nvcc per
+source, started together), holds each kernel to its plain PyTorch version
+on the card, then drives the port's two paths through its entry points:
+
+- serving: the flagship model (DeiT-B SETR-PUP at 512², seeded random
+  weights) once in f32 against the same model on the CPU, then in the
+  config's bf16 over the fixture images, plain and with the teacher-PASA
+  bias;
+- training: the S4Former step (``semi.train_step``) of
+  ``..._MT_w_ours.py``, one f32 step against the same step on the CPU at
+  4 layers, then bf16 at full depth on 8+8 fixture images at 512² (timed
+  and profiled), one step each of ``..._MT.py`` and ``..._sup.py``, and a
+  supervised step at 768² crops (L = 2305 tokens: the two-kernel backward).
+
+Every phase prints one JSON line; any failed check raises and the script
+exits nonzero without its last line. Each path runs with the kernels'
+launch counts set to 0 just before it and read just after. The line before
+the last lists the kernels; the last line is the device summary
 ``{"ok": true, "device": {...}}``. Without CUDA it fails at once: there is
 no CPU fallback. Imports nothing of JAX or of the JAX package.
 """
@@ -21,11 +32,16 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-CONFIG = os.path.join(
-    REPO, 'configs', 'setr', 'setr_deit-base_pup_bs_8_512x512_80k_pascal_'
-    '1over16_split_classic_sup.py')
+_CFG_STEM = os.path.join(REPO, 'configs', 'setr', 'setr_deit-base_pup_bs_8_'
+                         '512x512_80k_pascal_1over16_split_classic_')
+CONFIGS = {'sup': _CFG_STEM + 'sup.py',
+           'MT': _CFG_STEM + 'semi_beta_1_th_0.95_MT.py',
+           'ours': _CFG_STEM + 'semi_beta_1_th_0.95_MT_w_ours.py'}
+CONFIG = CONFIGS['sup']
 IMAGES = os.path.join(REPO, 'data', 'fixtures', 'voc_mini', 'JPEGImages',
                       '*.jpg')
+LABELS = os.path.join(REPO, 'data', 'fixtures', 'voc_mini',
+                      'SegmentationClass')
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 without
 # tensor cores (the f32 kernel must not round to TF32), HBM3 bandwidth
 PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
@@ -38,6 +54,28 @@ TOL = {'float32': {'o': 1e-4, 'lse': 1e-4},
 # main path f32, card vs CPU, on softmax probabilities: 12 layers and 5
 # convs of f32 sums in another order (cuBLAS/cuDNN vs the CPU's kernels)
 TOL_MAIN_F32 = 1e-3
+# backward kernels vs the plain backward: the max abs error of each of dq,
+# dk, dv over that gradient's max |value|. Both compute p and ds alike; the
+# fused kernel's dq adds its k tiles' sums atomically, in a run-dependent
+# order. f32: those sums in another order; bf16: then the rounding of dq to
+# bf16, which moves it by at most one ulp, 2^-7 = 7.8e-3 of its max |value|
+TOL_BWD = {'float32': 1e-4, 'bfloat16': 1e-2}
+# the backward kernels' L x L x D products and the [B, L, H, D] outputs
+# they write (each reads q, k, v, o, do): the fused kernel does s, dp, dv,
+# dk and dq, the dk/dv kernel all but dq, the dq kernel s, dp and dq
+BWD_WORK = {'flash_attn_bwd_fused': (5, 3), 'flash_attn_bwd_dkv': (4, 2),
+            'flash_attn_bwd_dq': (3, 1)}
+# one f32 training step, card vs CPU: losses relative, parameter updates
+# relative to the largest CPU update (4 layers, 5 heads, f32 sums in
+# another order, and pseudo-labels thresholded on the teacher's output)
+TOL_TRAIN_F32 = 1e-3
+# the teacher's max softmax probability over 21 classes with the seeded
+# random weights of the 4-layer f32 model lies in 0.05-0.082 (median 0.072)
+# on the fixture image, so 0.1 would leave no pixel confident; 0.07 makes
+# about half of them confident and the unsup losses live
+UNSUP_CONFIDENCE_F32 = 0.07
+KERNELS = ('flash_attn_fwd', 'flash_attn_bwd_fused', 'flash_attn_bwd_dkv',
+           'flash_attn_bwd_dq')
 
 
 class SmokeFailure(RuntimeError):
@@ -74,9 +112,28 @@ def cuda_time_ms(fn, iters=50, warmup=5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_time_ms(fn, iters=20) -> float:
+    """Device time of one ``fn()`` replayed from a CUDA graph: a library
+    call's time without the host's dispatch, which at the smaller shapes
+    takes longer than the call's kernels and would be timed instead."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm-up off the capture stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = cuda_time_ms(graph.replay, iters=iters, warmup=2)
+    del graph
+    return ms
+
+
 def attention_inputs(b, l, h, dtype, bias_kind, gen):
     """q, k, v as the ViT makes them (strided views of one fused qkv
-    projection) and a bias of the given kind."""
+    projection) and a bias of the given kind, in their dtype."""
     import torch
     from s4former_tpu_torch.semi.pasa import build_pasa_bias
     d = 64
@@ -90,23 +147,41 @@ def attention_inputs(b, l, h, dtype, bias_kind, gen):
     else:
         heads = 1 if bias_kind == 'random_b1' else h
         bias = torch.randn((b, heads, l, l), generator=gen, device='cuda')
-    return q, k, v, bias
+    return q, k, v, None if bias is None else bias.to(dtype)
 
 
-def flash_bound_ms(q, bias):
-    """Least time on the card: the larger of the operations over the peak
-    for the dtype and the bytes (q, k, v, o, lse once; the bias once per
-    image, or per head when it has one per head) over HBM bandwidth."""
+def bound_ms(q, bias, n_products, n_tensors):
+    """Least time on the card for attention-shaped work on q's shapes: the
+    larger of its ``n_products`` L x L x D products (2 L^2 D FLOP each per
+    image and head) over the dtype's peak, and its bytes over HBM bandwidth:
+    ``n_tensors`` [B, L, H, D] tensors read or written once, one f32 row
+    statistic [B, H, L], and the bias read once (per image, or per head
+    when it has one per head)."""
     b, l, h, d = q.shape
     elt = q.element_size()
-    flops = 4.0 * b * h * l * l * d
-    nbytes = 4 * b * l * h * d * elt + b * h * l * 4
+    flops = 2.0 * l * l * d * n_products * b * h
+    nbytes = n_tensors * b * l * h * d * elt + b * h * l * 4
     if bias is not None:
         nbytes += b * bias.shape[1] * l * l * elt
     t_ops = flops / PEAK_FLOPS[str(q.dtype).replace('torch.', '')] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ('operations' if t_ops >= t_bytes
                                  else 'bytes')
+
+
+def check_forward(fa, q, k, v, bias, o, lse, where):
+    """The forward kernel's o and lse against the plain forward at TOL.
+    Returns the max abs error of o."""
+    import torch
+    ro, rlse = fa.flash_attention_reference(q, k, v, bias)
+    err_o = (o.float() - ro.float()).abs().max().item()
+    err_lse = (lse - rlse).abs().max().item()
+    tol = TOL[str(q.dtype).replace('torch.', '')]
+    check(torch.isfinite(o).all().item(), f'non-finite o {where}')
+    check(err_o <= tol['o'] and err_lse <= tol['lse'],
+          f'forward kernel disagrees with plain: {where} err_o={err_o} '
+          f'err_lse={err_lse}')
+    return err_o, err_lse
 
 
 def phase_kernels(fa):
@@ -123,30 +198,25 @@ def phase_kernels(fa):
                                 (1, 1025, None), (1, 1025, 'pasa')):
             q, k, v, bias = attention_inputs(b, l, 12, dtype, bias_kind, gen)
             o, lse = fa.flash_attention_fwd(q, k, v, bias)
-            torch.cuda.synchronize()
-            ro, rlse = fa.flash_attention_reference(q, k, v, bias)
-            err_o = (o.float() - ro.float()).abs().max().item()
-            err_lse = (lse - rlse).abs().max().item()
             name = str(dtype).replace('torch.', '')
             tol = TOL[name]
-            check(torch.isfinite(o).all().item(), f'non-finite o {name}')
-            check(err_o <= tol['o'] and err_lse <= tol['lse'],
-                  f'kernel disagrees with plain: {name} B={b} L={l} '
-                  f'bias={bias_kind} err_o={err_o} err_lse={err_lse}')
+            err_o, err_lse = check_forward(fa, q, k, v, bias, o, lse,
+                                           f'{name} B={b} L={l} '
+                                           f'bias={bias_kind}')
             case = dict(dtype=name, B=b, L=l, H=12, D=64, bias=bias_kind,
                         max_abs_err=err_o, lse_max_abs_err=err_lse,
                         tol_o=tol['o'], tol_lse=tol['lse'])
             if l == 1025:
-                bq = bias.to(dtype) if bias is not None else None
                 qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
                 case['ms'] = cuda_time_ms(
                     lambda: fa.flash_attention_fwd(q, k, v, bias))
                 case['plain_ms'] = cuda_time_ms(
                     lambda: fa.flash_attention_reference(q, k, v, bias))
-                case['library_ms'] = cuda_time_ms(
+                case['library_ms'] = graph_time_ms(
                     lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                           attn_mask=bq))
-                case['bound_ms'], case['bound_by'] = flash_bound_ms(q, bias)
+                                                           attn_mask=bias))
+                # 2 products (q k^T, p v); q, k, v read, o written, lse
+                case['bound_ms'], case['bound_by'] = bound_ms(q, bias, 2, 4)
             cases.append(case)
             emit({'phase': 'kernel_check', **case})
     # the headline entry: the shape and type the served requests launch
@@ -165,14 +235,160 @@ def phase_kernels(fa):
             'cases': [c for c in cases if 'ms' in c]}
 
 
-def load_config(dtype):
+def counts(fa):
+    return {'flash_attn_fwd': fa.launch_count,
+            'flash_attn_bwd_fused': fa.fused_launch_count,
+            'flash_attn_bwd_dkv': fa.dkv_launch_count,
+            'flash_attn_bwd_dq': fa.dq_launch_count}
+
+
+def reset_counts(fa):
+    fa.launch_count = fa.fused_launch_count = 0
+    fa.dkv_launch_count = fa.dq_launch_count = 0
+
+
+def grad_errors(got, ref):
+    """max abs error and max |value| of the plain gradient, per gradient:
+    ([err_dq, err_dk, err_dv], [max_dq, max_dk, max_dv])."""
+    errs = [(a.float() - r.float()).abs().max().item()
+            for a, r in zip(got, ref)]
+    return errs, [r.float().abs().max().item() for r in ref]
+
+
+def phase_kernels_bwd(fa):
+    """Each backward kernel vs the plain backward on the card, at the
+    training path's shapes (B = 8 and the fused 2B pass's 16 at L = 1025,
+    no bias / PASA / per-head bias), the ragged L = 130 and L = 2305 (768²
+    crops); the forward that gives them o and lse is held to the plain
+    forward at each. Times at the headline shapes. Returns the kernels
+    line's entries and the forward's max abs error in bf16."""
+    import torch
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    shapes = [(1, 1025, None), (1, 1025, 'pasa'), (1, 1025, 'random_bh'),
+              (2, 1025, None), (2, 1025, 'pasa'), (8, 1025, None),
+              (16, 1025, 'pasa'), (2, 130, 'random_b1'), (2, 130, None),
+              (2, 2305, None), (1, 2305, 'pasa')]
+    timed = {('bfloat16', 1, 1025, None), ('bfloat16', 8, 1025, None),
+             ('bfloat16', 16, 1025, 'pasa'), ('bfloat16', 2, 2305, None)}
+    launchers = {'flash_attn_bwd_fused': fa.launch_bwd_fused,
+                 'flash_attn_bwd_dkv': fa.launch_bwd_dkv,
+                 'flash_attn_bwd_dq': fa.launch_bwd_dq}
+    entries = {name: [] for name in BWD_WORK}
+    fwd_err_bf16 = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace('torch.', '')
+        for b, l, bias_kind in shapes:
+            where = f'{dname} B={b} L={l} bias={bias_kind}'
+            q, k, v, bias = attention_inputs(b, l, 12, dtype, bias_kind, gen)
+            do = torch.randn(q.shape, generator=gen, device='cuda').to(dtype)
+            o, lse = fa.flash_attention_fwd(q, k, v, bias)
+            err_o, err_lse = check_forward(fa, q, k, v, bias, o, lse, where)
+            emit({'phase': 'kernel_check', 'dtype': dname, 'B': b, 'L': l,
+                  'H': 12, 'D': 64, 'bias': bias_kind, 'max_abs_err': err_o,
+                  'lse_max_abs_err': err_lse, 'tol_o': TOL[dname]['o'],
+                  'tol_lse': TOL[dname]['lse'], 'for': 'kernel_check_bwd'})
+            if dname == 'bfloat16':
+                fwd_err_bf16 = max(fwd_err_bf16, err_o)
+            delta = fa.row_delta(o, do)
+            args = (q, k, v, bias, do, lse, delta)
+            ref = fa.flash_attention_backward_reference(q, k, v, bias, o, lse,
+                                                        do)
+            dk, dv = fa.launch_bwd_dkv(*args)
+            runs = {'flash_attn_bwd_dkv': (ref[0], dk, dv),
+                    'flash_attn_bwd_dq': (fa.launch_bwd_dq(*args),) + ref[1:]}
+            if l <= fa.FULL_Q_MAX:
+                runs['flash_attn_bwd_fused'] = fa.launch_bwd_fused(*args)
+            torch.cuda.synchronize()
+            tol = TOL_BWD[dname]
+            is_timed = (dname, b, l, bias_kind) in timed
+            if is_timed:    # one plain and one library time per shape
+                plain_ms = cuda_time_ms(
+                    lambda: fa.flash_attention_backward_reference(
+                        q, k, v, bias, o, lse, do), iters=5, warmup=1)
+                library_ms = sdpa_backward_ms(q, k, v, bias, do)
+            for name, got in runs.items():
+                errs, peaks = grad_errors(got, ref)
+                rel = max(e / p for e, p in zip(errs, peaks))
+                case = dict(dtype=dname, B=b, L=l, H=12, D=64,
+                            bias=bias_kind, max_abs_err=max(errs),
+                            abs_err_dq_dk_dv=errs, max_abs_dq_dk_dv=peaks,
+                            max_rel_err=rel, tol=tol)
+                if is_timed:
+                    case['ms'] = cuda_time_ms(
+                        lambda: launchers[name](*args), iters=10, warmup=2)
+                    case['plain_ms'] = plain_ms
+                    case['library_ms'] = library_ms
+                    products, outputs = BWD_WORK[name]
+                    case['bound_ms'], case['bound_by'] = bound_ms(
+                        q, bias, products, 5 + outputs)
+                entries[name].append(case)
+                emit({'phase': 'kernel_check_bwd', 'kernel': name, **case})
+                check(all(torch.isfinite(t).all().item() for t in got),
+                      f'non-finite {name} {where}')
+                check(rel <= tol, f'{name} disagrees with the plain backward:'
+                      f' {where} err={errs} max |grad|={peaks}')
+            del ref, runs, args, o, lse, do, dk, dv, delta
+    out = {}
+    headline = {'flash_attn_bwd_fused': (16, 1025, 'pasa'),
+                'flash_attn_bwd_dkv': (2, 2305, None),
+                'flash_attn_bwd_dq': (2, 2305, None)}
+    for name, cases in entries.items():
+        b, l, bias_kind = headline[name]
+        main = next(c for c in cases if c['dtype'] == 'bfloat16' and
+                    (c['B'], c['L'], c['bias']) == (b, l, bias_kind))
+        out[name] = {
+            'name': name, 'route': 'cuda',
+            'source': 's4former_tpu_torch/ops/csrc/flash_attn_bwd.cu',
+            'replaces': {'flash_attn_bwd_fused':
+                         's4former_tpu/ops/flash_attention.py:251',
+                         'flash_attn_bwd_dkv':
+                         's4former_tpu/ops/flash_attention.py:197',
+                         'flash_attn_bwd_dq':
+                         's4former_tpu/ops/flash_attention.py:372'}[name],
+            'launches': None,
+            'max_abs_err': max(c['max_abs_err'] for c in cases
+                               if c['dtype'] == 'bfloat16'),
+            'max_rel_err': max(c['max_rel_err'] for c in cases
+                               if c['dtype'] == 'bfloat16'),
+            'max_rel_err_is': 'max abs error / max |grad|, per gradient, bf16',
+            'ms': main['ms'], 'plain_ms': main['plain_ms'],
+            'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
+            'library_ms': main['library_ms'],
+            'shape': f'B={b} L={l} H=12 D=64 bfloat16, bias={bias_kind}',
+            'cases': [c for c in cases if 'ms' in c]}
+    return out, fwd_err_bf16
+
+
+def sdpa_backward_ms(q, k, v, bias, do):
+    """The backward of F.scaled_dot_product_attention with the same mask
+    (dq, dk and dv together: the library call that covers each of the
+    three kernels): forward + torch.autograd.grad, minus the forward, each
+    replayed from a CUDA graph."""
+    import torch
+    import torch.nn.functional as F
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qt, kt, vt), dot)
+    return graph_time_ms(fwd_bwd) - graph_time_ms(fwd)
+
+
+def load_config(dtype, name='sup', num_layers=None):
     from s4former_tpu_torch.config import Config
-    cfg = Config.fromfile(CONFIG)
+    cfg = Config.fromfile(CONFIGS[name])
     if dtype is not None:
         cfg.model.backbone.dtype = dtype
         cfg.model.decode_head.dtype = dtype
         for head in cfg.model.auxiliary_head:
             head.dtype = dtype
+    if num_layers is not None:
+        cfg.model.backbone.num_layers = num_layers
+        cfg.model.backbone.out_indices = tuple(range(num_layers))
     return cfg
 
 
@@ -230,7 +446,7 @@ def phase_main_bf16(fa, images, p_f32, gpu_line):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     latencies, pasa_lat = [], []
-    fa.launch_count = 0                            # the main path starts
+    reset_counts(fa)                               # the main path starts
     for path in images:
         with Image.open(path) as im:
             hw = (im.height, im.width)
@@ -254,7 +470,8 @@ def phase_main_bf16(fa, images, p_f32, gpu_line):
         check(n == 24, f'teacher-PASA request launched the kernel {n} '
               f'times, not 24 (teacher + student)')
         check(labels.shape == hw, f'bad PASA label map for {path}')
-    launches = fa.launch_count                     # the main path ends
+    path_counts = counts(fa)                       # the main path ends
+    launches = path_counts['flash_attn_fwd']
     lat = np.asarray(latencies)
     prep = []                  # the host's decode + normalise + pad alone
     for path in images:
@@ -277,21 +494,23 @@ def phase_main_bf16(fa, images, p_f32, gpu_line):
               (p_bf16 - p_f32).abs().max().item(),
           'bf16_vs_f32_argmax_agreement':
               (p_bf16.argmax(-1) == p_f32.argmax(-1)).float().mean().item(),
-          'launches': launches, 'gpu': gpu_line})
-    return seg, launches
+          'launches': path_counts, 'gpu': gpu_line})
+    check(path_counts['flash_attn_bwd_fused'] == 0 and
+          path_counts['flash_attn_bwd_dkv'] == 0, 'serving ran a backward')
+    return seg, path_counts
 
 
-def phase_profile(seg, images):
-    """Device time by kernel over one bf16 request (torch.profiler), and
-    the device's busy share of the request's wall time."""
+def device_profile(fn, n_top):
+    """Run ``fn()`` once under torch.profiler: (its result, the wall time,
+    the device time by kernel and the device's busy share of the wall
+    time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from s4former_tpu_torch.apis import inference_segmentor
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        inference_segmentor(seg, images[1])
+        out = fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
@@ -299,10 +518,236 @@ def phase_profile(seg, images):
                    if ev.device_type == DeviceType.CUDA and
                    ev.self_device_time_total > 0), reverse=True)
     device_us = sum(r[0] for r in rows)
-    emit({'phase': 'profile_bf16_request', 'wall_us': wall_us,
-          'device_us': device_us, 'device_busy_share': device_us / wall_us,
-          'top': [{'kernel': k[:100], 'device_us': us, 'calls': n}
-                  for us, k, n in rows[:14]]})
+    return out, {'wall_us': wall_us, 'device_us': device_us,
+                 'device_busy_share': device_us / wall_us,
+                 'top': [{'kernel': k[:100], 'device_us': us, 'calls': n}
+                         for us, k, n in rows[:n_top]]}
+
+
+def phase_profile(seg, images):
+    """Device time by kernel over one bf16 request, and the device's busy
+    share of the request's wall time."""
+    from s4former_tpu_torch.apis import inference_segmentor
+    _, prof = device_profile(lambda: inference_segmentor(seg, images[1]), 14)
+    emit({'phase': 'profile_bf16_request', **prof})
+
+
+def fixture_arrays(images, size):
+    """Normalised NHWC images and their label maps, padded bottom/right to
+    size x size (image 0, label 255) as the configs' Pad does, or cropped
+    top-left where larger."""
+    import numpy as np
+    from PIL import Image
+    from s4former_tpu_torch.apis import _DEFAULT_NORM
+    mean = np.asarray(_DEFAULT_NORM['mean'], np.float32)
+    std = np.asarray(_DEFAULT_NORM['std'], np.float32)
+    xs, ys = [], []
+    for path in images:
+        stem = os.path.splitext(os.path.basename(path))[0]
+        with Image.open(path) as im:
+            x = (np.asarray(im.convert('RGB'), np.float32) - mean) / std
+        with Image.open(os.path.join(LABELS, stem + '.png')) as im:
+            y = np.asarray(im).astype(np.int64)
+        x, y = x[:size, :size], y[:size, :size]
+        h, w = y.shape
+        xs.append(np.pad(x, ((0, size - h), (0, size - w), (0, 0))))
+        ys.append(np.pad(y, ((0, size - h), (0, size - w)),
+                         constant_values=255))
+    return np.stack(xs), np.stack(ys)
+
+
+def train_batch(images, n_sup, n_unsup, size=512):
+    """The step's batch: sup images + labels, and unsup images for the
+    teacher and the student (the same views: the augmentation pipelines
+    are not ported)."""
+    x, y = fixture_arrays(images[:n_sup + n_unsup], size)
+    batch = {'sup_img': x[:n_sup], 'sup_gt': y[:n_sup]}
+    if n_unsup:
+        batch['unsup_teacher_img'] = x[n_sup:]
+        batch['unsup_student_img'] = x[n_sup:]
+    return batch
+
+
+def step_kwargs(cfg):
+    """make_semi_train_step's schedule and optimizer from a config."""
+    opt, lr = cfg.optimizer, cfg.lr_config
+    keys = (opt.get('paramwise_cfg') or {}).get('custom_keys') or {}
+    return dict(base_lr=opt.lr, max_iters=cfg.runner.max_iters,
+                power=lr.power, min_lr=lr.min_lr, sgd_momentum=opt.momentum,
+                weight_decay=opt.weight_decay,
+                custom_keys={k: v['lr_mult'] for k, v in keys.items()})
+
+
+def make_trainer(name, device, dtype=None, num_layers=None, **semi_over):
+    """(state, train_step, cfg) for config ``name`` through the port's
+    entry points, with seeded random weights."""
+    import dataclasses
+    from s4former_tpu_torch.apis import init_segmentor
+    from s4former_tpu_torch.semi.config import SemiConfig
+    from s4former_tpu_torch.semi.train_step import (create_train_state,
+                                                    make_semi_train_step)
+    cfg = load_config(dtype, name, num_layers)
+    semi = dataclasses.replace(SemiConfig.from_model_cfg(cfg.model),
+                               **semi_over)
+    model = init_segmentor(cfg, seed=0, device=device).model
+    state = create_train_state(model, ema=semi.ema)
+    step = make_semi_train_step(model, semi, model.num_classes,
+                                **step_kwargs(cfg))
+    return state, step, cfg
+
+
+def to_device(batch, device):
+    import torch
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def floats(logs):
+    return {k: float(v) for k, v in logs.items()}
+
+
+def phase_train_f32_vs_cpu(fa, images):
+    """One S4Former step of ``..._MT_w_ours.py`` in f32 at full width, depth
+    cut to 4 layers (out_indices 0-3), 1 sup + 1 unsup image at 512², the
+    same CutMix box and PatchShuffle permutation: on the card and on the
+    CPU from the same weights. The threshold is UNSUP_CONFIDENCE_F32 so the
+    unsup losses are live. Returns the card's launch counts."""
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batch = train_batch(images, 1, 1)
+    mask = np.ones((1, 512, 512), np.float32)
+    mask[0, 96:352, 128:320] = 0
+    batch['dbg_cutmix_mask'] = mask
+    batch['dbg_patchmix_perm'] = np.random.RandomState(0).permutation(
+        16)[None].astype(np.int32)
+    runs = {}
+    for device in ('cuda', 'cpu'):
+        state, step, _ = make_trainer(
+            'ours', device, 'float32', 4,
+            unsup_confidence=UNSUP_CONFIDENCE_F32)
+        before = {n: p.detach().cpu().clone()
+                  for n, p in state.model.named_parameters()}
+        dev_batch = to_device(batch, device)
+        reset_counts(fa)
+        t0 = time.perf_counter()
+        state, logs = step(state, dev_batch,
+                           torch.Generator(device=device).manual_seed(0))
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        delta = {n: p.detach().cpu() - before[n]
+                 for n, p in state.model.named_parameters()}
+        runs[device] = (floats(logs), delta, seconds, counts(fa))
+        del state, step, dev_batch
+        torch.cuda.empty_cache()
+    (lg, dg, sg, cg), (lc, dc, sc, cc) = runs['cuda'], runs['cpu']
+    check(cg == {'flash_attn_fwd': 12, 'flash_attn_bwd_fused': 8,
+                 'flash_attn_bwd_dkv': 0, 'flash_attn_bwd_dq': 0},
+          f'f32 step launches {cg}')
+    check(not any(cc.values()), 'the CPU step reached a kernel')
+    check(sorted(lg) == sorted(lc), 'log keys differ')
+    loss_err = {k: abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-6) for k in lc}
+    scale = max(d.abs().max().item() for d in dc.values())
+    upd_err = max((dg[n] - dc[n]).abs().max().item() for n in dc)
+    emit({'phase': 'train_f32_vs_cpu', 'config': 'ours',
+          'cut': 'num_layers 12 -> 4, out_indices (0, 1, 2, 3)',
+          'batch': f'1 sup + 1 unsup at 512², unsup_confidence '
+                   f'{UNSUP_CONFIDENCE_F32}',
+          'losses_card': lg, 'losses_cpu': lc, 'loss_rel_err': loss_err,
+          'update_max_abs_err': upd_err, 'update_max_abs_cpu': scale,
+          'tol': TOL_TRAIN_F32, 'card_step_s': sg, 'cpu_step_s': sc,
+          'launches': cg})
+    check(lc['mask_ratio'] > 0 and lc['unsup.loss_seg_unsup'] > 0,
+          'the unsup losses are not live')
+    check(all(np.isfinite(v) for v in lg.values()), 'non-finite losses')
+    check(max(loss_err.values()) <= TOL_TRAIN_F32,
+          f'f32 losses, card vs CPU: {loss_err}')
+    check(upd_err <= TOL_TRAIN_F32 * scale,
+          f'f32 parameter updates differ by {upd_err} (max {scale})')
+    return cg
+
+
+def timed_steps(state, step, batch, gen, n):
+    import torch
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        state, logs = step(state, batch, gen)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return state, logs, ms
+
+
+def phase_train_bf16(fa, images, gpu_line):
+    """The flagship ``..._MT_w_ours.py`` as written (bf16, 12 layers), the
+    global batch of bench.py on one card: 8 sup + 8 unsup fixture images at
+    512². 2 warm-up steps, 5 timed. Returns (state, step, batch, gen,
+    counts of the timed steps)."""
+    import numpy as np
+    import torch
+    state, step, cfg = make_trainer('ours', 'cuda')
+    check(cfg.model.backbone.dtype == 'bfloat16', 'flagship dtype')
+    batch = to_device(train_batch(images, 8, 8), 'cuda')
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    state, _, warm_ms = timed_steps(state, step, batch, gen, 2)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa)                               # the main path starts
+    state, logs, ms = timed_steps(state, step, batch, gen, 5)
+    path_counts = counts(fa)                       # the main path ends
+    lg = floats(logs)
+    ms_arr = np.asarray(ms)
+    emit({'phase': 'train_bf16', 'config': 'ours', 'batch': '8 + 8 at 512²',
+          'warmup_step_ms': warm_ms, 'step_ms': ms,
+          'step_ms_mean': float(ms_arr.mean()),
+          'step_ms_p50': float(np.median(ms_arr)),
+          'img_per_s': 16 / (ms_arr.mean() / 1e3),
+          'peak_mem_bytes': torch.cuda.max_memory_allocated(),
+          'mask_ratio': lg['mask_ratio'], 'logs': lg,
+          'launches': path_counts,
+          'launches_per_step': {k: v / 5 for k, v in path_counts.items()},
+          'gpu': gpu_line})
+    check(all(np.isfinite(v) for v in lg.values()), f'non-finite logs {lg}')
+    check(path_counts == {'flash_attn_fwd': 36 * 5,
+                          'flash_attn_bwd_fused': 24 * 5,
+                          'flash_attn_bwd_dkv': 0, 'flash_attn_bwd_dq': 0},
+          f'flagship step launches {path_counts}, not 36 forward and 24 '
+          f'fused backward a step')
+    return state, step, batch, gen, path_counts
+
+
+def phase_profile_train(state, step, batch, gen):
+    """Device time by kernel over one flagship bf16 step, and the device's
+    busy share of the step's wall time."""
+    (state, _), prof = device_profile(lambda: step(state, batch, gen), 20)
+    emit({'phase': 'profile_train_step', 'config': 'ours', **prof})
+    return state
+
+
+def phase_train_one_step(fa, images, phase, name, n_sup, n_unsup, expect,
+                         size=512):
+    """One bf16 step of another flagship config through the same entry
+    points, checked for finite logs and the kernels' launch counts.
+    Returns the step's counts."""
+    import numpy as np
+    import torch
+    state, step, _ = make_trainer(name, 'cuda')
+    batch = to_device(train_batch(images, n_sup, n_unsup, size), 'cuda')
+    reset_counts(fa)
+    state, logs, ms = timed_steps(state, step, batch,
+                                  torch.Generator(device='cuda').manual_seed(0),
+                                  1)
+    path_counts = counts(fa)
+    lg = floats(logs)
+    emit({'phase': phase, 'config': name,
+          'batch': f'{n_sup} + {n_unsup} at {size}²',
+          'tokens': (size // 16) ** 2 + 1, 'first_step_ms': ms[0],
+          'logs': lg, 'launches': path_counts})
+    check(all(np.isfinite(v) for v in lg.values()), f'non-finite logs {lg}')
+    check(path_counts == expect, f'{phase} step launches {path_counts}')
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return path_counts
 
 
 def main() -> int:
@@ -322,22 +767,63 @@ def main() -> int:
     from s4former_tpu_torch.ops import cuda_build
     from s4former_tpu_torch.ops import flash_attention as fa
     t0 = time.perf_counter()
+    cuda_build.build_all([fa.SOURCE, fa.BWD_SOURCE])
     fa.load_library()
-    log = cuda_build.library_path(fa.SOURCE).with_suffix('.log')
+    fa.load_bwd_library()
     emit({'phase': 'build', 'seconds': time.perf_counter() - t0,
-          'ptxas': [ln.strip() for ln in log.read_text().splitlines()
-                    if 'registers' in ln or 'spill' in ln]})
+          'ptxas': [ln.strip() for src in (fa.SOURCE, fa.BWD_SOURCE)
+                    for ln in cuda_build.library_path(src).with_suffix(
+                        '.log').read_text().splitlines()
+                    if 'registers' in ln or 'spill' in ln
+                    or 'Compiling entry' in ln]})
 
     images = sorted(glob.glob(IMAGES))
     check(len(images) == 16, f'expected 16 fixture images, found '
           f'{len(images)}')
-    entry = phase_kernels(fa)
+    entries = {'flash_attn_fwd': phase_kernels(fa)}
+    bwd_entries, fwd_err_train = phase_kernels_bwd(fa)
+    entries.update(bwd_entries)
+    fwd = entries['flash_attn_fwd']     # the training shapes' forward too
+    fwd['max_abs_err'] = max(fwd['max_abs_err'], fwd_err_train)
+    paths = {}
     p_f32 = phase_main_f32(fa, images)
-    seg, entry['launches'] = phase_main_bf16(fa, images, p_f32, gpu_line)
+    seg, paths['serve_bf16'] = phase_main_bf16(fa, images, p_f32, gpu_line)
     phase_profile(seg, images)
+    del seg
+    torch.cuda.empty_cache()
 
+    paths['train_f32'] = phase_train_f32_vs_cpu(fa, images)
+    state, step, batch, gen, paths['train_bf16'] = phase_train_bf16(
+        fa, images, gpu_line)
+    state = phase_profile_train(state, step, batch, gen)
+    del state, step, batch, gen
+    torch.cuda.empty_cache()
+    # ..._MT.py takes the sequential unsup path, ..._sup.py has no unsup
+    # branch
+    paths['train_bf16_MT'] = phase_train_one_step(
+        fa, images, 'train_bf16_MT', 'MT', 8, 8,
+        {'flash_attn_fwd': 36, 'flash_attn_bwd_fused': 24,
+         'flash_attn_bwd_dkv': 0, 'flash_attn_bwd_dq': 0})
+    paths['train_bf16_sup'] = phase_train_one_step(
+        fa, images, 'train_bf16_sup', 'sup', 8, 0,
+        {'flash_attn_fwd': 12, 'flash_attn_bwd_fused': 12,
+         'flash_attn_bwd_dkv': 0, 'flash_attn_bwd_dq': 0})
+    # 2 images cropped/padded to 768², the Cityscapes crop of
+    # configs/_base_/datasets/cityscapes_768x768_1over16_split_CPS_semi.py:
+    # the pos-embed is resized at run time, and L = 2305 > FULL_Q_MAX takes
+    # the dk/dv + dq kernels
+    paths['train_long'] = phase_train_one_step(
+        fa, images, 'train_long', 'sup', 2, 0,
+        {'flash_attn_fwd': 12, 'flash_attn_bwd_fused': 0,
+         'flash_attn_bwd_dkv': 12, 'flash_attn_bwd_dq': 12}, size=768)
+
+    for name in KERNELS:
+        entries[name]['launches'] = sum(p[name] for p in paths.values())
+        entries[name]['launches_by_path'] = {k: p[name]
+                                             for k, p in paths.items()}
+        check(entries[name]['launches'] > 0, f'{name} never ran on a path')
     print(gpu_line)
-    emit({'kernels': [entry]})
+    emit({'kernels': [entries[name] for name in KERNELS]})
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})

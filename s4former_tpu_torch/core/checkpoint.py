@@ -14,6 +14,10 @@ The port's modules carry the reference (mmseg) parameter names, so its
   ``_resize_pos_embed_np`` (l.169).
 - ``ema_state_dict(sd)``: the EMA twin's keys (``backbone_ema.``,
   ``decode_head_ema.``) renamed onto the student's.
+- ``train_state_dicts_from_jax(state)``: the JAX ``TrainState`` (params,
+  batch_stats, SGD momentum, EMA params and EMA batch_stats) -> state dicts
+  under the port's names, so both packages can start training from one
+  state (``semi.train_step.train_state_from_jax`` builds the port's).
 
 Orbax checkpoint directories need JAX and are not read here.
 """
@@ -29,7 +33,7 @@ StateDict = Dict[str, torch.Tensor]
 
 
 def _t(x) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
+    return torch.from_numpy(np.array(x, order='C'))   # a writable copy
 
 
 def _conv(kernel) -> torch.Tensor:
@@ -130,6 +134,22 @@ def state_dict_from_jax_variables(variables: Mapping) -> StateDict:
                                ebs.get('decode_head_m', {}),
                                'decode_head_ema.'))
     return sd
+
+
+def train_state_dicts_from_jax(jax_state) -> Dict[str, Optional[StateDict]]:
+    """A JAX ``TrainState`` (any object with its fields; numpy-convertible
+    leaves) -> {'model': params + BN statistics, 'momentum': the SGD buffers
+    under the parameter names, 'ema': the teacher's params + BN statistics,
+    or None}."""
+    model = state_dict_from_jax_variables(
+        {'params': jax_state.params, 'batch_stats': jax_state.batch_stats})
+    momentum = state_dict_from_jax_variables({'params': jax_state.momentum})
+    ema = None
+    if jax_state.ema_params is not None:
+        ema = state_dict_from_jax_variables(
+            {'params': jax_state.ema_params,
+             'batch_stats': jax_state.ema_batch_stats or {}})
+    return {'model': model, 'momentum': momentum, 'ema': ema}
 
 
 def resize_pos_embed(pos: torch.Tensor, dst_grid: Tuple[int, int],

@@ -1,4 +1,4 @@
-"""DeiT/ViT backbone, eval mode (counterpart of
+"""DeiT/ViT backbone (counterpart of
 ``s4former_tpu/models/backbones/vit.py``; reference:
 mmseg/models/backbones/vit.py:187-569).
 
@@ -9,14 +9,19 @@ mmseg/models/backbones/vit.py:187-569).
 - Mixed precision as in flax: parameters are stored f32; matmuls and convs
   run in ``dtype``; LayerNorm statistics are taken in f32.
 - Attention runs through ``ops.attention.multi_head_attention``: the CUDA
-  flash kernel on the card, its plain version on the CPU. The kernel takes
-  head dim 64, that of every ViT config in ``configs/``.
+  flash kernels on the card (forward, and in training the backward), their
+  plain versions on the CPU. The kernels take head dim 64, that of every ViT
+  config in ``configs/``.
 - The 12 layers are a Python loop over ``nn.Module``s (the JAX package
   scans stacked parameters); the ``out_indices`` taps read the loop.
-- Train-only parts (dropout, drop-path, fdrop) are not ported yet; the
-  configs' ``drop_rate`` is accepted and has no effect in eval mode, as in
-  the JAX package's deterministic path. ``scan_unroll`` is a JAX compile
-  option the flagship config sets; it is accepted and means nothing here.
+- ``train=True`` is the training forward. With the flagship's zero rates
+  it computes what eval mode computes; dropout, drop-path and fdrop are not
+  ported, so a nonzero ``drop_rate``, ``attn_drop_rate`` or
+  ``drop_path_rate`` raises in train mode (in eval mode they are
+  identities, as in the JAX package), and ``use_fdrop`` raises in either
+  mode. ``scan_unroll`` is a JAX
+  compile option the flagship config sets; it is accepted and means
+  nothing here.
 """
 from __future__ import annotations
 
@@ -187,7 +192,7 @@ def _pos_embed_ablation(pos_embed: torch.Tensor, mode: str,
 
 @BACKBONES.register_module()
 class VisionTransformer(nn.Module):
-    """DeiT-style ViT backbone for SETR/S4Former, eval mode.
+    """DeiT-style ViT backbone for SETR/S4Former.
 
     ``forward`` returns a tuple of NHWC feature maps at ``out_indices`` and,
     with ``return_attn``, per-tap attention probabilities and the grid.
@@ -203,6 +208,8 @@ class VisionTransformer(nn.Module):
                  mlp_ratio: int = 4,
                  out_indices: Sequence[int] = (4, 7, 9, 11),
                  drop_rate: float = 0.0,
+                 attn_drop_rate: float = 0.0,
+                 drop_path_rate: float = 0.0,
                  with_cls_token: bool = True,
                  norm_eps: float = 1e-6,
                  scan_unroll: int = 1,
@@ -220,6 +227,9 @@ class VisionTransformer(nn.Module):
         self.out_indices = tuple(out_indices)
         self.with_cls_token = with_cls_token
         self.dtype = dtype
+        self.drop_rates = dict(drop_rate=drop_rate,
+                               attn_drop_rate=attn_drop_rate,
+                               drop_path_rate=drop_path_rate)
         self.patch_embed = PatchEmbed(in_channels, embed_dims, patch_size)
         if with_cls_token:
             self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dims))
@@ -232,11 +242,22 @@ class VisionTransformer(nn.Module):
             for _ in range(num_layers)])
 
     def forward(self, x: torch.Tensor, *,
+                train: bool = False,
                 attn_bias: Optional[torch.Tensor] = None,
                 pos_mode: str = 'default',
+                use_fdrop: bool = False,
                 return_attn: bool = False):
         """``x``: [B, H, W, 3] float. ``attn_bias``: [B, 1|heads, L+1, L+1]
-        additive logit bias (PASA), or None."""
+        additive logit bias (PASA), or None; it gets no gradient."""
+        live = [k for k, r in self.drop_rates.items() if r > 0 and train]
+        if live or use_fdrop:
+            raise NotImplementedError(
+                f'dropout is not ported: '
+                f'{live + (["use_fdrop"] if use_fdrop else [])}')
+        # flash attention takes the bias in the compute dtype: cast once
+        # here for every layer (the JAX wrapper casts it in each call)
+        layer_bias = None if attn_bias is None else \
+            attn_bias.detach().to(self.dtype)
         b, ih, iw, _ = x.shape
         p = self.patch_size
         # AdaptivePadding 'corner': zero-pad bottom/right so the stride-p
@@ -262,7 +283,7 @@ class VisionTransformer(nn.Module):
         states = []
         h = tokens
         for layer in self.layers:
-            h = layer(h, attn_bias)
+            h = layer(h, layer_bias)
             states.append(h)
 
         outs, attns = [], []

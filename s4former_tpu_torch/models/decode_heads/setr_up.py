@@ -1,12 +1,17 @@
-"""SETR-PUP decode head, eval mode (counterpart of
+"""SETR-PUP decode head (counterpart of
 ``s4former_tpu/models/decode_heads/setr_up.py``; reference:
 mmseg/models/decode_heads/setr_up_head.py).
 
-LayerNorm on tokens -> num_convs x [3x3 conv + BN + ReLU + bilinear up] ->
-1x1 classifier, on NHWC maps. Parameter names follow the reference layout
-(``norm``, ``up_convs.{i}.0.conv``, ``up_convs.{i}.0.bn``, ``conv_seg``).
-BN runs with its running statistics (eps 1e-5), in f32. The PatchShuffle
-undo and dropout are training-only and come with the training slice.
+[PatchShuffle undo on tokens] -> LayerNorm -> num_convs x [3x3 conv + BN +
+ReLU + bilinear up] -> 1x1 classifier, on NHWC maps. Parameter names follow
+the reference layout (``norm``, ``up_convs.{i}.0.conv``,
+``up_convs.{i}.0.bn``, ``conv_seg``).
+
+BN (eps 1e-5, statistics in f32) runs with its running statistics in eval
+mode and with the batch's in train mode, where it updates the running
+statistics as flax does: ``running = 0.9 running + 0.1 batch`` with the
+BIASED batch variance (``F.batch_norm`` would use the unbiased one). The
+JAX head's ``dropout_ratio`` > 0 is not ported and raises in train mode.
 """
 from __future__ import annotations
 
@@ -17,7 +22,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from s4former_tpu_torch.models.backbones.vit import layer_norm
-from s4former_tpu_torch.models.decode_heads.base import transform_inputs
+from s4former_tpu_torch.models.decode_heads.base import (
+    transform_inputs, unshuffle_feature_map)
 from s4former_tpu_torch.ops.resize import resize_bilinear
 from s4former_tpu_torch.registry import HEADS
 
@@ -33,9 +39,11 @@ def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d,
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode batch norm over the last (channel) axis, statistics in f32,
-    output in the input dtype. Holds exactly the reference's four tensors
-    (``weight``, ``bias``, ``running_mean``, ``running_var``)."""
+    """Batch norm over the last (channel) axis, statistics in f32, output in
+    the input dtype. Holds exactly the reference's four tensors (``weight``,
+    ``bias``, ``running_mean``, ``running_var``)."""
+
+    MOMENTUM = 0.9     # flax convention (torch's 0.1): weight of the old
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -45,10 +53,24 @@ class BatchNorm(nn.Module):
         self.register_buffer('running_mean', torch.zeros(num_features))
         self.register_buffer('running_var', torch.ones(num_features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
-        shift = self.bias - self.running_mean * scale
-        return (x.float() * scale + shift).to(x.dtype)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            scale = self.weight * torch.rsqrt(self.running_var + self.eps)
+            shift = self.bias - self.running_mean * scale
+            return (x.float() * scale + shift).to(x.dtype)
+        # flax BatchNorm: mean and E[x^2] in f32 over every axis but the
+        # last, var = E[x^2] - mean^2 (biased), clipped at 0
+        xf = x.float()
+        dims = tuple(range(x.dim() - 1))
+        mean = xf.mean(dim=dims)
+        var = ((xf * xf).mean(dim=dims) - mean * mean).clamp(min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(self.MOMENTUM).add_(
+                mean.detach() * (1.0 - self.MOMENTUM))
+            self.running_var.mul_(self.MOMENTUM).add_(
+                var.detach() * (1.0 - self.MOMENTUM))
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean) * mul + self.bias).to(x.dtype)
 
 
 class ConvBNReLU(nn.Module):
@@ -60,8 +82,8 @@ class ConvBNReLU(nn.Module):
                               padding=(kernel_size - 1) // 2, bias=False)
         self.bn = BatchNorm(out_channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.bn(conv_nhwc(x, self.conv, self.dtype)))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return F.relu(self.bn(conv_nhwc(x, self.conv, self.dtype), train))
 
 
 @HEADS.register_module()
@@ -86,6 +108,8 @@ class SETRUPHead(nn.Module):
                  norm_cfg: Optional[dict] = None,
                  init_cfg: Optional[Union[dict, list]] = None):
         super().__init__()
+        self.loss_decode = loss_decode   # read by the train step
+        self.dropout_ratio = dropout_ratio
         self.num_classes = num_classes
         self.num_convs = num_convs
         self.up_scale = up_scale
@@ -105,16 +129,26 @@ class SETRUPHead(nn.Module):
         return resize_bilinear(x, (x.shape[1] * factor, x.shape[2] * factor),
                                self.align_corners)
 
-    def forward(self, inputs) -> torch.Tensor:
+    def forward(self, inputs, *, train: bool = False,
+                patchmix_perm: Optional[torch.Tensor] = None,
+                patchmix_n: int = 0) -> torch.Tensor:
+        """``patchmix_perm`` [B, G*G] with ``patchmix_n`` > 0 undoes a
+        PatchShuffle on the token grid before the LayerNorm
+        (setr_up.py:84-90)."""
+        if train and self.dropout_ratio > 0:
+            raise NotImplementedError('SETRUPHead dropout_ratio > 0 in train '
+                                      'mode is not ported')
         x = transform_inputs(inputs, self.in_index, self.input_transform,
                              self.align_corners) \
             if isinstance(inputs, (list, tuple)) else inputs
+        if patchmix_perm is not None and patchmix_n:
+            x = unshuffle_feature_map(x, patchmix_perm, patchmix_n)
         x = layer_norm(x, self.norm, self.dtype)
         # the 1x1 classifier commutes with the last bilinear upsample (its
         # 2-tap rows sum to 1), so it runs first and the upsample moves
         # num_classes channels instead of `channels` (setr_up.py:92-132)
         for i, (block,) in enumerate(self.up_convs):
-            x = block(x)
+            x = block(x, train)
             if i < self.num_convs - 1:
                 x = self._upsample(x, self.up_scale)
         logits = conv_nhwc(x, self.conv_seg, self.dtype)

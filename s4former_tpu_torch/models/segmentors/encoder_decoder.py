@@ -1,12 +1,15 @@
-"""EncoderDecoder segmentor, eval mode (counterpart of
+"""EncoderDecoder segmentor (counterpart of
 ``s4former_tpu/models/segmentors/encoder_decoder.py``; reference:
 mmseg/models/segmentors/encoder_decoder.py).
 
 Holds only the network: backbone, decode head and aux heads. The semi
-algorithm's EMA teacher is the same module run with a second state dict
-(``apis.inference_with_teacher_pasa``). The aux heads are plain per-level
-modules under the reference's keys ``auxiliary_head.{i}.``; they are built
-and loaded but not run when serving. Necks are not ported yet.
+algorithm lives in ``semi/train_step.py``; its EMA teacher is a second copy
+of this module (``apis.inference_with_teacher_pasa`` runs it from a state
+dict instead). The aux heads are plain per-level modules under the
+reference's keys ``auxiliary_head.{i}.``; serving builds and loads them
+but runs them only in training. ``train`` selects the training forward
+(BN on batch statistics) per call, as the JAX methods' ``train`` argument
+does; it defaults to eval. Necks are not ported yet.
 """
 from __future__ import annotations
 
@@ -54,20 +57,27 @@ class EncoderDecoder(nn.Module):
     def num_classes(self) -> int:
         return self.decode_head.num_classes
 
-    def extract_feat(self, img: torch.Tensor, *,
+    def extract_feat(self, img: torch.Tensor, *, train: bool = False,
                      attn_bias: Optional[torch.Tensor] = None,
                      pos_mode: str = 'default',
+                     use_fdrop: bool = False,
                      return_attn: bool = False):
         """Backbone features (tuple of NHWC maps) [, (attns, grid)]."""
-        return self.backbone(img, attn_bias=attn_bias, pos_mode=pos_mode,
+        return self.backbone(img, train=train, attn_bias=attn_bias,
+                             pos_mode=pos_mode, use_fdrop=use_fdrop,
                              return_attn=return_attn)
 
-    def decode_logits(self, feats) -> torch.Tensor:
+    def decode_logits(self, feats, *, train: bool = False,
+                      patchmix_perm: Optional[torch.Tensor] = None,
+                      patchmix_n: int = 0) -> torch.Tensor:
         """Main-head logits (reference ``forward_get_logits``)."""
-        return self.decode_head(feats)
+        return self.decode_head(feats, train=train,
+                                patchmix_perm=patchmix_perm,
+                                patchmix_n=patchmix_n)
 
-    def aux_logits(self, feats) -> List[torch.Tensor]:
-        return [head(feats) for head in self.auxiliary_head]
+    def aux_logits(self, feats, *, train: bool = False
+                   ) -> List[torch.Tensor]:
+        return [head(feats, train=train) for head in self.auxiliary_head]
 
     def encode_decode(self, img: torch.Tensor) -> torch.Tensor:
         """Logits resized to the input resolution
@@ -81,14 +91,41 @@ class EncoderDecoder(nn.Module):
     def forward(self, img: torch.Tensor) -> torch.Tensor:
         return self.encode_decode(img)
 
+    def forward_train_heads(self, feats, *, train: bool = True,
+                            patchmix_perm: Optional[torch.Tensor] = None,
+                            patchmix_n: int = 0):
+        """(main logits, [aux logits...]) for the training step."""
+        main = self.decode_logits(feats, train=train,
+                                  patchmix_perm=patchmix_perm,
+                                  patchmix_n=patchmix_n)
+        return main, self.aux_logits(feats, train=train)
+
     def forward_decode_from_img(self, img: torch.Tensor, *,
+                                train: bool = False,
                                 attn_bias: Optional[torch.Tensor] = None,
-                                pos_mode: str = 'default') -> torch.Tensor:
+                                pos_mode: str = 'default',
+                                use_fdrop: bool = False,
+                                patchmix_perm: Optional[torch.Tensor] = None,
+                                patchmix_n: int = 0) -> torch.Tensor:
         """Main-head logits at head resolution (the unlabeled branch and
         the teacher never use the aux heads, encoder_decoder.py:650-679)."""
-        feats = self.extract_feat(img, attn_bias=attn_bias,
-                                  pos_mode=pos_mode)
-        return self.decode_logits(feats)
+        feats = self.extract_feat(img, train=train, attn_bias=attn_bias,
+                                  pos_mode=pos_mode, use_fdrop=use_fdrop)
+        return self.decode_logits(feats, train=train,
+                                  patchmix_perm=patchmix_perm,
+                                  patchmix_n=patchmix_n)
+
+    def forward_train_heads_from_img(
+            self, img: torch.Tensor, *, train: bool = True,
+            attn_bias: Optional[torch.Tensor] = None,
+            pos_mode: str = 'default', use_fdrop: bool = False,
+            patchmix_perm: Optional[torch.Tensor] = None,
+            patchmix_n: int = 0):
+        feats = self.extract_feat(img, train=train, attn_bias=attn_bias,
+                                  pos_mode=pos_mode, use_fdrop=use_fdrop)
+        return self.forward_train_heads(feats, train=train,
+                                        patchmix_perm=patchmix_perm,
+                                        patchmix_n=patchmix_n)
 
 
 def build_segmentor(cfg: Dict) -> EncoderDecoder:

@@ -40,19 +40,35 @@ def build(source: str) -> Path:
     """Compile ``csrc/<source>`` unless a library of the same source hash
     exists; return the library's path. The compiler's output (registers,
     shared memory, spills) is kept beside it as ``.log``."""
-    out = library_path(source)
-    if out.is_file():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f'.{os.getpid()}.tmp.so')
-    cmd = [find_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC_DIR / source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix('.log').write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f'nvcc failed on {source}:\n{proc.stderr}')
-    os.replace(tmp, out)   # atomic: a concurrent build sees all or nothing
-    return out
+    return build_all([source])[0]
+
+
+def build_all(sources) -> list:
+    """``build`` for several sources, one ``nvcc`` each, all started
+    together; returns the libraries' paths in the order of ``sources``."""
+    outs = [library_path(s) for s in sources]
+    jobs = []
+    for source, out in zip(sources, outs):
+        if out.is_file():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f'.{os.getpid()}.tmp.so')
+        cmd = [find_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
+               str(CSRC_DIR / source)]
+        jobs.append((source, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for source, out, tmp, proc in jobs:
+        stdout, stderr = proc.communicate()
+        out.with_suffix('.log').write_text(stdout + stderr)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f'nvcc failed on {source}:\n{stderr}')
+        else:
+            os.replace(tmp, out)   # atomic: a concurrent build sees all
+    if failed:
+        raise RuntimeError('\n'.join(failed))
+    return outs
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -1,1 +1,2 @@
-"""Semi-supervised pieces: the PASA attention bias."""
+"""The semi-supervised algorithm: PASA bias, pseudo-labels, mixes, NCR,
+EMA and the S4Former training step."""

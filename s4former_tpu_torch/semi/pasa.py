@@ -8,6 +8,8 @@ and encoder_decoder.py:547-567).
 - adaptive: the query rows of the 50% most confident patches are zeroed.
   The ranks come from a STABLE argsort, as ``jnp.argsort`` is stable, so
   ties (frequent in per-patch means) pick the same rows as the JAX package.
+- ``pasa_bias_from_conf_mask``: the train step's whole pipeline, from the
+  teacher's image-resolution confidence mask to the bias.
 """
 from __future__ import annotations
 
@@ -45,3 +47,11 @@ def build_pasa_bias(unconf: torch.Tensor,
                                  dim=1)
         bias = torch.where(row_zero[:, :, None], 0.0, bias)
     return (bias * attn_mask_weight)[:, None, :, :]
+
+
+def pasa_bias_from_conf_mask(conf_mask: torch.Tensor, patch_size: int,
+                             attn_mask_weight: float, adaptive: bool,
+                             with_cls_token: bool = True) -> torch.Tensor:
+    """[B, H, W] {0,1} confidence mask -> additive bias [B, 1, L+1, L+1]."""
+    return build_pasa_bias(patch_unconfidence(conf_mask, patch_size),
+                           attn_mask_weight, adaptive, with_cls_token)

@@ -79,3 +79,59 @@ def assert_argmax_agrees(p_ref: np.ndarray, p: np.ndarray, tol: float):
     sure = (top2[..., 1] - top2[..., 0]) > tol
     assert sure.mean() > 0.5
     np.testing.assert_array_equal(p_ref.argmax(-1)[sure], p.argmax(-1)[sure])
+
+
+# The training tests' model: the tiny ViT above with a main head whose
+# logits come out at image resolution (4 -> 16 -> 64, as SETR-PUP at 512²)
+# and two one-conv aux heads at a quarter of it (resized to the labels).
+TRAIN_MODEL = dict(
+    type='EncoderDecoder',
+    backbone=dict(type='VisionTransformer', img_size=(64, 64), patch_size=16,
+                  embed_dims=64, num_layers=2, num_heads=4,
+                  out_indices=(0, 1)),
+    decode_head=dict(type='SETRUPHead', in_channels=64, channels=16,
+                     num_classes=5, in_index=1, num_convs=2, up_scale=4,
+                     kernel_size=3,
+                     loss_decode=dict(type='CrossEntropyLoss',
+                                      loss_weight=1.0)),
+    auxiliary_head=[dict(type='SETRUPHead', in_channels=64, channels=16,
+                         num_classes=5, in_index=i, num_convs=1, up_scale=4,
+                         kernel_size=3,
+                         loss_decode=dict(type='CrossEntropyLoss',
+                                          loss_weight=0.4))
+                    for i in range(2)])
+
+
+def jax_train_model(seed: int = 0, ema: bool = True):
+    """(JAX model, JAX TrainState) of TRAIN_MODEL with perturbed weights;
+    the EMA teacher gets weights of its own. The JAX side runs its XLA
+    attention (its Pallas kernels are held to the port in test_torch_ops)."""
+    import copy
+    import jax
+    import jax.numpy as jnp
+    from s4former_tpu.models import build_segmentor, init_segmentor_variables
+    from s4former_tpu.semi.train_step import create_train_state
+    cfg = copy.deepcopy(TRAIN_MODEL)
+    cfg['backbone']['use_flash'] = False
+    model = build_segmentor(cfg)
+    variables = init_segmentor_variables(model, jax.random.PRNGKey(seed),
+                                         (1, 64, 64, 3))
+    student = perturbed({'params': variables['params'],
+                         'batch_stats': variables['batch_stats']}, seed)
+    state = create_train_state(jax.tree_util.tree_map(jnp.asarray, student),
+                               ema=ema)
+    if ema:
+        teacher = perturbed(student, seed + 1, std=0.05)
+        state = state.replace(
+            ema_params=jax.tree_util.tree_map(jnp.asarray, teacher['params']),
+            ema_batch_stats=jax.tree_util.tree_map(jnp.asarray,
+                                                   teacher['batch_stats']))
+    return model, state
+
+
+def torch_train_model():
+    """The port's TRAIN_MODEL (weights to be loaded through the bridge)."""
+    import copy
+    import s4former_tpu_torch.models  # noqa: F401
+    from s4former_tpu_torch.models import build_segmentor
+    return build_segmentor(copy.deepcopy(TRAIN_MODEL))

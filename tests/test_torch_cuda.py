@@ -27,7 +27,7 @@ def test_flash_kernel_matches_plain(cuda, bias_heads, length, dtype, tol):
     q, k, v = [t.view(b, length, h, d)
                for t in qkv.to(dtype).split(h * d, -1)]
     bias = None if bias_heads is None else torch.randn(
-        (b, bias_heads, length, length), generator=g, device=cuda)
+        (b, bias_heads, length, length), generator=g, device=cuda).to(dtype)
     before = fa.launch_count
     o, lse = fa.flash_attention_fwd(q, k, v, bias)
     torch.cuda.synchronize()
@@ -35,3 +35,70 @@ def test_flash_kernel_matches_plain(cuda, bias_heads, length, dtype, tol):
     ro, rlse = fa.flash_attention_reference(q, k, v, bias)
     assert (o.float() - ro.float()).abs().max().item() <= tol
     assert (lse - rlse).abs().max().item() <= 1e-3
+
+
+def _grad_inputs(cuda, b, length, h, dtype, bias_heads, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    d = 64
+    qkv = torch.randn((b, length, 3 * h * d), generator=g, device=cuda)
+    q, k, v = [t.view(b, length, h, d)
+               for t in qkv.to(dtype).split(h * d, -1)]
+    bias = None if bias_heads is None else torch.randn(
+        (b, bias_heads, length, length), generator=g, device=cuda).to(dtype)
+    do = torch.randn((b, length, h, d), generator=g, device=cuda).to(dtype)
+    return q, k, v, bias, do
+
+
+def _assert_grads_close(got, ref, tol):
+    """max abs error of each gradient <= tol * its max |value| (f32: sums
+    in another order, and dq's atomic adds in a run-dependent order; bf16:
+    then the rounding of dq, at most one ulp, 2^-7 of its max |value|)."""
+    for a, r, name in zip(got, ref, ('dq', 'dk', 'dv')):
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        scale = r.float().abs().max().item()
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= tol * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize('route', ['fused', 'dkv_dq'])
+@pytest.mark.parametrize('bias_heads', [None, 1, 3])
+@pytest.mark.parametrize('length', [130, 257])
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+def test_flash_backward_kernels_match_plain(cuda, route, bias_heads, length,
+                                            dtype, tol):
+    q, k, v, bias, do = _grad_inputs(cuda, 2, length, 3, dtype, bias_heads)
+    o, lse = fa.flash_attention_fwd(q, k, v, bias)
+    ref = fa.flash_attention_backward_reference(q, k, v, bias, o, lse, do)
+    args = (q, k, v, bias, do, lse, fa.row_delta(o, do))
+    counts = (fa.fused_launch_count, fa.dkv_launch_count, fa.dq_launch_count)
+    if route == 'fused':
+        got = fa.launch_bwd_fused(*args)
+        want = (counts[0] + 1, counts[1], counts[2])
+    else:
+        dk, dv = fa.launch_bwd_dkv(*args)
+        got = (fa.launch_bwd_dq(*args), dk, dv)
+        want = (counts[0], counts[1] + 1, counts[2] + 1)
+    torch.cuda.synchronize()
+    assert (fa.fused_launch_count, fa.dkv_launch_count,
+            fa.dq_launch_count) == want
+    _assert_grads_close(got, ref, tol)
+
+
+@pytest.mark.parametrize('length,route', [(1025, 'fused'), (1600, 'dkv_dq')])
+def test_flash_autograd_dispatches_by_length(cuda, length, route):
+    """Up to FULL_Q_MAX tokens the gradient takes the fused kernel, above it
+    the dk/dv and dq kernels, as the JAX backward dispatches."""
+    q, k, v, bias, do = _grad_inputs(cuda, 1, length, 2, torch.bfloat16, 1)
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    counts = (fa.fused_launch_count, fa.dkv_launch_count, fa.dq_launch_count)
+    o = fa.flash_attention(q, k, v, bias)
+    o.backward(do)
+    torch.cuda.synchronize()
+    grew = (fa.fused_launch_count - counts[0], fa.dkv_launch_count -
+            counts[1], fa.dq_launch_count - counts[2])
+    assert grew == ((1, 0, 0) if route == 'fused' else (0, 1, 1))
+    o2, lse = fa.flash_attention_fwd(q.detach(), k.detach(), v.detach(), bias)
+    ref = fa.flash_attention_backward_reference(q.detach(), k.detach(),
+                                                v.detach(), bias, o2, lse, do)
+    _assert_grads_close((q.grad, k.grad, v.grad), ref, 1e-2)

@@ -49,3 +49,50 @@ def test_chip_smoke_fails_without_a_card(tmp_path, where):
                           env={**os.environ, 'CUDA_VISIBLE_DEVICES': ''})
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_unported_training_flags_raise():
+    """Every semi flag and option the port's train step does not run raises
+    NotImplementedError when the step is made; none is ignored."""
+    import torch
+    from s4former_tpu_torch.semi.config import SemiConfig
+    from s4former_tpu_torch.semi.train_step import make_semi_train_step
+    from tests._torch_port import torch_train_model
+    model = torch_train_model()
+    kw = dict(num_classes=5, base_lr=0.01, max_iters=100)
+    flags = [dict(unimatch=True), dict(use_fdrop=True),
+             dict(attn_mask_w_fdrop=True), dict(use_ClassMix=True),
+             dict(use_CutOut=True), dict(use_CutMix=True),
+             dict(use_PatchShuffle=True),
+             dict(use_PatchShuffle_w_Classmix=True),
+             dict(mix_with_labeled=True), dict(use_cutmix_adaptive=True),
+             dict(sup_cutmix=True), dict(sup_ClassMix=True),
+             dict(sup_ema=True), dict(momentum_head_dropout=0.5),
+             dict(negative_class_ranking=True,
+                  negative_class_ranking_mode='sup_only'),
+             dict(negative_class_ranking=True,
+                  negative_class_ranking_mode='both')]
+    for flag in flags:
+        with pytest.raises(NotImplementedError):
+            make_semi_train_step(model, SemiConfig(**flag), **kw)
+    with pytest.raises(NotImplementedError, match='paramwise'):
+        make_semi_train_step(model, SemiConfig(), **kw,
+                             paramwise_cfg=dict(num_layers=2, decay_rate=0.9))
+    # the flagship's flags are accepted
+    make_semi_train_step(model, SemiConfig(
+        ema=True, attn_mask_seperate_head=True, adaptive_attn_mask=True,
+        use_PatchShuffle_w_Cutmix=True, negative_class_ranking=True,
+        negative_class_ranking_mode='unsup_only'), **kw)
+    # dropout, drop-path and fdrop in the models
+    x = torch.zeros(1, 64, 64, 3)
+    with pytest.raises(NotImplementedError, match='use_fdrop'):
+        model.forward_decode_from_img(x, use_fdrop=True)
+    for rate in ('drop_rate', 'attn_drop_rate', 'drop_path_rate'):
+        model.backbone.drop_rates[rate] = 0.1
+        model.forward_decode_from_img(x, train=False)   # identity in eval
+        with pytest.raises(NotImplementedError, match=rate):
+            model.forward_decode_from_img(x, train=True)
+        model.backbone.drop_rates[rate] = 0.0
+    model.decode_head.dropout_ratio = 0.1
+    with pytest.raises(NotImplementedError, match='dropout_ratio'):
+        model.forward_decode_from_img(x, train=True)

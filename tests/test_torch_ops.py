@@ -81,6 +81,8 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(qkvb):
         fa.flash_attention(q, k[:, :-1], v)
     with pytest.raises(ValueError, match='bias'):
         fa.flash_attention(q, k, v, torch.zeros(B, 3, L, L))
+    with pytest.raises(TypeError, match='bias'):      # the ViT casts it
+        fa.flash_attention(q, k, v, torch.zeros(B, 1, L, L).double())
     with pytest.raises(ValueError, match='CUDA or CPU'):
         fa.flash_attention(q.to('meta'), k.to('meta'), v.to('meta'))
 
@@ -151,3 +153,63 @@ def test_pasa_bias_matches_jax_with_ties(adaptive):
     b = pasa.build_pasa_bias(u, 5.0, adaptive)
     assert b.shape == (2, 1, 21, 21)
     np.testing.assert_allclose(b.numpy(), np.asarray(b_j), atol=1e-6)
+
+
+def _jax_grads(q, k, v, bias, g, blocks):
+    """jax.grad of the public flash_attention (Pallas interpret mode) for
+    the cotangent g."""
+    def loss(q, k, v):
+        return jnp.sum(jfa.flash_attention(q, k, v, bias, interpret=True,
+                                           **blocks) * g)
+    return [np.asarray(t) for t in jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))]
+
+
+@pytest.mark.parametrize('bias_kind', ['none', 'broadcast', 'per_head'])
+@pytest.mark.parametrize('route', ['fused', 'two_kernel'])
+def test_flash_backward_matches_pallas_interpret(qkvb, route, bias_kind):
+    """dq, dk, dv of the port's autograd Function on CPU tensors (its plain
+    backward) against jax.grad through the Pallas backward kernels: default
+    blocks take the fused kernel at L=130, blk_q=blk_k=128 the dk/dv + dq
+    pair. Tolerance 1e-5 relative to max |grad| (f32 sums in another
+    order)."""
+    q, k, v, biases = qkvb
+    bias = biases[bias_kind]
+    g = np.random.RandomState(9).normal(0, 1.0, (B, L, H, D)).astype(
+        np.float32)
+    blocks = {} if route == 'fused' else dict(blk_q=128, blk_k=128)
+    want = _jax_grads(q, k, v, bias, g, blocks)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    tb = None if bias is None else torch.from_numpy(bias).requires_grad_()
+    counts = (fa.fused_launch_count, fa.dkv_launch_count, fa.dq_launch_count)
+    o = fa.flash_attention(tq, tk, tv, tb)
+    (o * torch.from_numpy(g)).sum().backward()
+    assert counts == (fa.fused_launch_count, fa.dkv_launch_count,
+                      fa.dq_launch_count)     # the CPU never reaches them
+    assert tb is None or tb.grad is None      # the bias gets no gradient
+    for got, ref, name in zip((tq.grad, tk.grad, tv.grad), want, 'qkv'):
+        scale = max(1.0, float(np.abs(ref).max()))
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                                   atol=1e-5 * scale, err_msg=f'd{name}')
+
+
+def test_flash_backward_reference_rounds_like_the_kernels():
+    """In bf16 the plain backward rounds p and ds to bf16 before their
+    products (the TPU kernels' rounding points): it differs from f32
+    autograd by bf16 rounding, and equals itself computed from bf16 p."""
+    rs = np.random.RandomState(4)
+    q, k, v, do = (torch.from_numpy(rs.normal(0, 0.5, (1, 40, 2, 64)).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_attention_reference(q, k, v)
+    dq, dk, dv = fa.flash_attention_backward_reference(q, k, v, None, o, lse,
+                                                       do)
+    assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    s = torch.einsum('bqhd,bkhd->bhqk', q.float(), k.float()) / 8.0
+    p = torch.exp(s - lse[..., None]).to(torch.bfloat16).float()
+    dv_ref = torch.einsum('bhqk,bqhd->bkhd', p, do.float()).to(torch.bfloat16)
+    assert torch.equal(dv, dv_ref)
+    qf, kf, vf = (t.float().requires_grad_() for t in (q, k, v))
+    of, _ = fa.flash_attention_reference(qf, kf, vf)
+    (of * do.float()).sum().backward()
+    for got, ref in ((dq, qf.grad), (dk, kf.grad), (dv, vf.grad)):
+        assert (got.float() - ref).abs().max() < 2e-2
