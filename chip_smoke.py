@@ -57,8 +57,10 @@ TOL_MAIN_F32 = 1e-3
 # backward kernels vs the plain backward: the max abs error of each of dq,
 # dk, dv over that gradient's max |value|. Both compute p and ds alike; the
 # fused kernel's dq adds its k tiles' sums atomically, in a run-dependent
-# order. f32: those sums in another order; bf16: then the rounding of dq to
-# bf16, which moves it by at most one ulp, 2^-7 = 7.8e-3 of its max |value|
+# order, and in bf16 it sums every product on the tensor cores in another
+# order than cuBLAS. f32: those sums in another order; bf16: then the
+# rounding of each gradient to bf16, which moves it by at most one ulp,
+# 2^-7 = 7.8e-3 of its max |value|
 TOL_BWD = {'float32': 1e-4, 'bfloat16': 1e-2}
 # the backward kernels' L x L x D products and the [B, L, H, D] outputs
 # they write (each reads q, k, v, o, do): the fused kernel does s, dp, dv,
@@ -76,6 +78,9 @@ TOL_TRAIN_F32 = 1e-3
 UNSUP_CONFIDENCE_F32 = 0.07
 KERNELS = ('flash_attn_fwd', 'flash_attn_bwd_fused', 'flash_attn_bwd_dkv',
            'flash_attn_bwd_dq')
+# the bf16 device functions that must run on the tensor cores, fed by
+# asynchronous copies (the build phase reads their SASS)
+TC_KERNELS = ('flash_attn_fwd_tc_kernel', 'flash_attn_bwd_fused_tc_kernel')
 
 
 class SmokeFailure(RuntimeError):
@@ -184,11 +189,28 @@ def check_forward(fa, q, k, v, bias, o, lse, where):
     return err_o, err_lse
 
 
+def forward_times(fa, q, k, v, bias):
+    """The forward kernel's time, its plain version's, the library call's
+    (F.scaled_dot_product_attention with the same mask, replayed from a
+    CUDA graph) and its bound, at these inputs."""
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    out = {'ms': cuda_time_ms(lambda: fa.flash_attention_fwd(q, k, v, bias)),
+           'plain_ms': cuda_time_ms(
+               lambda: fa.flash_attention_reference(q, k, v, bias), iters=5,
+               warmup=1),
+           'library_ms': graph_time_ms(
+               lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=bias))}
+    # 2 products (q k^T, p v); q, k, v read, o written, lse
+    out['bound_ms'], out['bound_by'] = bound_ms(q, bias, 2, 4)
+    return out
+
+
 def phase_kernels(fa):
     """Kernel vs plain version on the card at the main path's shapes, plus
     the ragged L=130. Returns the kernels line's entry."""
     import torch
-    import torch.nn.functional as F
     gen = torch.Generator(device='cuda').manual_seed(0)
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -207,16 +229,7 @@ def phase_kernels(fa):
                         max_abs_err=err_o, lse_max_abs_err=err_lse,
                         tol_o=tol['o'], tol_lse=tol['lse'])
             if l == 1025:
-                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-                case['ms'] = cuda_time_ms(
-                    lambda: fa.flash_attention_fwd(q, k, v, bias))
-                case['plain_ms'] = cuda_time_ms(
-                    lambda: fa.flash_attention_reference(q, k, v, bias))
-                case['library_ms'] = graph_time_ms(
-                    lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                           attn_mask=bias))
-                # 2 products (q k^T, p v); q, k, v read, o written, lse
-                case['bound_ms'], case['bound_by'] = bound_ms(q, bias, 2, 4)
+                case.update(forward_times(fa, q, k, v, bias))
             cases.append(case)
             emit({'phase': 'kernel_check', **case})
     # the headline entry: the shape and type the served requests launch
@@ -260,8 +273,9 @@ def phase_kernels_bwd(fa):
     training path's shapes (B = 8 and the fused 2B pass's 16 at L = 1025,
     no bias / PASA / per-head bias), the ragged L = 130 and L = 2305 (768²
     crops); the forward that gives them o and lse is held to the plain
-    forward at each. Times at the headline shapes. Returns the kernels
-    line's entries and the forward's max abs error in bf16."""
+    forward at each. Times at the headline shapes, and the forward's at
+    the training shapes. Returns the kernels line's entries, the forward's
+    max abs error in bf16 and its timed cases."""
     import torch
     gen = torch.Generator(device='cuda').manual_seed(1)
     shapes = [(1, 1025, None), (1, 1025, 'pasa'), (1, 1025, 'random_bh'),
@@ -270,6 +284,9 @@ def phase_kernels_bwd(fa):
               (2, 2305, None), (1, 2305, 'pasa')]
     timed = {('bfloat16', 1, 1025, None), ('bfloat16', 8, 1025, None),
              ('bfloat16', 16, 1025, 'pasa'), ('bfloat16', 2, 2305, None)}
+    # the training step's forward shapes (teacher and sup pass; 2B pass)
+    fwd_timed = {('bfloat16', 8, 1025, None), ('bfloat16', 16, 1025, 'pasa')}
+    fwd_cases = []
     launchers = {'flash_attn_bwd_fused': fa.launch_bwd_fused,
                  'flash_attn_bwd_dkv': fa.launch_bwd_dkv,
                  'flash_attn_bwd_dq': fa.launch_bwd_dq}
@@ -283,10 +300,15 @@ def phase_kernels_bwd(fa):
             do = torch.randn(q.shape, generator=gen, device='cuda').to(dtype)
             o, lse = fa.flash_attention_fwd(q, k, v, bias)
             err_o, err_lse = check_forward(fa, q, k, v, bias, o, lse, where)
-            emit({'phase': 'kernel_check', 'dtype': dname, 'B': b, 'L': l,
-                  'H': 12, 'D': 64, 'bias': bias_kind, 'max_abs_err': err_o,
-                  'lse_max_abs_err': err_lse, 'tol_o': TOL[dname]['o'],
-                  'tol_lse': TOL[dname]['lse'], 'for': 'kernel_check_bwd'})
+            fwd_case = dict(dtype=dname, B=b, L=l, H=12, D=64,
+                            bias=bias_kind, max_abs_err=err_o,
+                            lse_max_abs_err=err_lse, tol_o=TOL[dname]['o'],
+                            tol_lse=TOL[dname]['lse'])
+            if (dname, b, l, bias_kind) in fwd_timed:
+                fwd_case.update(forward_times(fa, q, k, v, bias))
+                fwd_cases.append(fwd_case)
+            emit({'phase': 'kernel_check', **fwd_case,
+                  'for': 'kernel_check_bwd'})
             if dname == 'bfloat16':
                 fwd_err_bf16 = max(fwd_err_bf16, err_o)
             delta = fa.row_delta(o, do)
@@ -356,7 +378,7 @@ def phase_kernels_bwd(fa):
             'library_ms': main['library_ms'],
             'shape': f'B={b} L={l} H=12 D=64 bfloat16, bias={bias_kind}',
             'cases': [c for c in cases if 'ms' in c]}
-    return out, fwd_err_bf16
+    return out, fwd_err_bf16, fwd_cases
 
 
 def sdpa_backward_ms(q, k, v, bias, do):
@@ -750,6 +772,29 @@ def phase_train_one_step(fa, images, phase, name, n_sup, n_unsup, expect,
     return path_counts
 
 
+def phase_build(libs, seconds):
+    """Per kernel function of the built libraries: registers and spills
+    (ptxas), tensor-core instructions and asynchronous copies (SASS). The
+    bf16 forward and fused backward must hold both, and spill nothing."""
+    from s4former_tpu_torch.ops import cuda_build
+    functions = {}
+    for lib in libs:
+        info = cuda_build.ptxas_info(lib.with_suffix('.log').read_text())
+        sass = cuda_build.sass_counts(cuda_build.dump_sass(lib))
+        for name in sorted(set(info) | set(sass)):
+            functions[name] = {**info.get(name, {}), **sass.get(name, {})}
+    emit({'phase': 'build', 'seconds': seconds, 'functions': functions})
+    for marker in TC_KERNELS:
+        found = {n: f for n, f in functions.items() if marker in n}
+        check(found, f'no {marker} in the built libraries')
+        for name, f in found.items():
+            check(f.get('tensor_core', 0) > 0 and f.get('async_copy', 0) > 0,
+                  f'{name}: no tensor-core instruction or no asynchronous '
+                  f'copy in its SASS: {f}')
+            check(f.get('spill_stores') == 0 and f.get('spill_loads') == 0,
+                  f'{name} spills registers: {f}')
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -767,24 +812,20 @@ def main() -> int:
     from s4former_tpu_torch.ops import cuda_build
     from s4former_tpu_torch.ops import flash_attention as fa
     t0 = time.perf_counter()
-    cuda_build.build_all([fa.SOURCE, fa.BWD_SOURCE])
+    libs = cuda_build.build_all([fa.SOURCE, fa.BWD_SOURCE])
     fa.load_library()
     fa.load_bwd_library()
-    emit({'phase': 'build', 'seconds': time.perf_counter() - t0,
-          'ptxas': [ln.strip() for src in (fa.SOURCE, fa.BWD_SOURCE)
-                    for ln in cuda_build.library_path(src).with_suffix(
-                        '.log').read_text().splitlines()
-                    if 'registers' in ln or 'spill' in ln
-                    or 'Compiling entry' in ln]})
+    phase_build(libs, time.perf_counter() - t0)
 
     images = sorted(glob.glob(IMAGES))
     check(len(images) == 16, f'expected 16 fixture images, found '
           f'{len(images)}')
     entries = {'flash_attn_fwd': phase_kernels(fa)}
-    bwd_entries, fwd_err_train = phase_kernels_bwd(fa)
+    bwd_entries, fwd_err_train, fwd_train_cases = phase_kernels_bwd(fa)
     entries.update(bwd_entries)
     fwd = entries['flash_attn_fwd']     # the training shapes' forward too
     fwd['max_abs_err'] = max(fwd['max_abs_err'], fwd_err_train)
+    fwd['cases'] += fwd_train_cases
     paths = {}
     p_f32 = phase_main_f32(fa, images)
     seg, paths['serve_bf16'] = phase_main_bf16(fa, images, p_f32, gpu_line)

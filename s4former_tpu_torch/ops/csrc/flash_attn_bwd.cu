@@ -28,26 +28,51 @@
 // - fused: one block per (64-row k tile, head, image). K and V stay in
 //   shared memory; the block walks the q tiles, recomputes p from lse,
 //   keeps dk and dv in registers, and adds each q tile's scale * ds k into
-//   a zeroed f32 dq workspace with atomicAdd (summation order of dq varies
-//   from run to run). One launch, one recompute of p.
+//   a zeroed f32 dq workspace with atomic adds (summation order of dq
+//   varies from run to run). One launch, one recompute of p.
 // - dkv: the same block without the dq part.
 // - dq:  one block per (64-row q tile, head, image); it walks the k tiles
 //   and keeps dq in registers. Deterministic.
 //
 // Bound on one H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s HBM3): 2 L^2 D
-// FLOP per product per (image, head), 5 products fused, 4 dkv, 3 dq. At
-// B=1, L=1025, H=12, D=64, bf16 the fused pass is 8.07 GFLOP -> 8.2 us,
-// against ~10 MB of operands -> 3 us: bounded by operations.
+// FLOP per product per (image, head), 5 products fused (10 B H L^2 D in
+// all), 4 dkv, 3 dq. At B=1, L=1025, H=12, D=64, bf16 the fused pass is
+// 8.07 GFLOP -> 8.2 us, against ~10 MB of operands -> 3 us: bounded by
+// operations.
 //
-// Design (the simple correct one, like the forward): 256 threads, each
-// owning a 4x4 patch of every 64x64 product; the products run on the f32
-// FMA pipes from shared memory, not on the tensor cores. Left for later:
-// mma/wgmma, TMA with double buffering, bf16 staging, and a dq reduction
-// without atomics.
+// The fused entry point dispatches on dtype: 0 (float32) runs the FMA
+// kernel below, 1 (bfloat16) the tensor-core kernel
+// flash_attn_bwd_fused_tc_kernel. The dk/dv and dq entry points run the FMA
+// kernels in both types.
+//
+// bf16 fused, flash_attn_bwd_fused_tc_kernel: one block of 4 warps per
+// (64-row k tile, head, image); K and V stay in shared memory as bf16. The
+// block walks the q tiles; Q, dO, lse and delta of tile i+1 come in by
+// cp.async (zero-filled past L) while tile i computes. Each warp owns 16 k
+// rows and computes the transposed products S^T = K Q^T and dP^T = V dO^T
+// on the tensor cores (mma.sync m16n8k16, f32 accumulate), so that
+// P^T = exp(S^T s + bias^T - lse) and dS^T = P^T (dP^T - delta), rounded to
+// bf16 (the TPU kernel's rounding points, l.287-301), are already the A
+// fragments of dV += P^T dO and dK += dS^T Q, which stay in registers. dS^T
+// goes through shared memory once and comes back by ldmatrix.trans as the
+// A operand of dQ_tile = dS K s, which is added into the zeroed f32 dq
+// workspace with 16-byte vector reductions (red.global.add.v4.f32; the
+// summation order varies from run to run). The bias is read with 2-byte
+// loads (its rows are 2*L bytes apart). Shared memory 57 KB. What it leaves
+// for later: wgmma, TMA, warp specialisation, persistent blocks, and a
+// deterministic dq without atomics.
+//
+// float32, and the dk/dv and dq kernels: 256 threads, each owning a 4x4
+// patch of every 64x64 product, on the f32 FMA pipes from f32 tiles in
+// shared memory. Left for later: the tensor-core design above.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "flash_attn_tc.cuh"
 
 namespace {
 
@@ -403,15 +428,256 @@ flash_attn_bwd_dq_kernel(const Params p) {
   }
 }
 
+constexpr int kTcThreads = 128;   // 4 warps, 16 k rows each
+// K, V, dS^T, two stages of Q and dO (bf16), two of lse and delta (f32)
+constexpr size_t kTcSmemBytes =
+    sizeof(__nv_bfloat16) * 7 * s4tc::kTileElems + sizeof(float) * 4 * kTile;
+
+template <bool kHasBias>
+__global__ void __launch_bounds__(kTcThreads, 2)
+flash_attn_bwd_fused_tc_kernel(const Params p) {
+  using namespace s4tc;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(128) bf16 smem_tc[];
+  bf16* ks = smem_tc;                   // [64 k][64 d]
+  bf16* vs = ks + kTileElems;           // [64 k][64 d]
+  bf16* dss = vs + kTileElems;          // dS^T [64 k][64 q]
+  bf16* qs = dss + kTileElems;          // [2][64 q][64 d]
+  bf16* dos = qs + 2 * kTileElems;      // [2][64 q][64 d]
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * kTileElems);   // [2][64]
+  float* delta_s = lse_s + 2 * kTile;                              // [2][64]
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int n0 = blockIdx.x * kTile;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int L = p.L;
+  const int64_t row_stride = static_cast<int64_t>(p.H) * kD;   // do, outputs
+
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const bf16* dout = static_cast<const bf16*>(p.dout) +
+                     static_cast<int64_t>(b) * L * row_stride + h * kD;
+  const int64_t stat0 = (static_cast<int64_t>(b) * p.H + h) * L;
+  const float* lse = p.lse + stat0;
+  const float* delta = p.delta + stat0;
+  const bf16* bias = nullptr;
+  if (kHasBias) {
+    bias = static_cast<const bf16*>(p.bias) + b * p.bias_sb + h * p.bias_sh;
+  }
+  // this thread's two k rows (g and g+8 of its warp's 16)
+  const int kr = n0 + warp * 16 + g;
+  const int kcol[2] = {min(kr, L - 1), min(kr + 8, L - 1)};   // bias columns
+
+  // Q, dO, lse and delta of the q tile at m0 into stage st
+  auto load_q_tile = [&](int st, int m0) {
+    load_tile_async<kTcThreads>(qs + st * kTileElems, q, p.q_sl, m0, L);
+    load_tile_async<kTcThreads>(dos + st * kTileElems, dout, row_stride, m0,
+                                L);
+    const int i = threadIdx.x & (kTile - 1);
+    const int row = m0 + i;
+    const bool ok = row < L;
+    const float* src = threadIdx.x < kTile ? lse : delta;
+    float* dst = (threadIdx.x < kTile ? lse_s : delta_s) + st * kTile + i;
+    cp_async_4(smem_u32(dst), src + (ok ? row : 0), ok);
+  };
+
+  load_tile_async<kTcThreads>(ks, k, p.k_sl, n0, L);
+  load_tile_async<kTcThreads>(vs, v, p.v_sl, n0, L);
+  load_q_tile(0, 0);
+  cp_async_commit();
+
+  float dk[8][4];
+  float dv[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dk[j][e] = 0.f;
+      dv[j][e] = 0.f;
+    }
+  const float scale_log2 = p.scale * kLog2e;
+  float* dq = static_cast<float*>(p.dq) +
+              static_cast<int64_t>(b) * L * row_stride + h * kD;
+
+  const int n_q_tiles = (L + kTile - 1) / kTile;
+  for (int it = 0; it < n_q_tiles; ++it) {
+    const int stage = it & 1;
+    const int m0 = it * kTile;
+    if (it + 1 < n_q_tiles) {
+      load_q_tile(stage ^ 1, m0 + kTile);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* qst = qs + stage * kTileElems;
+    const bf16* dost = dos + stage * kTileElems;
+    const float* lse_t = lse_s + stage * kTile;
+    const float* delta_t = delta_s + stage * kTile;
+
+    // bias^T of (k row g | g+8, q col m0 + 8j + 2t + 0|1); q rows clamped
+    // into the array, p is masked below past L
+    float bv[8][4];
+    if (kHasBias) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qrow = min(m0 + 8 * j + 2 * t + (e & 1), L - 1);
+          bv[j][e] = bf16_at(bias + static_cast<int64_t>(qrow) * p.bias_sl +
+                             kcol[e >> 1]);
+        }
+    }
+
+    // S^T = K Q^T and dP^T = V dO^T, this warp's 16 k rows x 64 q columns
+    float s[8][4];
+    float dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = 0.f;
+        dp[j][e] = 0.f;
+      }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t ka[4];
+      uint32_t va[4];
+      ldmatrix_x4(ka, a_addr(ks, warp * 16, kk * 16));
+      ldmatrix_x4(va, a_addr(vs, warp * 16, kk * 16));
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        uint32_t qb[4];
+        uint32_t db[4];
+        ldmatrix_x4(qb, b_addr_nk(qst, jj * 16, kk * 16));
+        ldmatrix_x4(db, b_addr_nk(dost, jj * 16, kk * 16));
+        mma_16816(s[2 * jj], ka, qb[0], qb[1]);
+        mma_16816(s[2 * jj + 1], ka, qb[2], qb[3]);
+        mma_16816(dp[2 * jj], va, db[0], db[1]);
+        mma_16816(dp[2 * jj + 1], va, db[2], db[3]);
+      }
+    }
+
+    // P^T and dS^T in f32; 0 for q rows or k columns past L
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = 8 * j + 2 * t + (e & 1);
+        const float bias_v = kHasBias ? bv[j][e] : 0.f;
+        float pr = exp2f(fmaf(s[j][e], scale_log2,
+                              (bias_v - lse_t[qc]) * kLog2e));
+        if (m0 + qc >= L || kr + 8 * (e >> 1) >= L) pr = 0.f;
+        s[j][e] = pr;
+        dp[j][e] = pr * (dp[j][e] - delta_t[qc]);
+      }
+    uint32_t pa[4][4];
+    uint32_t dsa[4][4];
+    c_to_a(s, pa);
+    c_to_a(dp, dsa);
+    // dS^T to shared memory for the dQ product (the same bf16 values)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = warp * 16 + g + 8 * (e & 1);
+        const int col = 16 * kk + 8 * (e >> 1) + 2 * t;
+        *reinterpret_cast<uint32_t*>(dss + swz(row, col)) = dsa[kk][e];
+      }
+
+    // dV += P^T dO, dK += dS^T Q: the q tile is the deep axis
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        uint32_t db[4];
+        uint32_t qb[4];
+        ldmatrix_x4_trans(db, b_addr_kn(dost, jj * 16, kk * 16));
+        ldmatrix_x4_trans(qb, b_addr_kn(qst, jj * 16, kk * 16));
+        mma_16816(dv[2 * jj], pa[kk], db[0], db[1]);
+        mma_16816(dv[2 * jj + 1], pa[kk], db[2], db[3]);
+        mma_16816(dk[2 * jj], dsa[kk], qb[0], qb[1]);
+        mma_16816(dk[2 * jj + 1], dsa[kk], qb[2], qb[3]);
+      }
+    }
+    __syncthreads();   // dS^T complete
+
+    // dQ_tile = dS K for this warp's 16 q rows, added into the workspace
+    float acc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t da[4];
+      ldmatrix_x4_trans(da, a_addr_t(dss, warp * 16, kk * 16));
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        uint32_t kb[4];
+        ldmatrix_x4_trans(kb, b_addr_kn(ks, jj * 16, kk * 16));
+        mma_16816(acc[2 * jj], da, kb[0], kb[1]);
+        mma_16816(acc[2 * jj + 1], da, kb[2], kb[3]);
+      }
+    }
+    // lanes 2u and 2u+1 swap halves so each holds 4 neighbouring columns:
+    // the even lane row g, the odd lane row g+8, columns 8j + 4(t/2)..+3
+    const bool odd = t & 1;
+    const int qrow = m0 + warp * 16 + g + (odd ? 8 : 0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float x0 = __shfl_xor_sync(0xffffffffu,
+                                       odd ? acc[j][0] : acc[j][2], 1);
+      const float x1 = __shfl_xor_sync(0xffffffffu,
+                                       odd ? acc[j][1] : acc[j][3], 1);
+      if (qrow < L) {
+        float* dst = dq + qrow * row_stride + 8 * j + 2 * (t & 2);
+        if (odd) {
+          red_add_v4(dst, x0 * p.scale, x1 * p.scale, acc[j][2] * p.scale,
+                     acc[j][3] * p.scale);
+        } else {
+          red_add_v4(dst, acc[j][0] * p.scale, acc[j][1] * p.scale,
+                     x0 * p.scale, x1 * p.scale);
+        }
+      }
+    }
+    __syncthreads();   // this stage and dS^T are free
+  }
+
+  bf16* dk_out = static_cast<bf16*>(p.dk) +
+                 static_cast<int64_t>(b) * L * row_stride + h * kD;
+  bf16* dv_out = static_cast<bf16*>(p.dv) +
+                 static_cast<int64_t>(b) * L * row_stride + h * kD;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = kr + 8 * i;
+    if (row >= L) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int64_t off = row * row_stride + 8 * j + 2 * t;
+      *reinterpret_cast<uint32_t*>(dk_out + off) = pack_bf16(
+          dk[j][2 * i] * p.scale, dk[j][2 * i + 1] * p.scale);
+      *reinterpret_cast<uint32_t*>(dv_out + off) =
+          pack_bf16(dv[j][2 * i], dv[j][2 * i + 1]);
+    }
+  }
+}
+
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, const Params& p, int B,
-                   cudaStream_t stream) {
+cudaError_t launch(Kernel kernel, const Params& p, int B, cudaStream_t stream,
+                   int threads = kThreads, size_t smem = kSmemBytes) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
+      static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.L + kTile - 1) / kTile, p.H, B);
-  kernel<<<grid, kThreads, kSmemBytes, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -422,7 +688,13 @@ cudaError_t dispatch(Which which, const Params& p, int B,
                      cudaStream_t stream) {
   switch (which) {
     case kFused:
-      return launch(flash_attn_bwd_kv_kernel<T, kHasBias, true>, p, B, stream);
+      if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+        return launch(flash_attn_bwd_fused_tc_kernel<kHasBias>, p, B, stream,
+                      kTcThreads, kTcSmemBytes);
+      } else {
+        return launch(flash_attn_bwd_kv_kernel<T, kHasBias, true>, p, B,
+                      stream);
+      }
     case kDkv:
       return launch(flash_attn_bwd_kv_kernel<T, kHasBias, false>, p, B,
                     stream);

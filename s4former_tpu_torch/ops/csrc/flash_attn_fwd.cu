@@ -18,18 +18,33 @@
 //   B=1, L=1025, H=12, D=64, bf16: 3.2 GFLOP -> 3.3 us; 8.4 MB with the
 //   PASA bias -> 2.5 us. So the kernel is bounded by tensor-core operations.
 //
-// Design (the simple correct one): one block of 256 threads per
-// (64-row q tile, head, image); it walks the 64-row k/v tiles through shared
-// memory with an online softmax. Each thread owns a 4x4 patch of the score
-// tile and of the output tile. What this leaves on the table: the products
-// run on the f32 FMA pipes from shared memory, not on the tensor cores
-// (wgmma), tiles are loaded by the threads instead of TMA with no
-// double-buffering, and the f32 staging of k, v and p costs shared-memory
-// bandwidth. Those are later work; this kernel is the reference for them.
+// The entry point dispatches on dtype: 0 (float32) runs the FMA kernel,
+// 1 (bfloat16) the tensor-core kernel.
+//
+// bf16, flash_attn_fwd_tc_kernel: one block of 4 warps per (64-row q tile,
+// head, image), each warp 16 q rows. Q, then K and V in two stages, come in
+// by 16-byte cp.async (zero-filled past L), so tile t+1 loads while tile t
+// computes. S = Q K^T and O += P V run on the tensor cores (mma.sync
+// m16n8k16, bf16 in, f32 accumulate; see flash_attn_tc.cuh). The online
+// softmax stays on the accumulator fragments (row max by quad shuffles, the
+// row sum per thread until the end); p is rounded to bf16 for P V, the TPU
+// kernel's rounding point (l.121). The bias rows are 2*L bytes apart, not
+// 16-byte aligned, so each thread reads its fragment's bias values with
+// 2-byte loads straight into registers. Shared memory 40 KB: up to 5 blocks
+// an SM. What it leaves for later: wgmma from shared memory, TMA with
+// mbarriers, warp specialisation and persistent blocks.
+//
+// float32, flash_attn_fwd_kernel: the simple FMA kernel, kept because the
+// f32 correctness phases hold it to 1e-4 (TF32 tensor cores would not). One
+// block of 256 threads per (64-row q tile, head, image), each thread a 4x4
+// patch of the score and output tiles, tiles staged in f32 through shared
+// memory by the threads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_attn_tc.cuh"
 
 namespace {
 
@@ -42,20 +57,6 @@ constexpr float kNegInf = -1e30f;
 constexpr size_t kSmemBytes =
     sizeof(float) * (kBlockM * kPad + kBlockN * kPad + kBlockN * kD +
                      kBlockM * kPad);
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 struct Params {
   const void* q;
@@ -76,7 +77,7 @@ struct Params {
   float scale;
 };
 
-template <typename T, bool kHasBias>
+template <bool kHasBias>
 __global__ void __launch_bounds__(kThreads)
 flash_attn_fwd_kernel(const Params p) {
   extern __shared__ float smem[];
@@ -93,19 +94,19 @@ flash_attn_fwd_kernel(const Params p) {
   const int b = blockIdx.z;
   const int L = p.L;
 
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* bias = nullptr;
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* bias = nullptr;
   if (kHasBias) {
-    bias = static_cast<const T*>(p.bias) + b * p.bias_sb + h * p.bias_sh;
+    bias = static_cast<const float*>(p.bias) + b * p.bias_sb + h * p.bias_sh;
   }
 
   for (int idx = tid; idx < kBlockM * kD; idx += kThreads) {
     const int r = idx / kD;
     const int c = idx % kD;
     const int row = m0 + r;
-    qs[r * kPad + c] = row < L ? to_f32(q[row * p.q_sl + c]) : 0.f;
+    qs[r * kPad + c] = row < L ? q[row * p.q_sl + c] : 0.f;
   }
 
   float m_i[4];
@@ -128,8 +129,8 @@ flash_attn_fwd_kernel(const Params p) {
       const int c = idx % kD;
       const int row = n0 + r;
       const bool ok = row < L;
-      ks[r * kPad + c] = ok ? to_f32(k[row * p.k_sl + c]) : 0.f;
-      vs[r * kD + c] = ok ? to_f32(v[row * p.v_sl + c]) : 0.f;
+      ks[r * kPad + c] = ok ? k[row * p.k_sl + c] : 0.f;
+      vs[r * kD + c] = ok ? v[row * p.v_sl + c] : 0.f;
     }
     __syncthreads();
 
@@ -162,7 +163,7 @@ flash_attn_fwd_kernel(const Params p) {
         if (col >= L) {
           x = kNegInf;
         } else if (kHasBias && row < L) {
-          x += to_f32(bias[row * p.bias_sl + col]);
+          x += bias[row * p.bias_sl + col];
         }
         s[i][j] = x;
       }
@@ -212,31 +213,212 @@ flash_attn_fwd_kernel(const Params p) {
     }
   }
 
-  T* o = static_cast<T*>(p.o);
+  float* o = static_cast<float*>(p.o);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = m0 + 4 * ty + i;
     if (row >= L) continue;
     const float l = fmaxf(l_i[i], 1e-30f);
     const float inv = 1.f / l;
-    T* orow = o + ((static_cast<int64_t>(b) * L + row) * p.H + h) * kD;
+    float* orow = o + ((static_cast<int64_t>(b) * L + row) * p.H + h) * kD;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) orow[tx + 16 * j] = from_f32<T>(acc[i][j] * inv);
+    for (int j = 0; j < 4; ++j) orow[tx + 16 * j] = acc[i][j] * inv;
     if (tx == 0) {
       p.lse[(static_cast<int64_t>(b) * p.H + h) * L + row] = m_i[i] + logf(l);
     }
   }
 }
 
-template <typename T, bool kHasBias>
-cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  auto kernel = flash_attn_fwd_kernel<T, kHasBias>;
+constexpr int kTcThreads = 128;   // 4 warps, 16 q rows each
+// Q, and two stages of K and V, bf16
+constexpr size_t kTcSmemBytes = sizeof(__nv_bfloat16) * 5 * s4tc::kTileElems;
+
+template <bool kHasBias>
+__global__ void __launch_bounds__(kTcThreads, 3)
+flash_attn_fwd_tc_kernel(const Params p) {
+  using namespace s4tc;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(128) bf16 smem_tc[];
+  bf16* qs = smem_tc;                   // [64][64]
+  bf16* ks = qs + kTileElems;           // [2][64][64]
+  bf16* vs = ks + 2 * kTileElems;       // [2][64][64]
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int m0 = blockIdx.x * kBlockM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int L = p.L;
+
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  // this thread's two q rows (g and g+8 of its warp's 16); the bias rows
+  // are clamped into the array, rows past L are never written
+  const int row0 = m0 + warp * 16 + g;
+  const bf16* brow[2] = {nullptr, nullptr};
+  if (kHasBias) {
+    const bf16* bias =
+        static_cast<const bf16*>(p.bias) + b * p.bias_sb + h * p.bias_sh;
+    brow[0] = bias + static_cast<int64_t>(min(row0, L - 1)) * p.bias_sl;
+    brow[1] = bias + static_cast<int64_t>(min(row0 + 8, L - 1)) * p.bias_sl;
+  }
+
+  load_tile_async<kTcThreads>(qs, q, p.q_sl, m0, L);
+  load_tile_async<kTcThreads>(ks, k, p.k_sl, 0, L);
+  load_tile_async<kTcThreads>(vs, v, p.v_sl, 0, L);
+  cp_async_commit();
+
+  const float scale_log2 = p.scale * kLog2e;
+  float m_i[2] = {kNegInf, kNegInf};   // running max, log2 units
+  float l_i[2] = {0.f, 0.f};           // this thread's share of the sum
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  uint32_t qf[4][4];
+
+  const int n_tiles = (L + kBlockN - 1) / kBlockN;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int stage = it & 1;
+    const int n0 = it * kBlockN;
+    if (it + 1 < n_tiles) {   // the next K, V tile into the other stage
+      load_tile_async<kTcThreads>(ks + (stage ^ 1) * kTileElems, k, p.k_sl,
+                                  n0 + kBlockN, L);
+      load_tile_async<kTcThreads>(vs + (stage ^ 1) * kTileElems, v, p.v_sl,
+                                  n0 + kBlockN, L);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        ldmatrix_x4(qf[kk], a_addr(qs, warp * 16, kk * 16));
+    }
+
+    // bias of (row g | g+8, cols n0 + 8j + 2t + 0|1); columns clamped
+    // into the array, those past L are masked below
+    float bv[8][4];
+    if (kHasBias) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          bv[j][e] = bf16_at(brow[e >> 1] +
+                             min(n0 + 8 * j + 2 * t + (e & 1), L - 1));
+    }
+
+    const bf16* kst = ks + stage * kTileElems;
+    const bf16* vst = vs + stage * kTileElems;
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, b_addr_nk(kst, jj * 16, kk * 16));
+        mma_16816(s[2 * jj], qf[kk], kb[0], kb[1]);
+        mma_16816(s[2 * jj + 1], qf[kk], kb[2], kb[3]);
+      }
+    }
+
+    // scores in log2 units; columns past L at -1e30 before the max
+    float mx[2] = {m_i[0], m_i[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (kHasBias) x = fmaf(bv[j][e], kLog2e, x);
+        if (n0 + 8 * j + 2 * t + (e & 1) >= L) x = kNegInf;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {   // a row's 64 columns: one lane quad
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      alpha[i] = exp2f(m_i[i] - mx[i]);
+      m_i[i] = mx[i];
+      l_i[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(s[j][e] - m_i[e >> 1]);
+        l_i[e >> 1] += s[j][e];
+        acc[j][e] *= alpha[e >> 1];
+      }
+    uint32_t pa[4][4];
+    c_to_a(s, pa);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, b_addr_kn(vst, jj * 16, kk * 16));
+        mma_16816(acc[2 * jj], pa[kk], vb[0], vb[1]);
+        mma_16816(acc[2 * jj + 1], pa[kk], vb[2], vb[3]);
+      }
+    }
+    __syncthreads();   // this stage is free for the load two tiles on
+  }
+
+  bf16* o = static_cast<bf16*>(p.o);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_i[i] += __shfl_xor_sync(0xffffffffu, l_i[i], 1);
+    l_i[i] += __shfl_xor_sync(0xffffffffu, l_i[i], 2);
+    const int row = row0 + 8 * i;
+    if (row >= L) continue;
+    const float l = fmaxf(l_i[i], 1e-30f);
+    const float inv = 1.f / l;
+    bf16* orow = o + ((static_cast<int64_t>(b) * L + row) * p.H + h) * kD;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) =
+          pack_bf16(acc[j][2 * i] * inv, acc[j][2 * i + 1] * inv);
+    }
+    if (t == 0) {
+      p.lse[(static_cast<int64_t>(b) * p.H + h) * L + row] =
+          m_i[i] * kLn2 + logf(l);
+    }
+  }
+}
+
+template <bool kHasBias>
+cudaError_t launch_f32(const Params& p, int B, cudaStream_t stream) {
+  auto kernel = flash_attn_fwd_kernel<kHasBias>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemBytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.L + kBlockM - 1) / kBlockM, p.H, B);
   kernel<<<grid, kThreads, kSmemBytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <bool kHasBias>
+cudaError_t launch_bf16(const Params& p, int B, cudaStream_t stream) {
+  auto kernel = flash_attn_fwd_tc_kernel<kHasBias>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kTcSmemBytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.L + kBlockM - 1) / kBlockM, p.H, B);
+  kernel<<<grid, kTcThreads, kTcSmemBytes, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -273,10 +455,9 @@ int s4_flash_attn_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = bias ? launch<float, true>(p, B, s) : launch<float, false>(p, B, s);
+    err = bias ? launch_f32<true>(p, B, s) : launch_f32<false>(p, B, s);
   } else {
-    err = bias ? launch<__nv_bfloat16, true>(p, B, s)
-               : launch<__nv_bfloat16, false>(p, B, s);
+    err = bias ? launch_bf16<true>(p, B, s) : launch_bf16<false>(p, B, s);
   }
   return static_cast<int>(err);
 }

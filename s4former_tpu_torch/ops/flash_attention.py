@@ -4,7 +4,10 @@ Hopper.
 Counterpart of ``s4former_tpu/ops/flash_attention.py``. The TPU package runs
 Pallas kernels; here the same functions are the hand-written CUDA kernels
 ``csrc/flash_attn_fwd.cu`` (forward) and ``csrc/flash_attn_bwd.cu`` (the
-three backward kernels), bound with ``ctypes``. The ViT calls
+three backward kernels), bound with ``ctypes``. In bf16 the forward and the
+fused backward run on the tensor cores (``csrc/flash_attn_tc.cuh``) and
+need 16-byte aligned q, k, v and do (``check_tc_alignment``); in f32 every
+kernel runs on the FMA pipes. The ViT calls
 ``flash_attention`` once per layer, with the PASA bias ``[B, 1, L, L]`` on
 the teacher-PASA and PASA-pass paths and with no bias otherwise; in training
 its gradient runs the backward kernels.
@@ -237,6 +240,22 @@ def _kernel_args(q, k, v, bias):
             *bias_strides, b, l, h, d, _DTYPE_CODE[q.dtype])
 
 
+def check_tc_alignment(**tensors):
+    """The bf16 forward and fused backward kernels copy q, k, v and do in
+    16-byte chunks (cp.async): each data pointer, and each of its B, L, H
+    strides in bytes, must be a multiple of 16. Raises ValueError
+    otherwise; nothing is copied to fix it."""
+    for name, t in tensors.items():
+        elt = t.element_size()
+        strides = [s * elt for s, n in zip(t.stride()[:3], t.shape[:3])
+                   if n > 1]
+        if t.data_ptr() % 16 or any(s % 16 for s in strides):
+            raise ValueError(
+                f'{name} must be 16-byte aligned, with B, L, H strides of a '
+                f'multiple of 16 bytes, for the bf16 kernels; got pointer '
+                f'offset {t.data_ptr() % 16} and strides {t.stride()[:3]}')
+
+
 def _call(lib, name, q, pointers, tail):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -249,6 +268,8 @@ def _call(lib, name, q, pointers, tail):
 def _launch_fwd(q, k, v, bias):
     global launch_count
     tail = _kernel_args(q, k, v, bias)
+    if q.dtype == torch.bfloat16:
+        check_tc_alignment(q=q, k=k, v=v)
     lib = load_library()
     b, l, h, _ = q.shape
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -276,6 +297,8 @@ def launch_bwd_fused(q, k, v, bias, do, lse, delta):
     passes them (do contiguous in the q dtype, delta = ``row_delta``)."""
     global fused_launch_count
     tail = _kernel_args(q, k, v, bias)
+    if q.dtype == torch.bfloat16:
+        check_tc_alignment(q=q, k=k, v=v, do=do)
     lib = load_bwd_library()
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty_like(q, memory_format=torch.contiguous_format)
