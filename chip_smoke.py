@@ -14,8 +14,9 @@ on the card, then drives the port's two paths through its entry points:
 - training: the S4Former step (``semi.train_step``) of
   ``..._MT_w_ours.py``, one f32 step against the same step on the CPU at
   4 layers, then bf16 at full depth on 8+8 fixture images at 512² (timed
-  and profiled), one step each of ``..._MT.py`` and ``..._sup.py``, and a
-  supervised step at 768² crops (L = 2305 tokens: the two-kernel backward).
+  and profiled), one step each of ``..._MT.py`` and ``..._sup.py``, and
+  supervised steps at 768² crops (L = 2305 tokens: the two-kernel
+  backward), the first, 3 timed and 1 profiled.
 
 Every phase prints one JSON line; any failed check raises and the script
 exits nonzero without its last line. Each path runs with the kernels'
@@ -57,9 +58,9 @@ TOL_MAIN_F32 = 1e-3
 # backward kernels vs the plain backward: the max abs error of each of dq,
 # dk, dv over that gradient's max |value|. Both compute p and ds alike; the
 # fused kernel's dq adds its k tiles' sums atomically, in a run-dependent
-# order, and in bf16 it sums every product on the tensor cores in another
-# order than cuBLAS. f32: those sums in another order; bf16: then the
-# rounding of each gradient to bf16, which moves it by at most one ulp,
+# order, and in bf16 every kernel sums its products on the tensor cores in
+# another order than cuBLAS. f32: those sums in another order; bf16: then
+# the rounding of each gradient to bf16, which moves it by at most one ulp,
 # 2^-7 = 7.8e-3 of its max |value|
 TOL_BWD = {'float32': 1e-4, 'bfloat16': 1e-2}
 # the backward kernels' L x L x D products and the [B, L, H, D] outputs
@@ -79,8 +80,11 @@ UNSUP_CONFIDENCE_F32 = 0.07
 KERNELS = ('flash_attn_fwd', 'flash_attn_bwd_fused', 'flash_attn_bwd_dkv',
            'flash_attn_bwd_dq')
 # the bf16 device functions that must run on the tensor cores, fed by
-# asynchronous copies (the build phase reads their SASS)
-TC_KERNELS = ('flash_attn_fwd_tc_kernel', 'flash_attn_bwd_fused_tc_kernel')
+# asynchronous copies (the build phase reads their SASS), and how many
+# instances of each the libraries hold: with and without a bias, and the
+# dk/dv template with and without the fused dq
+TC_KERNELS = {'flash_attn_fwd_tc_kernel': 2, 'flash_attn_bwd_kv_tc_kernel': 4,
+              'flash_attn_bwd_dq_tc_kernel': 2}
 
 
 class SmokeFailure(RuntimeError):
@@ -283,7 +287,8 @@ def phase_kernels_bwd(fa):
               (16, 1025, 'pasa'), (2, 130, 'random_b1'), (2, 130, None),
               (2, 2305, None), (1, 2305, 'pasa')]
     timed = {('bfloat16', 1, 1025, None), ('bfloat16', 8, 1025, None),
-             ('bfloat16', 16, 1025, 'pasa'), ('bfloat16', 2, 2305, None)}
+             ('bfloat16', 16, 1025, 'pasa'), ('bfloat16', 2, 2305, None),
+             ('bfloat16', 1, 2305, 'pasa')}
     # the training step's forward shapes (teacher and sup pass; 2B pass)
     fwd_timed = {('bfloat16', 8, 1025, None), ('bfloat16', 16, 1025, 'pasa')}
     fwd_cases = []
@@ -747,26 +752,36 @@ def phase_profile_train(state, step, batch, gen):
 
 
 def phase_train_one_step(fa, images, phase, name, n_sup, n_unsup, expect,
-                         size=512):
+                         size=512, timed=0):
     """One bf16 step of another flagship config through the same entry
-    points, checked for finite logs and the kernels' launch counts.
-    Returns the step's counts."""
+    points; with ``timed``, that many more steps timed (the first is their
+    warm-up) and one under the profiler. Checked for finite logs and the
+    kernels' launch counts: ``expect`` a step. Returns the counts of all
+    the steps."""
     import numpy as np
     import torch
     state, step, _ = make_trainer(name, 'cuda')
     batch = to_device(train_batch(images, n_sup, n_unsup, size), 'cuda')
+    gen = torch.Generator(device='cuda').manual_seed(0)
     reset_counts(fa)
-    state, logs, ms = timed_steps(state, step, batch,
-                                  torch.Generator(device='cuda').manual_seed(0),
-                                  1)
+    state, logs, ms = timed_steps(state, step, batch, gen, 1 + timed)
+    times = {'first_step_ms': ms[0]}
+    if timed:
+        (state, logs), prof = device_profile(
+            lambda: step(state, batch, gen), 12)
+        times.update(step_ms=ms[1:], step_ms_mean=float(np.mean(ms[1:])),
+                     step_ms_p50=float(np.median(ms[1:])), profile=prof)
     path_counts = counts(fa)
+    n_steps = 1 + timed + (timed > 0)
     lg = floats(logs)
     emit({'phase': phase, 'config': name,
           'batch': f'{n_sup} + {n_unsup} at {size}²',
-          'tokens': (size // 16) ** 2 + 1, 'first_step_ms': ms[0],
-          'logs': lg, 'launches': path_counts})
+          'tokens': (size // 16) ** 2 + 1, **times, 'logs': lg,
+          'launches': path_counts})
     check(all(np.isfinite(v) for v in lg.values()), f'non-finite logs {lg}')
-    check(path_counts == expect, f'{phase} step launches {path_counts}')
+    check(path_counts == {k: n * n_steps for k, n in expect.items()},
+          f'{phase}: {n_steps} steps launch {path_counts}, not {expect} a '
+          f'step')
     del state, step, batch
     torch.cuda.empty_cache()
     return path_counts
@@ -774,8 +789,8 @@ def phase_train_one_step(fa, images, phase, name, n_sup, n_unsup, expect,
 
 def phase_build(libs, seconds):
     """Per kernel function of the built libraries: registers and spills
-    (ptxas), tensor-core instructions and asynchronous copies (SASS). The
-    bf16 forward and fused backward must hold both, and spill nothing."""
+    (ptxas), tensor-core instructions and asynchronous copies (SASS). Every
+    instance of the bf16 kernels must hold both, and spill nothing."""
     from s4former_tpu_torch.ops import cuda_build
     functions = {}
     for lib in libs:
@@ -784,9 +799,10 @@ def phase_build(libs, seconds):
         for name in sorted(set(info) | set(sass)):
             functions[name] = {**info.get(name, {}), **sass.get(name, {})}
     emit({'phase': 'build', 'seconds': seconds, 'functions': functions})
-    for marker in TC_KERNELS:
+    for marker, instances in TC_KERNELS.items():
         found = {n: f for n, f in functions.items() if marker in n}
-        check(found, f'no {marker} in the built libraries')
+        check(len(found) == instances, f'{len(found)} instances of {marker} '
+              f'in the built libraries, not {instances}')
         for name, f in found.items():
             check(f.get('tensor_core', 0) > 0 and f.get('async_copy', 0) > 0,
                   f'{name}: no tensor-core instruction or no asynchronous '
@@ -852,11 +868,12 @@ def main() -> int:
     # 2 images cropped/padded to 768², the Cityscapes crop of
     # configs/_base_/datasets/cityscapes_768x768_1over16_split_CPS_semi.py:
     # the pos-embed is resized at run time, and L = 2305 > FULL_Q_MAX takes
-    # the dk/dv + dq kernels
+    # the dk/dv + dq kernels; the first step, 3 timed, 1 profiled
     paths['train_long'] = phase_train_one_step(
         fa, images, 'train_long', 'sup', 2, 0,
         {'flash_attn_fwd': 12, 'flash_attn_bwd_fused': 0,
-         'flash_attn_bwd_dkv': 12, 'flash_attn_bwd_dq': 12}, size=768)
+         'flash_attn_bwd_dkv': 12, 'flash_attn_bwd_dq': 12}, size=768,
+        timed=3)
 
     for name in KERNELS:
         entries[name]['launches'] = sum(p[name] for p in paths.values())

@@ -1,6 +1,6 @@
 // Building blocks of the bf16 tensor-core flash-attention kernels
-// (flash_attn_fwd.cu, and the fused backward in flash_attn_bwd.cu), for
-// Hopper (sm_90a), as inline PTX:
+// (flash_attn_fwd.cu, and the three backward kernels in flash_attn_bwd.cu),
+// for Hopper (sm_90a), as inline PTX:
 //
 //   cp.async     16-byte (and 4-byte) asynchronous copies global -> shared,
 //                with the zero-fill form for rows past L, commit and wait

@@ -4,10 +4,10 @@ Hopper.
 Counterpart of ``s4former_tpu/ops/flash_attention.py``. The TPU package runs
 Pallas kernels; here the same functions are the hand-written CUDA kernels
 ``csrc/flash_attn_fwd.cu`` (forward) and ``csrc/flash_attn_bwd.cu`` (the
-three backward kernels), bound with ``ctypes``. In bf16 the forward and the
-fused backward run on the tensor cores (``csrc/flash_attn_tc.cuh``) and
-need 16-byte aligned q, k, v and do (``check_tc_alignment``); in f32 every
-kernel runs on the FMA pipes. The ViT calls
+three backward kernels), bound with ``ctypes``. In bf16 every kernel runs
+on the tensor cores (``csrc/flash_attn_tc.cuh``) and needs 16-byte aligned
+q, k, v and do (``check_tc_alignment``); in f32 every kernel runs on the
+FMA pipes. The ViT calls
 ``flash_attention`` once per layer, with the PASA bias ``[B, 1, L, L]`` on
 the teacher-PASA and PASA-pass paths and with no bias otherwise; in training
 its gradient runs the backward kernels.
@@ -241,10 +241,10 @@ def _kernel_args(q, k, v, bias):
 
 
 def check_tc_alignment(**tensors):
-    """The bf16 forward and fused backward kernels copy q, k, v and do in
-    16-byte chunks (cp.async): each data pointer, and each of its B, L, H
-    strides in bytes, must be a multiple of 16. Raises ValueError
-    otherwise; nothing is copied to fix it."""
+    """The bf16 kernels copy q, k, v and do in 16-byte chunks (cp.async):
+    each data pointer, and each of its B, L, H strides in bytes, must be a
+    multiple of 16. Raises ValueError otherwise; nothing is copied to fix
+    it."""
     for name, t in tensors.items():
         elt = t.element_size()
         strides = [s * elt for s, n in zip(t.stride()[:3], t.shape[:3])
@@ -313,6 +313,8 @@ def launch_bwd_dkv(q, k, v, bias, do, lse, delta):
     """The dk/dv kernel of the two-kernel route: (dk, dv)."""
     global dkv_launch_count
     tail = _kernel_args(q, k, v, bias)
+    if q.dtype == torch.bfloat16:
+        check_tc_alignment(q=q, k=k, v=v, do=do)
     lib = load_bwd_library()
     dk = torch.empty_like(q, memory_format=torch.contiguous_format)
     dv = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -323,9 +325,12 @@ def launch_bwd_dkv(q, k, v, bias, do, lse, delta):
 
 
 def launch_bwd_dq(q, k, v, bias, do, lse, delta):
-    """The dq kernel of the two-kernel route: dq."""
+    """The dq kernel of the two-kernel route: dq, written once in the q
+    dtype (no workspace, no atomics: the same bits on every run)."""
     global dq_launch_count
     tail = _kernel_args(q, k, v, bias)
+    if q.dtype == torch.bfloat16:
+        check_tc_alignment(q=q, k=k, v=v, do=do)
     lib = load_bwd_library()
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     _call(lib, 's4_flash_attn_bwd_dq', q,

@@ -122,3 +122,23 @@ def test_tc_alignment_check():
     wide = torch.zeros((b, l, h * d + 1), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match='v must be'):
         fa.check_tc_alignment(q=q, k=k, v=wide[..., :h * d].view(b, l, h, d))
+
+
+@pytest.mark.parametrize('launcher', ['launch_bwd_fused', 'launch_bwd_dkv',
+                                      'launch_bwd_dq'])
+@pytest.mark.parametrize('misaligned', ['q', 'do'])
+def test_bwd_launchers_refuse_misaligned_bf16(launcher, misaligned):
+    """Each bf16 backward launcher checks its operands' alignment before it
+    builds or loads the library: a q or do view one element off 16 bytes
+    raises ValueError here, where there is no nvcc (a check after the load
+    would raise RuntimeError instead)."""
+    b, l, h, d = 1, 65, 2, 64
+    qkv = torch.zeros((b, l, 3 * h * d), dtype=torch.bfloat16)
+    q, k, v = (t.view(b, l, h, d) for t in qkv.split(h * d, -1))
+    flat = torch.zeros(b * l * h * d + 1, dtype=torch.bfloat16)
+    off = flat[1:].view(b, l, h, d)
+    do = torch.zeros((b, l, h, d), dtype=torch.bfloat16)
+    lse = torch.zeros((b, h, l))
+    args = {'q': q, 'do': do, misaligned: off}
+    with pytest.raises(ValueError, match=f'{misaligned} must be 16-byte'):
+        getattr(fa, launcher)(args['q'], k, v, None, args['do'], lse, lse)

@@ -115,15 +115,22 @@ def test_flash_autograd_dispatches_by_length(cuda, length, route):
     _assert_grads_close((q.grad, k.grad, v.grad), ref, 1e-2)
 
 
+def _pasa_inputs(cuda, b, length, seed):
+    """q, k, v, do at H = 12 and the PASA bias of ``build_pasa_bias`` (the
+    teacher's per-patch unconfidence, weight 5, adaptive), bf16."""
+    from s4former_tpu_torch.semi.pasa import build_pasa_bias
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v, _, do = _grad_inputs(cuda, b, length, 12, torch.bfloat16, None,
+                                  seed=seed)
+    unconf = torch.rand((b, length - 1), generator=g, device=cuda)
+    bias = build_pasa_bias(unconf, 5.0, adaptive=True).to(torch.bfloat16)
+    return q, k, v, bias, do
+
+
 def test_tc_kernels_training_batch(cuda):
     """B = 16 at L = 1025, H = 12 with the PASA bias (the fused 2B unsup
     pass of the training step), forward and fused backward."""
-    from s4former_tpu_torch.semi.pasa import build_pasa_bias
-    g = torch.Generator(device=cuda).manual_seed(16)
-    q, k, v, _, do = _grad_inputs(cuda, 16, 1025, 12, torch.bfloat16, None,
-                                  seed=16)
-    unconf = torch.rand((16, 1024), generator=g, device=cuda)
-    bias = build_pasa_bias(unconf, 5.0, adaptive=True).to(torch.bfloat16)
+    q, k, v, bias, do = _pasa_inputs(cuda, 16, 1025, seed=16)
     o, lse = fa.flash_attention_fwd(q, k, v, bias)
     ro, rlse = fa.flash_attention_reference(q, k, v, bias)
     assert (o.float() - ro.float()).abs().max().item() <= 2e-2
@@ -137,7 +144,7 @@ def test_tc_kernels_training_batch(cuda):
 
 def test_tc_kernels_refuse_misaligned_views(cuda):
     """A bf16 q view one element off its 16-byte alignment is refused by
-    both tensor-core launchers, not copied."""
+    every tensor-core launcher, not copied."""
     b, length, h, d = 1, 65, 2, 64
     q, k, v, _, do = _grad_inputs(cuda, b, length, h, torch.bfloat16, None)
     flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
@@ -145,5 +152,35 @@ def test_tc_kernels_refuse_misaligned_views(cuda):
     with pytest.raises(ValueError, match='16-byte aligned'):
         fa.flash_attention_fwd(q_off, k, v)
     o, lse = fa.flash_attention_fwd(q, k, v)
-    with pytest.raises(ValueError, match='16-byte aligned'):
-        fa.launch_bwd_fused(q_off, k, v, None, do, lse, fa.row_delta(o, do))
+    for launcher in (fa.launch_bwd_fused, fa.launch_bwd_dkv,
+                     fa.launch_bwd_dq):
+        with pytest.raises(ValueError, match='16-byte aligned'):
+            launcher(q_off, k, v, None, do, lse, fa.row_delta(o, do))
+
+
+@pytest.mark.parametrize('pasa', [False, True])
+def test_long_route_at_768_crops(cuda, pasa):
+    """B = 2 at L = 2305, H = 12 (two 768² crops, the shape the dk/dv and dq
+    kernels take in training), without a bias and with the PASA bias."""
+    q, k, v, bias, do = _pasa_inputs(cuda, 2, 2305, seed=23)
+    bias = bias if pasa else None
+    o, lse = fa.flash_attention_fwd(q, k, v, bias)
+    ref = fa.flash_attention_backward_reference(q, k, v, bias, o, lse, do)
+    args = (q, k, v, bias, do, lse, fa.row_delta(o, do))
+    dk, dv = fa.launch_bwd_dkv(*args)
+    got = (fa.launch_bwd_dq(*args), dk, dv)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, ref, 1e-2)
+
+
+def test_dq_kernel_is_deterministic(cuda):
+    """The dq kernel owns its q rows and sums in a fixed order: two launches
+    give the same bits (B = 1, L = 2305, H = 12, PASA bias)."""
+    q, k, v, bias, do = _pasa_inputs(cuda, 1, 2305, seed=5)
+    o, lse = fa.flash_attention_fwd(q, k, v, bias)
+    args = (q, k, v, bias, do, lse, fa.row_delta(o, do))
+    first = fa.launch_bwd_dq(*args)
+    second = fa.launch_bwd_dq(*args)
+    torch.cuda.synchronize()
+    assert first.dtype == torch.bfloat16
+    assert torch.equal(first, second)
