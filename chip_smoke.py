@@ -16,7 +16,15 @@ on the card, then drives the port's two paths through its entry points:
   4 layers, then bf16 at full depth on 8+8 fixture images at 512² (timed
   and profiled), one step each of ``..._MT.py`` and ``..._sup.py``, and
   supervised steps at 768² crops (L = 2305 tokens: the two-kernel
-  backward), the first, 3 timed and 1 profiled.
+  backward), the first, 3 timed and 1 profiled; 4 + 4 steps of
+  ``..._MT_w_ours.py`` from one batch (5 timed, 1 profiled), the CLI's
+  step without its loader;
+- train and evaluate: ``python -m s4former_tpu_torch.tools.train`` (run
+  in-process through its ``main``) on ``setr_fixture_voc_mini_fullflag.py``
+  for 12 steps of 4 + 4 fixture images through the port's pipelines,
+  loader, runner, exact in-loop eval at iters 6 and 12 and checkpoints;
+  ``--auto-resume`` on to 15; ``tools.test`` on ``iter_12`` against the
+  in-loop mIoU.
 
 Every phase prints one JSON line; any failed check raises and the script
 exits nonzero without its last line. Each path runs with the kernels'
@@ -39,6 +47,8 @@ CONFIGS = {'sup': _CFG_STEM + 'sup.py',
            'MT': _CFG_STEM + 'semi_beta_1_th_0.95_MT.py',
            'ours': _CFG_STEM + 'semi_beta_1_th_0.95_MT_w_ours.py'}
 CONFIG = CONFIGS['sup']
+FULLFLAG = os.path.join(REPO, 'configs', 'setr',
+                        'setr_fixture_voc_mini_fullflag.py')
 IMAGES = os.path.join(REPO, 'data', 'fixtures', 'voc_mini', 'JPEGImages',
                       '*.jpg')
 LABELS = os.path.join(REPO, 'data', 'fixtures', 'voc_mini',
@@ -77,6 +87,10 @@ TOL_TRAIN_F32 = 1e-3
 # on the fixture image, so 0.1 would leave no pixel confident; 0.07 makes
 # about half of them confident and the unsup losses live
 UNSUP_CONFIDENCE_F32 = 0.07
+# offline tools.test vs the in-loop eval at the same checkpoint: the same
+# exact path, but a bf16 forward in another process may flip a few
+# boundary pixels
+TOL_MIOU = 1e-3
 KERNELS = ('flash_attn_fwd', 'flash_attn_bwd_fused', 'flash_attn_bwd_dkv',
            'flash_attn_bwd_dq')
 # the bf16 device functions that must run on the tensor cores, fed by
@@ -221,7 +235,10 @@ def phase_kernels(fa):
         for b, l, bias_kind in ((2, 1025, 'pasa'), (2, 1025, 'random_b1'),
                                 (2, 1025, 'random_bh'), (2, 1025, None),
                                 (2, 130, 'random_b1'), (2, 130, None),
-                                (1, 1025, None), (1, 1025, 'pasa')):
+                                (1, 1025, None), (1, 1025, 'pasa'),
+                                # the fixture eval: 683x512 padded to
+                                # 688x512, a 43x32 grid + cls, 4 a flush
+                                (4, 1377, None)):
             q, k, v, bias = attention_inputs(b, l, 12, dtype, bias_kind, gen)
             o, lse = fa.flash_attention_fwd(q, k, v, bias)
             name = str(dtype).replace('torch.', '')
@@ -232,7 +249,7 @@ def phase_kernels(fa):
             case = dict(dtype=name, B=b, L=l, H=12, D=64, bias=bias_kind,
                         max_abs_err=err_o, lse_max_abs_err=err_lse,
                         tol_o=tol['o'], tol_lse=tol['lse'])
-            if l == 1025:
+            if l in (1025, 1377):
                 case.update(forward_times(fa, q, k, v, bias))
             cases.append(case)
             emit({'phase': 'kernel_check', **case})
@@ -274,23 +291,30 @@ def grad_errors(got, ref):
 
 def phase_kernels_bwd(fa):
     """Each backward kernel vs the plain backward on the card, at the
-    training path's shapes (B = 8 and the fused 2B pass's 16 at L = 1025,
-    no bias / PASA / per-head bias), the ragged L = 130 and L = 2305 (768²
-    crops); the forward that gives them o and lse is held to the plain
-    forward at each. Times at the headline shapes, and the forward's at
-    the training shapes. Returns the kernels line's entries, the forward's
-    max abs error in bf16 and its timed cases."""
+    training paths' shapes at L = 1025 (8 + 8: B = 8 and the fused 2B
+    pass's 16 with PASA; the CLI's 4 + 4: B = 4 and 8 with PASA; no bias /
+    PASA / per-head bias), the ragged L = 130 and L = 2305 (768² crops);
+    the forward that gives them o and lse is held to the plain forward at
+    each. Times at the headline shapes, and the forward's at the training
+    shapes. Returns the kernels line's entries, the forward's max abs
+    error in bf16 and its timed cases."""
     import torch
     gen = torch.Generator(device='cuda').manual_seed(1)
     shapes = [(1, 1025, None), (1, 1025, 'pasa'), (1, 1025, 'random_bh'),
-              (2, 1025, None), (2, 1025, 'pasa'), (8, 1025, None),
-              (16, 1025, 'pasa'), (2, 130, 'random_b1'), (2, 130, None),
-              (2, 2305, None), (1, 2305, 'pasa')]
-    timed = {('bfloat16', 1, 1025, None), ('bfloat16', 8, 1025, None),
-             ('bfloat16', 16, 1025, 'pasa'), ('bfloat16', 2, 2305, None),
-             ('bfloat16', 1, 2305, 'pasa')}
-    # the training step's forward shapes (teacher and sup pass; 2B pass)
-    fwd_timed = {('bfloat16', 8, 1025, None), ('bfloat16', 16, 1025, 'pasa')}
+              (2, 1025, None), (2, 1025, 'pasa'), (4, 1025, None),
+              (8, 1025, 'pasa'), (8, 1025, None), (16, 1025, 'pasa'),
+              (2, 130, 'random_b1'), (2, 130, None), (2, 2305, None),
+              (1, 2305, 'pasa')]
+    # the training steps' shapes (teacher and sup pass; fused 2B pass) at
+    # 8 + 8 and 4 + 4
+    train_shapes = {('bfloat16', 8, 1025, None),
+                    ('bfloat16', 16, 1025, 'pasa'),
+                    ('bfloat16', 4, 1025, None),
+                    ('bfloat16', 8, 1025, 'pasa')}
+    timed = train_shapes | {('bfloat16', 1, 1025, None),
+                            ('bfloat16', 2, 2305, None),
+                            ('bfloat16', 1, 2305, 'pasa')}
+    fwd_timed = train_shapes
     fwd_cases = []
     launchers = {'flash_attn_bwd_fused': fa.launch_bwd_fused,
                  'flash_attn_bwd_dkv': fa.launch_bwd_dkv,
@@ -787,6 +811,111 @@ def phase_train_one_step(fa, images, phase, name, n_sup, n_unsup, expect,
     return path_counts
 
 
+def read_jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def add_counts(a, b):
+    return {k: a[k] + b[k] for k in a}
+
+
+def phase_train_cli(fa, gpu_line):
+    """The port's training CLI on ``setr_fixture_voc_mini_fullflag.py`` as
+    written (bf16, DeiT-B at full depth, 4 + 4 fixture images at 512² a
+    step through the real pipelines and loader) for 12 steps with eval and
+    checkpoints every 6 and logs every 3; then ``--auto-resume`` to 15;
+    then ``tools.test`` on ``iter_12``, whose mIoU must be the in-loop
+    one's within TOL_MIOU. Each run's launches are counted on their own:
+    36 forward and 24 fused backward a step, 12 forward a flush of 4 val
+    images. Returns the three runs' counts summed."""
+    import tempfile
+    import numpy as np
+    import torch
+    from s4former_tpu_torch.tools import test as test_cli
+    from s4former_tpu_torch.tools import train as train_cli
+    opts = ['--cfg-options', 'evaluation.interval=6',
+            'checkpoint_config.interval=6', 'log_config.interval=3']
+    n_val, flush = 16, 4
+    per_eval = 12 * -(-n_val // flush)
+    with tempfile.TemporaryDirectory() as wd:
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fa)                           # the main path starts
+        t0 = time.perf_counter()
+        state = train_cli.main([FULLFLAG, '--work-dir', wd,
+                                '--max-iters', '12'] + opts)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_counts = counts(fa)                  # the main path ends
+        peak = torch.cuda.max_memory_allocated()
+        check(int(state.step) == 12, f'trained to step {int(state.step)}')
+        del state
+        torch.cuda.empty_cache()
+        records = read_jsonl(os.path.join(wd, 'metrics.jsonl'))
+        train = [r for r in records if r['prefix'] == 'train']
+        val = {r['step']: r for r in records if r['prefix'] == 'val'}
+        check([r['step'] for r in train] == [3, 6, 9, 12] and
+              sorted(val) == [6, 12], f'logged steps {records}')
+        check(all(np.isfinite(r['loss']) for r in train), f'losses {train}')
+        check(train_counts == {'flash_attn_fwd': 36 * 12 + 2 * per_eval,
+                               'flash_attn_bwd_fused': 24 * 12,
+                               'flash_attn_bwd_dkv': 0,
+                               'flash_attn_bwd_dq': 0},
+              f'12 steps + 2 evals launched {train_counts}, not 36 forward '
+              f'+ 24 fused a step and {per_eval} forward an eval')
+
+        reset_counts(fa)
+        state = train_cli.main([FULLFLAG, '--work-dir', wd, '--auto-resume',
+                                '--max-iters', '15'] + opts)
+        torch.cuda.synchronize()
+        resume_counts = counts(fa)
+        check(int(state.step) == 15, f'resumed run ended at '
+              f'{int(state.step)}, not 15')
+        del state
+        torch.cuda.empty_cache()
+        logs = ''.join(open(os.path.join(wd, n)).read()
+                       for n in os.listdir(wd) if n.endswith('.log'))
+        resumed = f'resumed from {os.path.join(wd, "iter_12")}'
+        check(resumed in logs, f'no "{resumed}" in the log')
+        check(resume_counts == {'flash_attn_fwd': 36 * 3,
+                                'flash_attn_bwd_fused': 24 * 3,
+                                'flash_attn_bwd_dkv': 0,
+                                'flash_attn_bwd_dq': 0},
+              f'3 resumed steps launched {resume_counts}')
+
+        reset_counts(fa)
+        t0 = time.perf_counter()
+        results = test_cli.main([FULLFLAG, os.path.join(wd, 'iter_12')])
+        test_s = time.perf_counter() - t0
+        test_counts = counts(fa)
+        check(test_counts['flash_attn_fwd'] == per_eval and
+              sum(test_counts.values()) == per_eval,
+              f'offline test launched {test_counts}')
+        in_loop = val[12]['mIoU']
+        gap = abs(results['mIoU'] - in_loop)
+        step_ms = [r['step_ms'] for r in train]
+        emit({'phase': 'train_cli', 'config': os.path.basename(FULLFLAG),
+              'batch': '4 + 4 at 512², bf16, 12 layers',
+              'losses': {r['step']: r['loss'] for r in train},
+              'mask_ratio': {r['step']: r['mask_ratio'] for r in train},
+              'logs_iter_12': train[-1],
+              'step_ms_windows': step_ms,
+              'step_ms_mean_after_first': float(np.mean(step_ms[1:])),
+              'step_ms_p50_after_first': float(np.median(step_ms[1:])),
+              'data_wait_ms_windows': [r['data_wait_ms'] for r in train],
+              'eval_s': {s: r['eval_s'] for s, r in val.items()},
+              'miou': {s: r['mIoU'] for s, r in val.items()},
+              'train_run_s': train_s, 'peak_mem_bytes': peak,
+              'launches': {'train': train_counts, 'resume': resume_counts,
+                           'test': test_counts},
+              'resumed': resumed, 'test_miou': results['mIoU'],
+              'in_loop_miou_iter_12': in_loop, 'miou_gap': gap,
+              'tol': TOL_MIOU, 'test_run_s': test_s, 'gpu': gpu_line})
+        check(gap <= TOL_MIOU, f'offline mIoU {results["mIoU"]} vs in-loop '
+              f'{in_loop}: {gap} > {TOL_MIOU}')
+    return add_counts(add_counts(train_counts, resume_counts), test_counts)
+
+
 def phase_build(libs, seconds):
     """Per kernel function of the built libraries: registers and spills
     (ptxas), tensor-core instructions and asynchronous copies (SASS). Every
@@ -825,6 +954,7 @@ def main() -> int:
           'count': torch.cuda.device_count()})
 
     sys.path.insert(0, REPO)
+    os.chdir(REPO)             # the configs' data roots are repo-relative
     from s4former_tpu_torch.ops import cuda_build
     from s4former_tpu_torch.ops import flash_attention as fa
     t0 = time.perf_counter()
@@ -874,6 +1004,13 @@ def main() -> int:
         {'flash_attn_fwd': 12, 'flash_attn_bwd_fused': 0,
          'flash_attn_bwd_dkv': 12, 'flash_attn_bwd_dq': 12}, size=768,
         timed=3)
+    # train_cli's step (4 + 4) from one fixed batch, no loader beside it:
+    # what the host pipeline adds to the CLI's step
+    paths['train_bf16_4x4'] = phase_train_one_step(
+        fa, images, 'train_bf16_4x4', 'ours', 4, 4,
+        {'flash_attn_fwd': 36, 'flash_attn_bwd_fused': 24,
+         'flash_attn_bwd_dkv': 0, 'flash_attn_bwd_dq': 0}, timed=5)
+    paths['train_cli'] = phase_train_cli(fa, gpu_line)
 
     for name in KERNELS:
         entries[name]['launches'] = sum(p[name] for p in paths.values())

@@ -9,10 +9,12 @@ reference: mmseg/apis/inference.py).
 - ``inference_with_teacher_pasa``: the EMA teacher's confidence builds the
   PASA bias for the student's forward.
 - ``inference_segmentor_with_attn``: also returns logits and attention maps.
+- ``single_device_test``: a dataset's pipeline images through ``predict``,
+  as per-image confusion histograms (or label maps).
 
 Images are NHWC, normalised and padded to the crop as in the JAX package.
-The runs are eval mode under ``torch.inference_mode``. Evaluation over a
-dataset (``single_device_test``) and TTA come with the eval slice.
+The runs are eval mode under ``torch.inference_mode``. TTA
+(``inference_segmentor_tta``) is still to be ported.
 """
 from __future__ import annotations
 
@@ -174,3 +176,28 @@ def inference_with_teacher_pasa(segmentor: Segmentor, img,
 
 def _strip(sd: Dict[str, torch.Tensor], prefix: str) -> Dict:
     return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+def single_device_test(segmentor: Segmentor, dataset,
+                       pre_eval: bool = True, progress_every: int = 50,
+                       logger=None):
+    """(reference test.py:34 single_gpu_test, pre_eval mode): each item's
+    pipeline image through ``segmentor.predict``; a label map of another
+    shape than the ground truth is resized to it, nearest."""
+    from PIL import Image
+    results = []
+    for idx in range(len(dataset)):
+        item = dataset.get_item_deterministic(idx, seed=0)
+        if isinstance(item, list):
+            item = item[0]
+        img = torch.from_numpy(np.asarray(item['img'], np.float32)[None])
+        pred = segmentor.predict(img.to(segmentor.device))[0].cpu().numpy()
+        gt = dataset.get_gt_seg_map(idx)
+        if pred.shape != gt.shape:
+            pred = np.asarray(Image.fromarray(pred.astype(np.uint8)).resize(
+                (gt.shape[1], gt.shape[0]), Image.NEAREST))
+        results.extend(dataset.pre_eval([pred], [idx]) if pre_eval
+                       else [pred])
+        if logger and (idx + 1) % progress_every == 0:
+            logger.info(f'{idx + 1}/{len(dataset)}')
+    return results

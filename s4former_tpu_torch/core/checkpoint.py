@@ -19,17 +19,32 @@ The port's modules carry the reference (mmseg) parameter names, so its
   under the port's names, so both packages can start training from one
   state (``semi.train_step.train_state_from_jax`` builds the port's).
 
-Orbax checkpoint directories need JAX and are not read here.
+And the port's own training checkpoints, with the contract of the JAX
+module's orbax half (l.30-143): ``save_checkpoint(work_dir, step, state,
+keep, meta, block)`` writes ``work_dir/iter_{step}/state.pt`` (a torch
+file of the ``TrainState``: step, student, SGD buffers, EMA teacher,
+annealed momentum) and ``s4former_meta.json``; ``finalize_pending_saves``,
+``find_all_checkpoints``, ``find_latest_checkpoint`` and
+``load_checkpoint``. Orbax directories need JAX and are not read here.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+import dataclasses
+import json
+import os
+import os.path as osp
+import re
+import shutil
+import threading
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 StateDict = Dict[str, torch.Tensor]
+STATE_FILE = 'state.pt'
+META_FILE = 's4former_meta.json'
 
 
 def _t(x) -> torch.Tensor:
@@ -202,3 +217,155 @@ def ema_state_dict(sd: Mapping[str, torch.Tensor]) -> StateDict:
             if k.startswith(src):
                 out[dst + k[len(src):]] = v
     return out
+
+
+# ------------------------------------------------------ training checkpoints
+def _host_copy(state) -> Dict[str, Any]:
+    """The TrainState's tensors copied to host memory now (a device ->
+    host copy waits for the step that wrote them)."""
+    def cpu(sd: Mapping[str, torch.Tensor]) -> StateDict:
+        return {k: v.detach().to('cpu', copy=True) for k, v in sd.items()}
+    annealed = state.annealed_momentum
+    return {'step': int(state.step),
+            'model': cpu(state.model.state_dict()),
+            'momentum': cpu(state.momentum),
+            'ema_model': (None if state.ema_model is None
+                          else cpu(state.ema_model.state_dict())),
+            'annealed_momentum': (None if annealed is None else
+                                  annealed.detach().to('cpu', copy=True))}
+
+
+def _write(payload: Dict[str, Any], target: str) -> None:
+    """torch.save to a temporary name, made durable, then renamed: a
+    process killed mid-write leaves no ``target``."""
+    tmp = target + '.tmp'
+    with open(tmp, 'wb') as f:
+        torch.save(payload, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, target)
+
+
+class _AsyncSaver:
+    """At most one checkpoint write in flight.
+
+    ``save`` copies the state to host memory before it returns, so the
+    step loop may go on changing the state; a thread writes the copy. The
+    meta file and the pruning of old checkpoints, which must see a
+    complete checkpoint, run at ``finalize``: on the next save, or when
+    the caller asks (the JAX module's orbax contract, l.30-79)."""
+
+    def __init__(self):
+        self._pending = None  # (thread, errors, work_dir, path, meta, keep)
+
+    def save(self, work_dir: str, step: int, state, keep: int,
+             meta: Optional[Dict], block: bool) -> str:
+        self.finalize()
+        path = osp.abspath(osp.join(work_dir, f'iter_{step}'))
+        os.makedirs(path, exist_ok=True)
+        payload = _host_copy(state)
+        errors: List[BaseException] = []
+
+        def write():
+            try:
+                _write(payload, osp.join(path, STATE_FILE))
+            except Exception as e:  # re-raised by finalize
+                errors.append(e)
+        thread = threading.Thread(target=write, name='s4-checkpoint')
+        thread.start()
+        self._pending = (thread, errors, work_dir, path, meta, keep)
+        if block:
+            self.finalize()
+        return path
+
+    def finalize(self) -> Optional[str]:
+        """Wait for the write in flight (if any), then write its meta and
+        prune old checkpoints. Returns the finished path or None."""
+        if self._pending is None:
+            return None
+        thread, errors, work_dir, path, meta, keep = self._pending
+        self._pending = None
+        thread.join()
+        if errors:
+            raise RuntimeError(f'checkpoint write to {path} failed') \
+                from errors[0]
+        if meta:
+            with open(osp.join(path, META_FILE), 'w') as f:
+                json.dump(meta, f)
+        _prune_old_checkpoints(work_dir, keep)
+        return path
+
+
+_SAVER = _AsyncSaver()
+
+
+def save_checkpoint(work_dir: str, step: int, state, keep: int = 3,
+                    meta: Optional[Dict] = None, block: bool = True) -> str:
+    """Save a ``TrainState`` under work_dir/iter_{step}. ``block=False``
+    returns once the state is on the host; the write finishes in the
+    background (finalized by the next save or ``finalize_pending_saves``)."""
+    return _SAVER.save(work_dir, step, state, keep, meta, block)
+
+
+def finalize_pending_saves() -> Optional[str]:
+    """Barrier for the checkpoint write in flight (before exit, or before
+    reading back the checkpoint just written)."""
+    return _SAVER.finalize()
+
+
+def _prune_old_checkpoints(work_dir: str, keep: int):
+    ckpts = find_all_checkpoints(work_dir)
+    for path, _ in ckpts[:-keep] if keep > 0 else []:
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def find_all_checkpoints(work_dir: str) -> List[Tuple[str, int]]:
+    """COMPLETE checkpoints under work_dir, sorted by step: ``iter_N``
+    directories holding ``state.pt``. A write in flight or killed holds
+    only ``state.pt.tmp`` and is skipped (reference utils/misc.py:7-41)."""
+    out = []
+    if not osp.isdir(work_dir):
+        return out
+    for name in os.listdir(work_dir):
+        m = re.fullmatch(r'iter_(\d+)', name)
+        if m and osp.isfile(osp.join(work_dir, name, STATE_FILE)):
+            out.append((osp.join(work_dir, name), int(m.group(1))))
+    return sorted(out, key=lambda x: x[1])
+
+
+def find_latest_checkpoint(work_dir: str) -> Optional[str]:
+    """Auto-resume discovery (reference utils/misc.py:7-41)."""
+    ckpts = find_all_checkpoints(work_dir)
+    return ckpts[-1][0] if ckpts else None
+
+
+def load_checkpoint(path: str, target_state=None):
+    """The checkpoint at ``path`` (an ``iter_N`` directory). With
+    ``target_state``, its modules, SGD buffers, step and annealed momentum
+    are loaded onto the state's own device and the state is returned;
+    without, the raw dict of CPU tensors."""
+    file = osp.join(path, STATE_FILE)
+    if target_state is None:
+        return torch.load(file, map_location='cpu', weights_only=True)
+    device = target_state.step.device
+    raw = torch.load(file, map_location=device, weights_only=True)
+    target_state.model.load_state_dict(raw['model'])
+    if (raw['ema_model'] is None) != (target_state.ema_model is None):
+        raise ValueError(f'{path}: the EMA teacher is in one of the '
+                         f'checkpoint and the state, not both')
+    if target_state.ema_model is not None:
+        target_state.ema_model.load_state_dict(raw['ema_model'])
+    if raw['momentum'].keys() != target_state.momentum.keys():
+        raise ValueError(f'{path}: SGD buffers of other parameters')
+    for name, buf in target_state.momentum.items():
+        buf.copy_(raw['momentum'][name])
+    return dataclasses.replace(
+        target_state,
+        step=torch.tensor(raw['step'], dtype=torch.int64, device=device),
+        annealed_momentum=raw['annealed_momentum'])
+
+
+def load_model_state_dict(path: str) -> StateDict:
+    """The student's state dict (parameters and BN statistics) of a
+    training checkpoint, for evaluation."""
+    return load_checkpoint(path)['model']

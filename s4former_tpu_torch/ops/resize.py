@@ -51,6 +51,19 @@ def _linear_weights(in_size: int, out_size: int, align_corners: bool):
     return lo, hi, w
 
 
+def interp_matrix_np(in_size: int, out_size: int,
+                     align_corners: bool) -> np.ndarray:
+    """[out_size, in_size] float32 2-tap bilinear interpolation matrix (the
+    eval path's resize of logits to the label shape,
+    ``core/runner.eval_resize_matrices``)."""
+    lo, hi, w = _linear_weights(in_size, out_size, align_corners)
+    m = np.zeros((out_size, in_size), np.float32)
+    rows = np.arange(out_size)
+    np.add.at(m, (rows, lo), 1.0 - w)
+    np.add.at(m, (rows, hi), w)
+    return m
+
+
 def _lerp_axis(x: torch.Tensor, axis: int, out_size: int,
                align_corners: bool) -> torch.Tensor:
     lo, hi, w = _linear_weights(x.shape[axis], out_size, align_corners)

@@ -98,3 +98,8 @@ HEADS = MODELS
 LOSSES = MODELS
 SEGMENTORS = MODELS
 
+DATASETS = Registry('datasets')
+PIPELINES = Registry('pipelines')
+SAMPLERS = Registry('samplers')
+HOOKS = Registry('hooks')
+

@@ -8,6 +8,8 @@ as numpy arrays.
 """
 from __future__ import annotations
 
+import os.path as osp
+
 import numpy as np
 
 TINY_CFG = """
@@ -135,3 +137,118 @@ def torch_train_model():
     import s4former_tpu_torch.models  # noqa: F401
     from s4former_tpu_torch.models import build_segmentor
     return build_segmentor(copy.deepcopy(TRAIN_MODEL))
+
+
+# ------------------------------------------------- the CLIs' tiny config
+FIXTURE = osp.join(osp.dirname(osp.abspath(__file__)), '..', 'data',
+                   'fixtures', 'voc_mini')
+NORM = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375],
+            to_rgb=True)
+# keep-ratio (96, 64): the 500x375 fixtures become 85x64, padded to 96x64
+TEST_PIPELINE = [
+    dict(type='LoadImageFromFile'),
+    dict(type='MultiScaleFlipAug', img_scale=(96, 64), flip=False,
+         transforms=[dict(type='Resize', keep_ratio=True),
+                     dict(type='RandomFlip'),
+                     dict(type='Normalize', **NORM),
+                     dict(type='ImageToTensor', keys=['img']),
+                     dict(type='Collect', keys=['img'])])]
+
+CLI_CFG = """
+crop_size = (64, 64)
+img_norm_cfg = dict(mean=[123.675, 116.28, 103.53],
+                    std=[58.395, 57.12, 57.375], to_rgb=True)
+data_root = '{root}'
+geometric = [
+    dict(type='LoadImageFromFile'),
+    dict(type='LoadAnnotations'),
+    dict(type='Resize', img_scale=(128, 64), ratio_range=(0.5, 2.0)),
+    dict(type='RandomCrop', crop_size=crop_size, cat_max_ratio=0.75),
+    dict(type='RandomFlip', prob=0.5),
+]
+sup_pipeline = geometric + [
+    dict(type='PhotoMetricDistortion'),
+    dict(type='Normalize', **img_norm_cfg),
+    dict(type='Pad', size=crop_size, pad_val=0, seg_pad_val=255),
+    dict(type='ExtraAttrs', tag='sup'),
+    dict(type='DefaultFormatBundle'),
+    dict(type='Collect', keys=['img', 'gt_semantic_seg']),
+]
+unsup_pipeline = geometric + [dict(
+    type='MultiBranch',
+    unsup_student=[
+        dict(type='PhotoMetricDistortion'),
+        dict(type='Normalize', **img_norm_cfg),
+        dict(type='Pad', size=crop_size, pad_val=0, seg_pad_val=255),
+        dict(type='ExtraAttrs', tag='unsup_student'),
+        dict(type='Collect', keys=['img', 'gt_semantic_seg'])],
+    unsup_teacher=[
+        dict(type='Normalize', **img_norm_cfg),
+        dict(type='Pad', size=crop_size, pad_val=0, seg_pad_val=255),
+        dict(type='ExtraAttrs', tag='unsup_teacher'),
+        dict(type='Collect', keys=['img', 'gt_semantic_seg'])])]
+test_pipeline = {test_pipeline}
+splits = '{root}/datasplits/fixture/'
+data = dict(
+    samples_per_gpu=4, workers_per_gpu=1,
+    train=dict(
+        type='SemiDataset',
+        sup=dict(type='PascalVOCDataset', data_root=data_root,
+                 img_dir='JPEGImages', ann_dir='SegmentationClass',
+                 split=splits + 'train_supervised.txt',
+                 pipeline=sup_pipeline),
+        unsup=dict(type='PascalVOCDataset', data_root=data_root,
+                   img_dir='JPEGImages', ann_dir='SegmentationClass',
+                   split=splits + 'train_unsupervised.txt',
+                   pipeline=unsup_pipeline)),
+    val=dict(type='PascalVOCDataset', data_root=data_root,
+             img_dir='JPEGImages', ann_dir='SegmentationClass',
+             split='{val_split}', pipeline=test_pipeline),
+    test=dict(type='PascalVOCDataset', data_root=data_root,
+              img_dir='JPEGImages', ann_dir='SegmentationClass',
+              split='{val_split}', pipeline=test_pipeline))
+samples_per_gpu_sup = 2
+samples_per_gpu_unsup = 2
+model = dict(
+    type='EncoderDecoder',
+    backbone=dict(type='VisionTransformer', img_size=(64, 64),
+                  patch_size=16, embed_dims=64, num_layers=2, num_heads=4,
+                  out_indices=(0, 1)),
+    decode_head=dict(type='SETRUPHead', in_channels=64, channels=16,
+                     num_classes=21, in_index=1, num_convs=2, up_scale=4,
+                     kernel_size=3,
+                     loss_decode=dict(type='CrossEntropyLoss',
+                                      loss_weight=1.0)),
+    auxiliary_head=[dict(type='SETRUPHead', in_channels=64, channels=16,
+                         num_classes=21, in_index=i, num_convs=1,
+                         up_scale=4, kernel_size=3,
+                         loss_decode=dict(type='CrossEntropyLoss',
+                                          loss_weight=0.4))
+                    for i in range(2)],
+    test_cfg=dict(mode='whole'),
+    ema=True, ema_momentum=0.99, unsup_weight=1.0, unsup_confidence=0.06,
+    attn_mask_seperate_head=True, attn_mask_weight=5.0,
+    adaptive_attn_mask=True, use_PatchShuffle_w_Cutmix=True, PatchMix_N=2,
+    negative_class_ranking=True, negative_class_ranking_mode='unsup_only')
+optimizer = dict(type='SGD', lr=0.01, momentum=0.9, weight_decay=0.0,
+                 paramwise_cfg=dict(custom_keys={{'head': dict(lr_mult=10.)}}))
+lr_config = dict(policy='poly', power=0.9, min_lr=1e-4, by_epoch=False)
+runner = dict(type='IterBasedRunner', max_iters=2)
+evaluation = dict(interval=2, metric='mIoU')
+checkpoint_config = dict(by_epoch=False, interval=2)
+log_config = dict(interval=1)
+"""
+
+
+def write_cli_config(directory, val_split: str) -> str:
+    """A config for ``tools.train`` / ``tools.test`` that runs in seconds on
+    the CPU: the fixture images through the flagship's pipelines at 64²
+    crops (test: keep-ratio (96, 64)), 2 + 2 a step, a 2-layer ViT of 64
+    with the SETR-PUP head, 2 aux heads, 21 classes and the S4Former flags,
+    2 iterations with eval and checkpoint at 2. ``val_split``: a split file
+    of val stems."""
+    path = directory / 'tiny_cli.py'
+    path.write_text(CLI_CFG.format(root=osp.abspath(FIXTURE),
+                                   test_pipeline=repr(TEST_PIPELINE),
+                                   val_split=val_split))
+    return str(path)

@@ -1,6 +1,10 @@
 """The CUDA kernels against their plain versions on the card. Marked
 ``cuda``: they skip without a GPU. On a machine with one:
 ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
+import threading
+import time
+
+import numpy as np
 import pytest
 import torch
 
@@ -184,3 +188,70 @@ def test_dq_kernel_is_deterministic(cuda):
     torch.cuda.synchronize()
     assert first.dtype == torch.bfloat16
     assert torch.equal(first, second)
+
+
+def test_prefetcher_batches_arrive_whole(cuda):
+    """``_DevicePrefetcher`` on the card: 32 distinct batches of the CLI's
+    keys and shapes (4 + 4 at 512²), each read twice on the consuming
+    stream and compared with its host source bit for bit.
+
+    - The first read is issued at once, on an idle stream. Every eighth
+      batch's copies queue behind a ~100 ms spin on the copy stream, so a
+      read that did not wait for them (``wait_stream``) would show.
+    - Every eighth batch the second read waits behind ~90 ms of matmuls
+      that allocate and free, and the host lets the prefetcher copy two
+      more batches meanwhile: memory handed to a later copy before the
+      read would show (``record_stream``)."""
+    from s4former_tpu_torch.core.runner import PREFETCH_DEPTH, \
+        _DevicePrefetcher
+    rng = np.random.default_rng(0)
+    img = rng.standard_normal((4, 512, 512, 3), dtype=np.float32)
+    gt = rng.integers(0, 21, (4, 512, 512), dtype=np.int32)
+    sources = [{'sup_img': img + np.float32(i), 'sup_gt': gt + i,
+                'unsup_teacher_img': img - np.float32(i),
+                'unsup_student_img': img * np.float32(i + 2)}
+               for i in range(32)]
+    w = torch.randn((4096, 4096), generator=torch.Generator(
+        device=cuda).manual_seed(0), device=cuda) / 64
+    stream = torch.cuda.current_stream(cuda)
+    started = threading.Event()
+    prefetcher = []
+
+    def feed():     # runs on the prefetcher's thread
+        started.wait()
+        for i, src in enumerate(sources):
+            if i % 8 == 2:
+                with torch.cuda.stream(prefetcher[0]._side):
+                    torch.cuda._sleep(200_000_000)
+            yield src
+
+    pf = _DevicePrefetcher(feed(), cuda)
+    prefetcher.append(pf)
+    started.set()
+    early, late = [], []
+    for i in range(len(sources)):
+        heavy = i % 8 == 7
+        if not heavy:
+            stream.synchronize()
+        batch = pf.get()
+        early.append({k: t.clone() for k, t in batch.items()})
+        if heavy:
+            x = w
+            for _ in range(32):
+                x = (x @ w).tanh()
+        late.append({k: t.clone() for k, t in batch.items()})
+        del batch
+        if heavy:   # the next copies start while the matmuls run
+            deadline = time.monotonic() + 10
+            while pf._q.qsize() < min(PREFETCH_DEPTH, len(sources) - i - 1) \
+                    and time.monotonic() < deadline:
+                time.sleep(0.001)
+    with pytest.raises(StopIteration):
+        pf.get()
+    pf.close()
+    torch.cuda.synchronize()
+    for i, src in enumerate(sources):
+        for k, v in src.items():
+            want = torch.from_numpy(v)
+            assert torch.equal(early[i][k].cpu(), want), (i, k, 'first read')
+            assert torch.equal(late[i][k].cpu(), want), (i, k, 'second read')

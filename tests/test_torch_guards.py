@@ -51,6 +51,22 @@ def test_chip_smoke_fails_without_a_card(tmp_path, where):
     assert '"ok": true' not in proc.stdout
 
 
+@pytest.mark.parametrize('tool', ['train', 'test'])
+def test_cli_fails_without_a_card(tmp_path, tool):
+    """``python -m s4former_tpu_torch.tools.{train,test}`` without
+    ``--device cpu`` exits nonzero where torch finds no CUDA device."""
+    cfg = REPO / 'configs' / 'setr' / 'setr_fixture_voc_mini_tiny.py'
+    argv = [sys.executable, '-m', f's4former_tpu_torch.tools.{tool}',
+            str(cfg)] + (['--work-dir', str(tmp_path)] if tool == 'train'
+                         else [])
+    proc = subprocess.run(argv, cwd=REPO, capture_output=True, text=True,
+                          timeout=120,
+                          env={**os.environ, 'CUDA_VISIBLE_DEVICES': ''})
+    assert proc.returncode != 0
+    assert 'no CUDA device' in proc.stderr
+    assert not any(tmp_path.iterdir())       # failed before any work
+
+
 def test_unported_training_flags_raise():
     """Every semi flag and option the port's train step does not run raises
     NotImplementedError when the step is made; none is ignored."""
