@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from the sources in this checkout (one nvcc per
 source, started together), holds each kernel to its plain PyTorch version
-on the card, then drives the port's two paths through its entry points:
+on the card, then drives the port's paths through its entry points:
 
 - serving: the flagship model (DeiT-B SETR-PUP at 512², seeded random
   weights) once in f32 against the same model on the CPU, then in the
@@ -19,12 +19,26 @@ on the card, then drives the port's two paths through its entry points:
   backward), the first, 3 timed and 1 profiled; 4 + 4 steps of
   ``..._MT_w_ours.py`` from one batch (5 timed, 1 profiled), the CLI's
   step without its loader;
+- the native host library (``s4former_tpu_torch/native``, built with g++
+  beside the nvcc builds): which functions are native (decode only where
+  jpeglib.h and png.h were found), each held bit for bit to its plain
+  PIL/numpy version on the fixture JPEGs at 500x375 and at 512², and one
+  sample of the flagship pipelines (sup, strong and weak views) timed on
+  the plain and the native functions, on 1 thread and on the loader's 8;
 - train and evaluate: ``python -m s4former_tpu_torch.tools.train`` (run
   in-process through its ``main``) on ``setr_fixture_voc_mini_fullflag.py``
-  for 12 steps of 4 + 4 fixture images through the port's pipelines,
-  loader, runner, exact in-loop eval at iters 6 and 12 and checkpoints;
+  from a backbone-only DeiT-B file with bare keys (seeded weights), for
+  12 steps of 4 + 4 fixture images through the port's pipelines, loader,
+  runner, exact in-loop eval at iters 6 and 12 and checkpoints;
   ``--auto-resume`` on to 15; ``tools.test`` on ``iter_12`` against the
-  in-loop mIoU.
+  in-loop mIoU; then 9-step runs from the same backbone in the timm
+  layout, on the native and on the plain host functions in turns, the
+  last 3 steps of two of them traced (``--profile``) and read by
+  ``tools/profile_trace.py``;
+- test: ``tools.test`` on ``iter_12`` with ``--aug-test --show-dir``
+  (six ratios and flip over the 16 fixture images) and with
+  ``--format-only`` (Cityscapes label-id files); kernel #1 is held to its
+  plain version at the TTA shapes in ``kernel_check``.
 
 Every phase prints one JSON line; any failed check raises and the script
 exits nonzero without its last line. Each path runs with the kernels'
@@ -33,12 +47,16 @@ the last lists the kernels; the last line is the device summary
 ``{"ok": true, "device": {...}}``. Without CUDA it fails at once: there is
 no CPU fallback. Imports nothing of JAX or of the JAX package.
 """
+import contextlib
 import glob
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 _CFG_STEM = os.path.join(REPO, 'configs', 'setr', 'setr_deit-base_pup_bs_8_'
@@ -225,20 +243,42 @@ def forward_times(fa, q, k, v, bias):
     return out
 
 
-def phase_kernels(fa):
+def tta_lengths(images, crop=(512, 512), patch=16):
+    """The token counts ``tools.test --aug-test`` gives kernel #1 on these
+    images: each image resized by each TTA ratio (``int`` of the scaled
+    size), padded to at least the crop, then by the ViT to the patch size;
+    + the cls token. The flip runs as a forward of its own (B = 1)."""
+    from PIL import Image
+    from s4former_tpu_torch.apis import TTA_RATIOS
+    out = set()
+    for path in images:
+        with Image.open(path) as im:
+            w, h = im.size
+        for r in TTA_RATIOS:
+            ph = max(crop[0], max(1, int(h * r)))
+            pw = max(crop[1], max(1, int(w * r)))
+            out.add(-(-ph // patch) * -(-pw // patch) + 1)
+    return sorted(out)
+
+
+def phase_kernels(fa, tta_ls):
     """Kernel vs plain version on the card at the main path's shapes, plus
-    the ragged L=130. Returns the kernels line's entry."""
+    the ragged L=130 and the TTA shapes ``tta_ls`` (B = 1). Returns the
+    kernels line's entry."""
     import torch
     gen = torch.Generator(device='cuda').manual_seed(0)
     cases = []
+    shapes = [(2, 1025, 'pasa'), (2, 1025, 'random_b1'),
+              (2, 1025, 'random_bh'), (2, 1025, None),
+              (2, 130, 'random_b1'), (2, 130, None),
+              (1, 1025, None), (1, 1025, 'pasa'),
+              # the fixture eval: 683x512 padded to 688x512, a 43x32 grid
+              # + cls, 4 a flush
+              (4, 1377, None)]
+    shapes += [(1, l, None) for l in tta_ls if l != 1025]
+    timed_ls = {1025, 1377} | set(tta_ls)
     for dtype in (torch.float32, torch.bfloat16):
-        for b, l, bias_kind in ((2, 1025, 'pasa'), (2, 1025, 'random_b1'),
-                                (2, 1025, 'random_bh'), (2, 1025, None),
-                                (2, 130, 'random_b1'), (2, 130, None),
-                                (1, 1025, None), (1, 1025, 'pasa'),
-                                # the fixture eval: 683x512 padded to
-                                # 688x512, a 43x32 grid + cls, 4 a flush
-                                (4, 1377, None)):
+        for b, l, bias_kind in shapes:
             q, k, v, bias = attention_inputs(b, l, 12, dtype, bias_kind, gen)
             o, lse = fa.flash_attention_fwd(q, k, v, bias)
             name = str(dtype).replace('torch.', '')
@@ -249,7 +289,7 @@ def phase_kernels(fa):
             case = dict(dtype=name, B=b, L=l, H=12, D=64, bias=bias_kind,
                         max_abs_err=err_o, lse_max_abs_err=err_lse,
                         tol_o=tol['o'], tol_lse=tol['lse'])
-            if l in (1025, 1377):
+            if l in timed_ls:
                 case.update(forward_times(fa, q, k, v, bias))
             cases.append(case)
             emit({'phase': 'kernel_check', **case})
@@ -776,14 +816,18 @@ def phase_profile_train(state, step, batch, gen):
 
 
 def phase_train_one_step(fa, images, phase, name, n_sup, n_unsup, expect,
-                         size=512, timed=0):
+                         size=512, timed=0, trace_dir=None):
     """One bf16 step of another flagship config through the same entry
     points; with ``timed``, that many more steps timed (the first is their
-    warm-up) and one under the profiler. Checked for finite logs and the
+    warm-up) and one under the profiler; with ``trace_dir``, then a
+    warm-up step and 3 steps traced by ``core.hooks.profile_steps`` and
+    read by ``tools/profile_trace.py``. Checked for finite logs and the
     kernels' launch counts: ``expect`` a step. Returns the counts of all
-    the steps."""
+    the steps and the trace's summary (or None)."""
     import numpy as np
     import torch
+    from s4former_tpu_torch.core.hooks import profile_steps
+    from s4former_tpu_torch.tools import profile_trace
     state, step, _ = make_trainer(name, 'cuda')
     batch = to_device(train_batch(images, n_sup, n_unsup, size), 'cuda')
     gen = torch.Generator(device='cuda').manual_seed(0)
@@ -795,8 +839,16 @@ def phase_train_one_step(fa, images, phase, name, n_sup, n_unsup, expect,
             lambda: step(state, batch, gen), 12)
         times.update(step_ms=ms[1:], step_ms_mean=float(np.mean(ms[1:])),
                      step_ms_p50=float(np.median(ms[1:])), profile=prof)
+    summary = None
+    if trace_dir:
+        state = profile_steps(step, state, batch, gen, trace_dir, 3)
+        summary = profile_trace.analyze(
+            profile_trace.load_events(trace_dir), steps=3)
+        print(f'trace of {phase}, 3 steps from one batch:\n' +
+              profile_trace.report(summary), flush=True)
+        times['trace'] = summary
     path_counts = counts(fa)
-    n_steps = 1 + timed + (timed > 0)
+    n_steps = 1 + timed + (timed > 0) + (4 if trace_dir else 0)
     lg = floats(logs)
     emit({'phase': phase, 'config': name,
           'batch': f'{n_sup} + {n_unsup} at {size}²',
@@ -808,7 +860,222 @@ def phase_train_one_step(fa, images, phase, name, n_sup, n_unsup, expect,
           f'step')
     del state, step, batch
     torch.cuda.empty_cache()
-    return path_counts
+    return path_counts, summary
+
+
+# ------------------------------------------------------- native host path
+@contextlib.contextmanager
+def host_functions(kind):
+    """The data pipelines on the native library ('native', as they run)
+    or on its plain PIL/numpy versions ('plain') inside the block."""
+    from s4former_tpu_torch.data.pipelines import transforms
+    saved = transforms.native
+    if kind == 'plain':
+        transforms.native = transforms.PLAIN_HOST
+    try:
+        yield
+    finally:
+        transforms.native = saved
+
+
+def fixture_files(images, tmp):
+    """(JPEG, label PNG) paths: the fixture files at 500x375, and each
+    resized to 512x512 (PIL bilinear / nearest) and encoded again (JPEG
+    quality 95; 'P' PNG with the label's palette)."""
+    from PIL import Image
+    pairs = []
+    for path in images:
+        stem = os.path.splitext(os.path.basename(path))[0]
+        label = os.path.join(LABELS, stem + '.png')
+        pairs.append((path, label))
+        with Image.open(path) as im:
+            big = im.convert('RGB').resize((512, 512), Image.BILINEAR)
+        jpg = os.path.join(tmp, stem + '_512.jpg')
+        big.save(jpg, quality=95)
+        with Image.open(label) as im:
+            lab = im.resize((512, 512), Image.NEAREST)
+            lab.putpalette(im.getpalette() or [])
+        png = os.path.join(tmp, stem + '_512.png')
+        lab.save(png)
+        pairs.append((jpg, png))
+    return pairs
+
+
+def native_mismatches(pairs):
+    """{function: number of inputs where native != plain} over every
+    (image, label) pair, with the pipelines' parameters: decode (where
+    native), resize bilinear and nearest up and down, brightness and
+    contrast, saturation, hue, normalize."""
+    import numpy as np
+    from s4former_tpu_torch import native
+    from s4former_tpu_torch.data.pipelines import transforms as T
+    bad = {}
+    mean = np.asarray([123.675, 116.28, 103.53], np.float32)
+    std = np.asarray([58.395, 57.12, 57.375], np.float32)
+
+    def same(name, a, b):
+        bad[name] = bad.get(name, 0) + int(
+            a.dtype != b.dtype or a.shape != b.shape or
+            not np.array_equal(a, b))
+    for img_path, label_path in pairs:
+        img = T.read_rgb_plain(img_path)
+        lab = T.read_label_plain(label_path)
+        if native.HAS_DECODE:
+            with open(img_path, 'rb') as f:
+                same('decode_rgb', native.decode_rgb(f.read()), img)
+            with open(label_path, 'rb') as f:
+                same('decode_label', native.decode_label(f.read()), lab)
+        h, w = lab.shape
+        for r in (0.61, 1.37, 2.0):
+            size = (int(w * r + 0.5), int(h * r + 0.5))
+            same('resize_bilinear', native.resize_u8(img, size),
+                 T.resize_plain(img, size))
+            same('resize_nearest', native.resize_u8(lab, size, True),
+                 T.resize_plain(lab, size, True))
+        for alpha, beta in ((1.0, 23.7), (1.0, -31.2), (1.31, 0.0),
+                            (0.58, 0.0)):
+            same('convert_u8', native.convert_u8(img, alpha, beta),
+                 T.convert_plain(img, alpha, beta))
+        for alpha in (0.63, 1.42):
+            same('saturation_u8', native.saturation_u8(img, alpha),
+                 T.saturate_plain(img, alpha))
+        for dh in (-11, 14):
+            same('hue_u8', native.hue_u8(img, dh), T.hue_plain(img, dh))
+        same('normalize_f32', native.normalize_f32(img, mean, std),
+             T.normalize_plain(img, mean, std))
+    return bad
+
+
+def pipeline_sample_ms(sup_ds, unsup_ds, n, threads):
+    """Host ms a sample (one sup item and one unsup item: the sup, strong
+    and weak views) over ``n`` samples on ``threads`` threads: wall time
+    over ``n``."""
+    def sample(i):
+        sup_ds.get_item_deterministic(i % len(sup_ds), seed=i)
+        unsup_ds.get_item_deterministic(i % len(unsup_ds), seed=i)
+    sample(0)
+    t0 = time.perf_counter()
+    if threads == 1:
+        for i in range(n):
+            sample(i)
+    else:
+        with ThreadPoolExecutor(threads) as pool:
+            list(pool.map(sample, range(n)))
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def phase_native(images, library, gpu_line):
+    """The native library: which functions it serves, each bit-exact to
+    its plain version on the fixture files at 500x375 and 512², the
+    pipelines' samples too, and one sample's host time, plain and native,
+    on 1 thread and on the loader's 8."""
+    import numpy as np
+    from s4former_tpu_torch import native
+    from s4former_tpu_torch.config import Config
+    from s4former_tpu_torch.data import build_dataset
+    has_decode = native.HAS_DECODE
+    decode = 'native' if has_decode else \
+        'plain: PIL (built without jpeglib.h/png.h)'
+    functions = {'decode_rgb': decode, 'decode_label': decode,
+                 **{name: 'native' for name in (
+                     'resize_u8 (bilinear, nearest)', 'convert_u8',
+                     'saturation_u8', 'hue_u8', 'normalize_f32')}}
+    emit({'phase': 'native_build', 'library': str(library),
+          'has_decode': has_decode, 'functions': functions})
+    with tempfile.TemporaryDirectory() as tmp:
+        pairs = fixture_files(images, tmp)
+        bad = native_mismatches(pairs)
+    cfg = Config.fromfile(FULLFLAG)
+    sup_ds = build_dataset(cfg.data.train.sup)
+    unsup_ds = build_dataset(cfg.data.train.unsup)
+    threads = cfg.data.get('workers_per_gpu', 4) * 2   # the CLI's loader
+    samples = {}
+    for kind in ('native', 'plain'):
+        with host_functions(kind):
+            samples[kind] = [sup_ds.get_item_deterministic(i, seed=3)
+                             for i in range(2)] + \
+                [unsup_ds.get_item_deterministic(i, seed=3)
+                 for i in range(2)]
+    sample_bad = sum(
+        not np.array_equal(np.asarray(a[key]), np.asarray(b[key]))
+        for x, y in zip(samples['native'], samples['plain'])
+        for a, b in zip(x if isinstance(x, list) else [x],
+                        y if isinstance(y, list) else [y])
+        for key in ('img', 'gt_semantic_seg'))
+    ms = {}
+    for kind in ('plain', 'native', 'native', 'plain'):   # in turns
+        with host_functions(kind):
+            for n_threads, n in ((1, 8), (threads, 4 * threads)):
+                ms.setdefault(f'{kind}_{n_threads}_threads', []).append(
+                    pipeline_sample_ms(sup_ds, unsup_ds, n, n_threads))
+    emit({'phase': 'native', 'has_decode': has_decode,
+          'inputs': f'{len(pairs)} (JPEG, label PNG) pairs: the fixture '
+                    f'files at 500x375 and at 512x512',
+          'mismatches': bad, 'pipeline_sample_mismatches': sample_bad,
+          'sample': 'one sup item + one unsup item (sup, strong and weak '
+                    'views) of setr_fixture_voc_mini_fullflag.py',
+          'sample_ms': ms,
+          'sample_ms_mean': {k: float(np.mean(v)) for k, v in ms.items()},
+          'loader_threads': threads, 'gpu': gpu_line})
+    check(len(bad) == (8 if has_decode else 6) and not any(bad.values()),
+          f'native functions differ from their plain versions: {bad}')
+    check(sample_bad == 0, f'{sample_bad} pipeline arrays differ between '
+          f'the native and the plain host functions')
+
+
+# ---------------------------------------------------- pretrained DeiT files
+_TIMM = (('ln1.', 'norm1.'), ('ln2.', 'norm2.'),
+         ('attn.attn.in_proj_weight', 'attn.qkv.weight'),
+         ('attn.attn.in_proj_bias', 'attn.qkv.bias'),
+         ('attn.attn.out_proj.', 'attn.proj.'),
+         ('ffn.layers.0.0.', 'mlp.fc1.'), ('ffn.layers.1.', 'mlp.fc2.'))
+
+
+def to_timm(key):
+    """An OpenMMLab ViT key (no ``backbone.``) -> its timm DeiT name."""
+    if key.startswith('layers.'):
+        i, rest = key[len('layers.'):].split('.', 1)
+        for mm, timm in _TIMM:
+            rest = rest.replace(mm, timm)
+        return f'blocks.{i}.{rest}'
+    return key.replace('patch_embed.projection.', 'patch_embed.proj.')
+
+
+def write_deit_files(directory, seed=7):
+    """Backbone-only DeiT-B files of the flagship's ViT from seeded weights,
+    as a user downloads them: bare keys in the OpenMMLab layout
+    ('bare') and timm names ('timm'), each with a pos-embed on the 14x14
+    grid of 224² pretraining, ``dist_token``, the final ``norm.*`` and the
+    1000-way ``head.*``. Returns (paths, the model's backbone tensor
+    count)."""
+    import torch
+    from s4former_tpu_torch.apis import init_segmentor
+    model = init_segmentor(FULLFLAG, seed=seed, device='cpu').model
+    bare = {k[len('backbone.'):]: v for k, v in model.state_dict().items()
+            if k.startswith('backbone.')}
+    gen = torch.Generator().manual_seed(seed)
+    dim = bare['cls_token'].shape[-1]
+    bare['pos_embed'] = 0.02 * torch.randn((1, 1 + 14 * 14, dim),
+                                           generator=gen)
+    extras = {'dist_token': (1, 1, dim), 'norm.weight': (dim,),
+              'norm.bias': (dim,), 'head.weight': (1000, dim),
+              'head.bias': (1000,)}
+    n_backbone = len(bare)
+    paths = {}
+    for layout in ('bare', 'timm'):
+        sd = dict(bare) if layout == 'bare' else \
+            {to_timm(k): v for k, v in bare.items()}
+        sd.update({k: 0.02 * torch.randn(shape, generator=gen)
+                   for k, shape in extras.items()})
+        paths[layout] = os.path.join(directory, f'deit_base_{layout}.pth')
+        torch.save(sd, paths[layout])
+    del model
+    return paths, n_backbone
+
+
+def read_logs(wd):
+    return ''.join(open(os.path.join(wd, n)).read()
+                   for n in sorted(os.listdir(wd)) if n.endswith('.log'))
 
 
 def read_jsonl(path):
@@ -820,16 +1087,17 @@ def add_counts(a, b):
     return {k: a[k] + b[k] for k in a}
 
 
-def phase_train_cli(fa, gpu_line):
+def phase_train_cli(fa, gpu_line, wd, deit, n_backbone):
     """The port's training CLI on ``setr_fixture_voc_mini_fullflag.py`` as
     written (bf16, DeiT-B at full depth, 4 + 4 fixture images at 512² a
-    step through the real pipelines and loader) for 12 steps with eval and
-    checkpoints every 6 and logs every 3; then ``--auto-resume`` to 15;
-    then ``tools.test`` on ``iter_12``, whose mIoU must be the in-loop
-    one's within TOL_MIOU. Each run's launches are counted on their own:
-    36 forward and 24 fused backward a step, 12 forward a flush of 4 val
-    images. Returns the three runs' counts summed."""
-    import tempfile
+    step through the real pipelines and loader) from the bare-key DeiT-B
+    file ``deit``, whose every backbone tensor the log must report loaded,
+    for 12 steps with eval and checkpoints every 6 and logs every 3; then
+    ``--auto-resume`` to 15; then ``tools.test`` on ``iter_12``, whose mIoU
+    must be the in-loop one's within TOL_MIOU. Each run's launches are
+    counted on their own: 36 forward and 24 fused backward a step, 12
+    forward a flush of 4 val images. Returns the three runs' counts summed
+    and the run's step and data-wait windows."""
     import numpy as np
     import torch
     from s4former_tpu_torch.tools import test as test_cli
@@ -838,82 +1106,205 @@ def phase_train_cli(fa, gpu_line):
             'checkpoint_config.interval=6', 'log_config.interval=3']
     n_val, flush = 16, 4
     per_eval = 12 * -(-n_val // flush)
-    with tempfile.TemporaryDirectory() as wd:
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts(fa)                           # the main path starts
-        t0 = time.perf_counter()
-        state = train_cli.main([FULLFLAG, '--work-dir', wd,
-                                '--max-iters', '12'] + opts)
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-        train_counts = counts(fa)                  # the main path ends
-        peak = torch.cuda.max_memory_allocated()
-        check(int(state.step) == 12, f'trained to step {int(state.step)}')
-        del state
-        torch.cuda.empty_cache()
-        records = read_jsonl(os.path.join(wd, 'metrics.jsonl'))
-        train = [r for r in records if r['prefix'] == 'train']
-        val = {r['step']: r for r in records if r['prefix'] == 'val'}
-        check([r['step'] for r in train] == [3, 6, 9, 12] and
-              sorted(val) == [6, 12], f'logged steps {records}')
-        check(all(np.isfinite(r['loss']) for r in train), f'losses {train}')
-        check(train_counts == {'flash_attn_fwd': 36 * 12 + 2 * per_eval,
-                               'flash_attn_bwd_fused': 24 * 12,
-                               'flash_attn_bwd_dkv': 0,
-                               'flash_attn_bwd_dq': 0},
-              f'12 steps + 2 evals launched {train_counts}, not 36 forward '
-              f'+ 24 fused a step and {per_eval} forward an eval')
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa)                               # the main path starts
+    t0 = time.perf_counter()
+    state = train_cli.main([FULLFLAG, '--work-dir', wd, '--max-iters', '12',
+                            '--load-from', deit] + opts)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_counts = counts(fa)                      # the main path ends
+    peak = torch.cuda.max_memory_allocated()
+    check(int(state.step) == 12, f'trained to step {int(state.step)}')
+    del state
+    torch.cuda.empty_cache()
+    loaded = f'({n_backbone} of {n_backbone} backbone tensors)'
+    check(loaded in read_logs(wd), f'the log does not report {loaded} '
+          f'loaded from {deit}')
+    records = read_jsonl(os.path.join(wd, 'metrics.jsonl'))
+    train = [r for r in records if r['prefix'] == 'train']
+    val = {r['step']: r for r in records if r['prefix'] == 'val'}
+    check([r['step'] for r in train] == [3, 6, 9, 12] and
+          sorted(val) == [6, 12], f'logged steps {records}')
+    check(all(np.isfinite(r['loss']) for r in train), f'losses {train}')
+    check(train_counts == {'flash_attn_fwd': 36 * 12 + 2 * per_eval,
+                           'flash_attn_bwd_fused': 24 * 12,
+                           'flash_attn_bwd_dkv': 0,
+                           'flash_attn_bwd_dq': 0},
+          f'12 steps + 2 evals launched {train_counts}, not 36 forward '
+          f'+ 24 fused a step and {per_eval} forward an eval')
 
-        reset_counts(fa)
-        state = train_cli.main([FULLFLAG, '--work-dir', wd, '--auto-resume',
-                                '--max-iters', '15'] + opts)
-        torch.cuda.synchronize()
-        resume_counts = counts(fa)
-        check(int(state.step) == 15, f'resumed run ended at '
-              f'{int(state.step)}, not 15')
-        del state
-        torch.cuda.empty_cache()
-        logs = ''.join(open(os.path.join(wd, n)).read()
-                       for n in os.listdir(wd) if n.endswith('.log'))
-        resumed = f'resumed from {os.path.join(wd, "iter_12")}'
-        check(resumed in logs, f'no "{resumed}" in the log')
-        check(resume_counts == {'flash_attn_fwd': 36 * 3,
-                                'flash_attn_bwd_fused': 24 * 3,
-                                'flash_attn_bwd_dkv': 0,
-                                'flash_attn_bwd_dq': 0},
-              f'3 resumed steps launched {resume_counts}')
+    reset_counts(fa)
+    state = train_cli.main([FULLFLAG, '--work-dir', wd, '--auto-resume',
+                            '--max-iters', '15'] + opts)
+    torch.cuda.synchronize()
+    resume_counts = counts(fa)
+    check(int(state.step) == 15, f'resumed run ended at '
+          f'{int(state.step)}, not 15')
+    del state
+    torch.cuda.empty_cache()
+    resumed = f'resumed from {os.path.join(wd, "iter_12")}'
+    check(resumed in read_logs(wd), f'no "{resumed}" in the log')
+    check(resume_counts == {'flash_attn_fwd': 36 * 3,
+                            'flash_attn_bwd_fused': 24 * 3,
+                            'flash_attn_bwd_dkv': 0,
+                            'flash_attn_bwd_dq': 0},
+          f'3 resumed steps launched {resume_counts}')
 
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    results = test_cli.main([FULLFLAG, os.path.join(wd, 'iter_12')])
+    test_s = time.perf_counter() - t0
+    test_counts = counts(fa)
+    check(test_counts['flash_attn_fwd'] == per_eval and
+          sum(test_counts.values()) == per_eval,
+          f'offline test launched {test_counts}')
+    in_loop = val[12]['mIoU']
+    gap = abs(results['mIoU'] - in_loop)
+    step_ms = [r['step_ms'] for r in train]
+    windows = {'step_ms': step_ms,
+               'data_wait_ms': [r['data_wait_ms'] for r in train]}
+    emit({'phase': 'train_cli', 'config': os.path.basename(FULLFLAG),
+          'batch': '4 + 4 at 512², bf16, 12 layers',
+          'pretrained': f'{os.path.basename(deit)}: {loaded} loaded',
+          'losses': {r['step']: r['loss'] for r in train},
+          'mask_ratio': {r['step']: r['mask_ratio'] for r in train},
+          'logs_iter_12': train[-1],
+          'step_ms_windows': step_ms,
+          'step_ms_mean_after_first': float(np.mean(step_ms[1:])),
+          'step_ms_p50_after_first': float(np.median(step_ms[1:])),
+          'data_wait_ms_windows': windows['data_wait_ms'],
+          'eval_s': {s: r['eval_s'] for s, r in val.items()},
+          'miou': {s: r['mIoU'] for s, r in val.items()},
+          'train_run_s': train_s, 'peak_mem_bytes': peak,
+          'launches': {'train': train_counts, 'resume': resume_counts,
+                       'test': test_counts},
+          'resumed': resumed, 'test_miou': results['mIoU'],
+          'in_loop_miou_iter_12': in_loop, 'miou_gap': gap,
+          'tol': TOL_MIOU, 'test_run_s': test_s, 'gpu': gpu_line})
+    check(gap <= TOL_MIOU, f'offline mIoU {results["mIoU"]} vs in-loop '
+          f'{in_loop}: {gap} > {TOL_MIOU}')
+    return (add_counts(add_counts(train_counts, resume_counts), test_counts),
+            windows)
+
+
+def phase_train_cli_host(fa, gpu_line, root, deit, n_backbone, windows,
+                         no_loader):
+    """9-step CLI runs of the same config from the timm-layout DeiT-B
+    file, no eval, logs every 3, on the native and on the plain host
+    functions in turns (native, plain, plain, native); the first two trace
+    steps 7-9 (``--profile 7 3``), read by ``tools/profile_trace.py``
+    beside the no-loader step's trace ``no_loader``. Each run's log must
+    report every backbone tensor loaded. Returns the runs' counts."""
+    import numpy as np
+    from s4former_tpu_torch.tools import profile_trace
+    from s4former_tpu_torch.tools import train as train_cli
+    opts = ['--cfg-options', 'checkpoint_config.interval=9',
+            'log_config.interval=3']
+    loaded = f'({n_backbone} of {n_backbone} backbone tensors)'
+    total = None
+    runs = []
+    for i, kind in enumerate(('native', 'plain', 'plain', 'native')):
+        wd = os.path.join(root, f'host_{i}_{kind}')
+        traced = i < 2
         reset_counts(fa)
-        t0 = time.perf_counter()
-        results = test_cli.main([FULLFLAG, os.path.join(wd, 'iter_12')])
-        test_s = time.perf_counter() - t0
-        test_counts = counts(fa)
-        check(test_counts['flash_attn_fwd'] == per_eval and
-              sum(test_counts.values()) == per_eval,
-              f'offline test launched {test_counts}')
-        in_loop = val[12]['mIoU']
-        gap = abs(results['mIoU'] - in_loop)
-        step_ms = [r['step_ms'] for r in train]
-        emit({'phase': 'train_cli', 'config': os.path.basename(FULLFLAG),
-              'batch': '4 + 4 at 512², bf16, 12 layers',
-              'losses': {r['step']: r['loss'] for r in train},
-              'mask_ratio': {r['step']: r['mask_ratio'] for r in train},
-              'logs_iter_12': train[-1],
-              'step_ms_windows': step_ms,
-              'step_ms_mean_after_first': float(np.mean(step_ms[1:])),
-              'step_ms_p50_after_first': float(np.median(step_ms[1:])),
-              'data_wait_ms_windows': [r['data_wait_ms'] for r in train],
-              'eval_s': {s: r['eval_s'] for s, r in val.items()},
-              'miou': {s: r['mIoU'] for s, r in val.items()},
-              'train_run_s': train_s, 'peak_mem_bytes': peak,
-              'launches': {'train': train_counts, 'resume': resume_counts,
-                           'test': test_counts},
-              'resumed': resumed, 'test_miou': results['mIoU'],
-              'in_loop_miou_iter_12': in_loop, 'miou_gap': gap,
-              'tol': TOL_MIOU, 'test_run_s': test_s, 'gpu': gpu_line})
-        check(gap <= TOL_MIOU, f'offline mIoU {results["mIoU"]} vs in-loop '
-              f'{in_loop}: {gap} > {TOL_MIOU}')
-    return add_counts(add_counts(train_counts, resume_counts), test_counts)
+        with host_functions(kind):
+            state = train_cli.main(
+                [FULLFLAG, '--work-dir', wd, '--max-iters', '9',
+                 '--no-validate', '--load-from', deit] +
+                (['--profile', '7', '3'] if traced else []) + opts)
+        run_counts = counts(fa)
+        check(int(state.step) == 9, f'{kind} run ended at {int(state.step)}')
+        del state
+        check(loaded in read_logs(wd), f'the {kind} run does not report '
+              f'{loaded} loaded from {deit}')
+        check(run_counts == {'flash_attn_fwd': 36 * 9,
+                             'flash_attn_bwd_fused': 24 * 9,
+                             'flash_attn_bwd_dkv': 0,
+                             'flash_attn_bwd_dq': 0},
+              f'9 {kind} steps launched {run_counts}')
+        train = [r for r in read_jsonl(os.path.join(wd, 'metrics.jsonl'))
+                 if r['prefix'] == 'train']
+        run = {'host': kind, 'traced_steps': '7-9' if traced else None,
+               'step_ms_windows': [r['step_ms'] for r in train],
+               'data_wait_ms_windows': [r['data_wait_ms'] for r in train]}
+        if traced:
+            run['trace'] = profile_trace.analyze(profile_trace.load_events(
+                os.path.join(wd, 'profile')), steps=3)
+            print(f'trace of the {kind} run, steps 7-9:\n' +
+                  profile_trace.report(run['trace']), flush=True)
+        runs.append(run)
+        total = run_counts if total is None else add_counts(total, run_counts)
+        shutil.rmtree(wd, ignore_errors=True)
+    # untraced windows: 2 of the traced runs, 2-3 of the others
+    steady = {kind: [ms for r in runs if r['host'] == kind
+                     for ms in r['step_ms_windows'][1:2 if r['traced_steps']
+                                                   else 3]]
+              for kind in ('native', 'plain')}
+    emit({'phase': 'train_cli_host', 'config': os.path.basename(FULLFLAG),
+          'pretrained': f'{os.path.basename(deit)}: {loaded} loaded',
+          'runs': runs,
+          'step_ms_untraced': steady,
+          'step_ms_untraced_mean': {k: float(np.mean(v))
+                                    for k, v in steady.items()},
+          'main_run_native': windows,
+          'no_loader_trace': no_loader, 'gpu': gpu_line})
+    return total
+
+
+def phase_test_cli(fa, gpu_line, ckpt, root):
+    """``tools.test`` on the run's checkpoint at full width: ``--aug-test
+    --show-dir`` over the 16 fixture images (6 ratios x (1 + flip)
+    forwards an image, 12 launches of kernel #1 each), then
+    ``--format-only`` with the test set read as Cityscapes (the ported
+    dataset with a submission format; the exact path, 12 launches a flush
+    of 4). Both must write a file an image; the TTA mIoU a number."""
+    import numpy as np
+    from s4former_tpu_torch.apis import TTA_RATIOS
+    from s4former_tpu_torch.tools import test as test_cli
+    n_val, flush = 16, 4
+    vis, fmt = os.path.join(root, 'vis'), os.path.join(root, 'fmt')
+    per_image = 12 * len(TTA_RATIOS) * 2
+    reset_counts(fa)                               # the main path starts
+    t0 = time.perf_counter()
+    results = test_cli.main([FULLFLAG, ckpt, '--aug-test', '--show-dir',
+                             vis])
+    aug_s = time.perf_counter() - t0
+    aug_counts = counts(fa)                        # the main path ends
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    none = test_cli.main([FULLFLAG, ckpt, '--format-only',
+                          '--imgfile-prefix', fmt, '--cfg-options',
+                          'data.test.type=CityscapesDataset',
+                          'data.test.img_suffix=.jpg',
+                          'data.test.seg_map_suffix=.png'])
+    fmt_s = time.perf_counter() - t0
+    fmt_counts = counts(fa)
+    painted, formatted = sorted(os.listdir(vis)), sorted(os.listdir(fmt))
+    emit({'phase': 'test_cli', 'config': os.path.basename(FULLFLAG),
+          'aug_test_miou': results['mIoU'], 'aug_test_s': aug_s,
+          'aug_test_s_per_image': aug_s / n_val,
+          'kernel1_launches_per_image': aug_counts['flash_attn_fwd'] / n_val,
+          'painted_files': len(painted), 'format_only_files': len(formatted),
+          'format_only_s': fmt_s,
+          'launches': {'aug_test': aug_counts, 'format_only': fmt_counts},
+          'gpu': gpu_line})
+    check(np.isfinite(results['mIoU']) and 0 <= results['mIoU'] <= 1,
+          f'--aug-test mIoU {results["mIoU"]}')
+    check(none is None, '--format-only evaluated')
+    check(len(painted) == n_val and len(formatted) == n_val,
+          f'{len(painted)} painted and {len(formatted)} formatted files, '
+          f'not {n_val} each')
+    check(aug_counts == {'flash_attn_fwd': per_image * n_val,
+                         'flash_attn_bwd_fused': 0, 'flash_attn_bwd_dkv': 0,
+                         'flash_attn_bwd_dq': 0},
+          f'--aug-test launched {aug_counts}, not {per_image} forward an '
+          f'image')
+    per_eval = 12 * -(-n_val // flush)
+    check(fmt_counts['flash_attn_fwd'] == per_eval and
+          sum(fmt_counts.values()) == per_eval,
+          f'--format-only launched {fmt_counts}')
+    return add_counts(aug_counts, fmt_counts)
 
 
 def phase_build(libs, seconds):
@@ -942,6 +1333,7 @@ def phase_build(libs, seconds):
 
 def main() -> int:
     import torch
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; the port '
               'runs on an NVIDIA GPU and has no CPU fallback here',
@@ -955,10 +1347,14 @@ def main() -> int:
 
     sys.path.insert(0, REPO)
     os.chdir(REPO)             # the configs' data roots are repo-relative
+    from s4former_tpu_torch.native import build as native_build
     from s4former_tpu_torch.ops import cuda_build
     from s4former_tpu_torch.ops import flash_attention as fa
     t0 = time.perf_counter()
-    libs = cuda_build.build_all([fa.SOURCE, fa.BWD_SOURCE])
+    with ThreadPoolExecutor(1) as pool:   # g++ beside the two nvcc builds
+        native_lib = pool.submit(native_build.build)
+        libs = cuda_build.build_all([fa.SOURCE, fa.BWD_SOURCE])
+        native_lib = native_lib.result()
     fa.load_library()
     fa.load_bwd_library()
     phase_build(libs, time.perf_counter() - t0)
@@ -966,12 +1362,15 @@ def main() -> int:
     images = sorted(glob.glob(IMAGES))
     check(len(images) == 16, f'expected 16 fixture images, found '
           f'{len(images)}')
-    entries = {'flash_attn_fwd': phase_kernels(fa)}
+    phase_native(images, native_lib, gpu_line)
+    tta_ls = tta_lengths(images)
+    entries = {'flash_attn_fwd': phase_kernels(fa, tta_ls)}
     bwd_entries, fwd_err_train, fwd_train_cases = phase_kernels_bwd(fa)
     entries.update(bwd_entries)
     fwd = entries['flash_attn_fwd']     # the training shapes' forward too
     fwd['max_abs_err'] = max(fwd['max_abs_err'], fwd_err_train)
     fwd['cases'] += fwd_train_cases
+    fwd['tta_lengths'] = tta_ls
     paths = {}
     p_f32 = phase_main_f32(fa, images)
     seg, paths['serve_bf16'] = phase_main_bf16(fa, images, p_f32, gpu_line)
@@ -987,11 +1386,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     # ..._MT.py takes the sequential unsup path, ..._sup.py has no unsup
     # branch
-    paths['train_bf16_MT'] = phase_train_one_step(
+    paths['train_bf16_MT'], _ = phase_train_one_step(
         fa, images, 'train_bf16_MT', 'MT', 8, 8,
         {'flash_attn_fwd': 36, 'flash_attn_bwd_fused': 24,
          'flash_attn_bwd_dkv': 0, 'flash_attn_bwd_dq': 0})
-    paths['train_bf16_sup'] = phase_train_one_step(
+    paths['train_bf16_sup'], _ = phase_train_one_step(
         fa, images, 'train_bf16_sup', 'sup', 8, 0,
         {'flash_attn_fwd': 12, 'flash_attn_bwd_fused': 12,
          'flash_attn_bwd_dkv': 0, 'flash_attn_bwd_dq': 0})
@@ -999,24 +1398,37 @@ def main() -> int:
     # configs/_base_/datasets/cityscapes_768x768_1over16_split_CPS_semi.py:
     # the pos-embed is resized at run time, and L = 2305 > FULL_Q_MAX takes
     # the dk/dv + dq kernels; the first step, 3 timed, 1 profiled
-    paths['train_long'] = phase_train_one_step(
+    paths['train_long'], _ = phase_train_one_step(
         fa, images, 'train_long', 'sup', 2, 0,
         {'flash_attn_fwd': 12, 'flash_attn_bwd_fused': 0,
          'flash_attn_bwd_dkv': 12, 'flash_attn_bwd_dq': 12}, size=768,
         timed=3)
-    # train_cli's step (4 + 4) from one fixed batch, no loader beside it:
-    # what the host pipeline adds to the CLI's step
-    paths['train_bf16_4x4'] = phase_train_one_step(
-        fa, images, 'train_bf16_4x4', 'ours', 4, 4,
-        {'flash_attn_fwd': 36, 'flash_attn_bwd_fused': 24,
-         'flash_attn_bwd_dkv': 0, 'flash_attn_bwd_dq': 0}, timed=5)
-    paths['train_cli'] = phase_train_cli(fa, gpu_line)
+    with tempfile.TemporaryDirectory() as root:
+        # train_cli's step (4 + 4) from one fixed batch, no loader beside
+        # it: what the host pipeline adds to the CLI's step; its trace is
+        # read beside the CLI's
+        paths['train_bf16_4x4'], no_loader = phase_train_one_step(
+            fa, images, 'train_bf16_4x4', 'ours', 4, 4,
+            {'flash_attn_fwd': 36, 'flash_attn_bwd_fused': 24,
+             'flash_attn_bwd_dkv': 0, 'flash_attn_bwd_dq': 0}, timed=5,
+            trace_dir=os.path.join(root, 'trace_4x4'))
+        deit, n_backbone = write_deit_files(root)
+        wd = os.path.join(root, 'work')
+        paths['train_cli'], windows = phase_train_cli(
+            fa, gpu_line, wd, deit['bare'], n_backbone)
+        paths['test_cli'] = phase_test_cli(
+            fa, gpu_line, os.path.join(wd, 'iter_12'), root)
+        shutil.rmtree(wd, ignore_errors=True)
+        paths['train_cli_host'] = phase_train_cli_host(
+            fa, gpu_line, root, deit['timm'], n_backbone, windows,
+            no_loader)
 
     for name in KERNELS:
         entries[name]['launches'] = sum(p[name] for p in paths.values())
         entries[name]['launches_by_path'] = {k: p[name]
                                              for k, p in paths.items()}
         check(entries[name]['launches'] > 0, f'{name} never ran on a path')
+    emit({'phase': 'total', 'seconds': time.perf_counter() - t_start})
     print(gpu_line)
     emit({'kernels': [entries[name] for name in KERNELS]})
     emit({'ok': True, 'device': {'platform': 'gpu',

@@ -9,12 +9,13 @@ reference: mmseg/apis/inference.py).
 - ``inference_with_teacher_pasa``: the EMA teacher's confidence builds the
   PASA bias for the student's forward.
 - ``inference_segmentor_with_attn``: also returns logits and attention maps.
+- ``inference_segmentor_tta``: multi-scale + flip test-time augmentation,
+  softmax averaged at the original size (``tta_probs``).
 - ``single_device_test``: a dataset's pipeline images through ``predict``,
   as per-image confusion histograms (or label maps).
 
 Images are NHWC, normalised and padded to the crop as in the JAX package.
-The runs are eval mode under ``torch.inference_mode``. TTA
-(``inference_segmentor_tta``) is still to be ported.
+The runs are eval mode under ``torch.inference_mode``.
 """
 from __future__ import annotations
 
@@ -26,6 +27,8 @@ from torch.func import functional_call
 
 _DEFAULT_NORM = dict(mean=[123.675, 116.28, 103.53],
                      std=[58.395, 57.12, 57.375])
+# the reference --aug-test's MultiScaleFlipAug ratios
+TTA_RATIOS = (0.5, 0.75, 1.0, 1.25, 1.5, 1.75)
 
 
 class Segmentor:
@@ -69,13 +72,18 @@ class Segmentor:
 def init_segmentor(config, checkpoint: Optional[str] = None,
                    seed: int = 0, device='cuda') -> Segmentor:
     """(reference inference.py:12). ``config``: a path or a ``Config``;
-    ``checkpoint``: an mmseg-layout ``.pth``, whose entries overlay the
-    seeded weights (a backbone-only file keeps the seeded heads)."""
+    ``checkpoint``: an mmseg-layout ``.pth`` or a backbone-only DeiT file
+    (bare or timm keys), whose entries overlay the seeded weights (a
+    backbone-only file keeps the seeded heads). The log says how many of
+    the model's tensors it overlaid; a file that overlays none raises
+    ValueError."""
     import s4former_tpu_torch.models  # noqa: F401  (registers modules)
     from s4former_tpu_torch.config import Config
-    from s4former_tpu_torch.core.checkpoint import load_reference_state_dict
+    from s4former_tpu_torch.core.checkpoint import (load_reference_state_dict,
+                                                    overlay_state_dict)
     from s4former_tpu_torch.models import (build_segmentor,
                                            init_segmentor_weights)
+    from s4former_tpu_torch.utils.logger import get_root_logger
 
     if isinstance(config, str):
         config = Config.fromfile(config)
@@ -87,9 +95,11 @@ def init_segmentor(config, checkpoint: Optional[str] = None,
         patch = bb.get('patch_size', 16)
         sd = load_reference_state_dict(
             checkpoint, dst_grid=(crop[0] // patch, crop[1] // patch))
-        own = model.state_dict()
-        model.load_state_dict({k: v for k, v in sd.items() if k in own},
-                              strict=False)
+        n = overlay_state_dict(model, sd, checkpoint)
+        get_root_logger().info(
+            f'{checkpoint} overlaid {n["loaded"]} of the model\'s '
+            f'{n["total"]} tensors ({n["backbone_loaded"]} of '
+            f'{n["backbone_total"]} backbone tensors)')
     model.to(device).eval()
     return Segmentor(model, config, device)
 
@@ -176,6 +186,38 @@ def inference_with_teacher_pasa(segmentor: Segmentor, img,
 
 def _strip(sd: Dict[str, torch.Tensor], prefix: str) -> Dict:
     return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+def tta_probs(segmentor: Segmentor, img, ratios=TTA_RATIOS,
+              flip: bool = True) -> torch.Tensor:
+    """Softmax probabilities [H, W, classes] (f32, on the segmentor's
+    device) of an image path or HWC uint8 array, averaged over the image
+    resized (PIL bilinear) by each of ``ratios``, each also flipped when
+    ``flip``, and brought back to the original size (JAX apis.py:167-192;
+    reference aug_test, encoder_decoder.py:1253-1271)."""
+    from s4former_tpu_torch.data.pipelines.transforms import (_pil_resize,
+                                                              _read_rgb)
+    from s4former_tpu_torch.ops.resize import resize_bilinear
+    img = _read_rgb(img) if isinstance(img, str) else np.asarray(img)
+    h, w = img.shape[:2]
+    total = None
+    for r in ratios:
+        scaled = _pil_resize(img.astype(np.uint8),
+                             (max(1, int(w * r)), max(1, int(h * r))))
+        x, (sh, sw) = _prepare_image(segmentor, scaled)
+        probs = segmentor.probs(torch.from_numpy(x).to(segmentor.device),
+                                flip=flip)[:, :sh, :sw]
+        probs = resize_bilinear(probs, (h, w), False)[0]
+        total = probs if total is None else total + probs
+    return total / len(ratios)
+
+
+def inference_segmentor_tta(segmentor: Segmentor, img, ratios=TTA_RATIOS,
+                            flip: bool = True) -> np.ndarray:
+    """Multi-scale + flip TTA label map [H, W] int32 (JAX apis.py:167):
+    the argmax of ``tta_probs``."""
+    return tta_probs(segmentor, img, ratios, flip).argmax(-1).to(
+        torch.int32).cpu().numpy()
 
 
 def single_device_test(segmentor: Segmentor, dataset,

@@ -9,9 +9,12 @@ The port's modules carry the reference (mmseg) parameter names, so its
   numpy arrays, -> reference-layout tensors. It unstacks the scanned ViT
   layers and the vmapped aux heads and transposes dense and conv kernels.
   Same keys and values as JAX ``export_reference_state_dict`` (l.2739).
-- ``load_reference_state_dict(path)``: an mmseg/S4Former ``.pth`` ->
-  tensors, with the bicubic pos-embed resize on load of JAX
-  ``_resize_pos_embed_np`` (l.169).
+- ``load_reference_state_dict(path)``: an mmseg/S4Former ``.pth``, or a
+  backbone-only DeiT file with bare OpenMMLab or timm keys
+  (``normalize_backbone_keys``), -> tensors under the port's names, with
+  the bicubic pos-embed resize on load of JAX ``_resize_pos_embed_np``
+  (l.169); ``overlay_state_dict`` loads them over a model, counts what it
+  overlaid and raises when that is nothing.
 - ``ema_state_dict(sd)``: the EMA twin's keys (``backbone_ema.``,
   ``decode_head_ema.``) renamed onto the student's.
 - ``train_state_dicts_from_jax(state)``: the JAX ``TrainState`` (params,
@@ -183,28 +186,104 @@ def resize_pos_embed(pos: torch.Tensor, dst_grid: Tuple[int, int],
     return out.to(pos.dtype)
 
 
+_TIMM_LAYER_RENAMES = (('norm1.', 'ln1.'), ('norm2.', 'ln2.'),
+                       ('attn.qkv.weight', 'attn.attn.in_proj_weight'),
+                       ('attn.qkv.bias', 'attn.attn.in_proj_bias'),
+                       ('attn.proj.', 'attn.attn.out_proj.'),
+                       ('mlp.fc1.', 'ffn.layers.0.0.'),
+                       ('mlp.fc2.', 'ffn.layers.1.'))
+_TIMM_RENAMES = {'patch_embed.proj.weight': 'patch_embed.projection.weight',
+                 'patch_embed.proj.bias': 'patch_embed.projection.bias',
+                 # the final norm: the ViT's ``ln1`` (absent, and so dropped
+                 # on load, without ``final_norm``)
+                 'norm.weight': 'ln1.weight', 'norm.bias': 'ln1.bias'}
+
+
+def normalize_backbone_keys(sd: Mapping[str, torch.Tensor]) -> StateDict:
+    """Backbone keys (without ``backbone.``) in the timm DeiT layout
+    (``blocks.i.attn.qkv.*``, ``patch_embed.proj.*``, ``norm.*``) or the
+    OpenMMLab one -> the OpenMMLab (mmseg) names the port's ViT carries
+    (JAX ``_normalize_backbone_keys``, checkpoint.py:188-222)."""
+    out: StateDict = {}
+    for k, v in sd.items():
+        if k.startswith('blocks.'):
+            k = 'layers.' + k[len('blocks.'):]
+        m = re.match(r'layers\.(\d+)\.(.*)', k)
+        if m:
+            rest = m.group(2)
+            for old, new in _TIMM_LAYER_RENAMES:
+                rest = rest.replace(old, new)
+            k = f'layers.{m.group(1)}.{rest}'
+        out[_TIMM_RENAMES.get(k, k)] = v
+    return out
+
+
+def _is_bare_backbone(sd: Mapping[str, torch.Tensor]) -> bool:
+    """A backbone-only file: no ``backbone.`` key, and ViT keys at the top
+    (JAX ``convert_mmseg_checkpoint``, checkpoint.py:2482-2487)."""
+    return not any(k.startswith('backbone.') for k in sd) and any(
+        k.startswith(('layers.', 'blocks.', 'patch_embed.')) or
+        k in ('cls_token', 'pos_embed') for k in sd)
+
+
 def load_reference_state_dict(path: str,
                               dst_grid: Optional[Tuple[int, int]] = None
                               ) -> StateDict:
-    """An mmseg-layout ``.pth`` -> state dict: unwraps ``state_dict``/
-    ``model``, strips a ``module.`` prefix, drops BN ``num_batches_tracked``
-    counters, and resizes the (EMA) backbone pos-embed to ``dst_grid``."""
+    """An mmseg-layout ``.pth`` or a backbone-only DeiT file -> state dict.
+
+    Unwraps ``state_dict``/``model``, strips a ``module.`` prefix and drops
+    BN ``num_batches_tracked`` counters. A backbone-only file (bare keys,
+    OpenMMLab or timm names) becomes ``backbone.*``; timm names under
+    ``backbone.``/``backbone_ema.`` are renamed too. The (EMA) backbone
+    pos-embed is resized to ``dst_grid``. Keys the model lacks (DeiT's
+    ``head.*`` and ``dist_token``, the final norm) stay in the dict; the
+    overlay drops them."""
     obj = torch.load(path, map_location='cpu', weights_only=True)
     for key in ('state_dict', 'model'):
         if isinstance(obj, dict) and isinstance(obj.get(key), dict):
             obj = obj[key]
             break
+    raw = {(k[len('module.'):] if k.startswith('module.') else k): v
+           for k, v in obj.items() if isinstance(v, torch.Tensor) and
+           not k.endswith('num_batches_tracked')}
+    if _is_bare_backbone(raw):
+        raw = {'backbone.' + k: v for k, v in raw.items()}
     sd: StateDict = {}
-    for k, v in obj.items():
-        if not isinstance(v, torch.Tensor) or \
-                k.endswith('num_batches_tracked'):
-            continue
-        k = k[len('module.'):] if k.startswith('module.') else k
-        if dst_grid is not None and k in ('backbone.pos_embed',
-                                          'backbone_ema.pos_embed'):
-            v = resize_pos_embed(v, dst_grid)
-        sd[k] = v
+    for prefix in ('backbone.', 'backbone_ema.'):
+        part = {k[len(prefix):]: v for k, v in raw.items()
+                if k.startswith(prefix)}
+        sd.update({prefix + k: v
+                   for k, v in normalize_backbone_keys(part).items()})
+    sd.update({k: v for k, v in raw.items()
+               if not k.startswith(('backbone.', 'backbone_ema.'))})
+    if dst_grid is not None:
+        for k in ('backbone.pos_embed', 'backbone_ema.pos_embed'):
+            if k in sd:
+                sd[k] = resize_pos_embed(sd[k], dst_grid)
     return sd
+
+
+def overlay_state_dict(model: torch.nn.Module,
+                       sd: Mapping[str, torch.Tensor],
+                       source: str = 'the checkpoint') -> Dict[str, int]:
+    """Load the entries of ``sd`` that name a tensor of ``model`` over its
+    weights; the rest stay as they are. Returns the counts of the model's
+    tensors overlaid, in all and in the backbone: ``loaded``, ``total``,
+    ``backbone_loaded``, ``backbone_total``. Raises ValueError when ``sd``
+    overlays none: a file that loads nothing would train or serve the
+    seeded weights."""
+    own = model.state_dict()
+    hits = {k: v for k, v in sd.items() if k in own}
+    if not hits:
+        raise ValueError(
+            f'{source} overlays none of the model\'s {len(own)} tensors '
+            f'(its keys begin {sorted(sd)[:4]}; the model\'s '
+            f'{sorted(own)[:4]})')
+    model.load_state_dict(hits, strict=False)
+    backbone = [k for k in own if k.startswith('backbone.')]
+    return {'loaded': len(hits), 'total': len(own),
+            'backbone_loaded': sum(k in hits for k in backbone),
+            'backbone_total': len(backbone)}
 
 
 def ema_state_dict(sd: Mapping[str, torch.Tensor]) -> StateDict:

@@ -13,6 +13,9 @@ EvalHook and CheckpointHook).
   step blocked on the loader) and ``step_ms`` (the window's time a step,
   eval and checkpoint time taken out) to ``metrics.jsonl``; every eval
   its metrics and ``eval_s``, and the best mIoU a ``best/`` checkpoint.
+  With ``profile=(first, n)`` the steps first..first+n-1 (counting from
+  1) run under ``core.hooks.StepTrace``, loader and prefetcher running,
+  into ``work_dir/profile/trace.json``.
 - ``_DevicePrefetcher`` moves batches to the card on a side CUDA stream
   from pinned memory while the step runs.
 - ``make_eval_fn``: per image the raw head logits of the pipeline image,
@@ -35,7 +38,7 @@ import numpy as np
 import torch
 
 from s4former_tpu_torch.core import checkpoint as ckpt_lib
-from s4former_tpu_torch.core.hooks import JsonlLoggerHook
+from s4former_tpu_torch.core.hooks import JsonlLoggerHook, StepTrace
 from s4former_tpu_torch.core.metrics import pre_eval_to_metrics
 from s4former_tpu_torch.ops.resize import interp_matrix_np
 from s4former_tpu_torch.utils.logger import get_root_logger
@@ -141,7 +144,8 @@ class IterBasedRunner:
                  eval_interval: int = 1150,
                  eval_fn: Optional[Callable] = None,
                  seed: int = 0,
-                 logger: Optional[logging.Logger] = None):
+                 logger: Optional[logging.Logger] = None,
+                 profile: Optional[Tuple[int, int]] = None):
         self.train_step = train_step
         self.state = state
         self.loader = loader
@@ -157,6 +161,7 @@ class IterBasedRunner:
         self.logger = logger or get_root_logger()
         self.best_miou = -1.0
         self.metrics_hook = JsonlLoggerHook(work_dir)
+        self.profile = profile
 
     def resume(self, path: Optional[str] = None, auto: bool = False):
         if path is None and auto:
@@ -169,12 +174,16 @@ class IterBasedRunner:
     def run(self):
         it = int(self.state.step)
         prefetcher = _DevicePrefetcher(iter(self.loader), self.device)
+        trace = None
         try:
             prefetcher.warm()
             t_window = time.perf_counter()
             data_wait = 0.0   # host time blocked on the prefetch queue
             off_step = 0.0    # eval and checkpoint time inside the window
             while it < self.max_iters:
+                if self.profile and it + 1 == self.profile[0]:
+                    trace = StepTrace(osp.join(self.work_dir, 'profile'),
+                                      self.device).__enter__()
                 t_data = time.perf_counter()
                 batch = prefetcher.get()
                 data_wait += time.perf_counter() - t_data
@@ -182,6 +191,11 @@ class IterBasedRunner:
                 self.state, logs = self.train_step(self.state, batch,
                                                    self.generator)
                 it += 1
+                if trace is not None and it + 1 == sum(self.profile):
+                    trace.__exit__(None, None, None)
+                    self.logger.info(f'traced steps {self.profile[0]}-{it} '
+                                     f'into {trace.path}')
+                    trace = None
                 if it % self.log_interval == 0:
                     host_logs = {k: float(v) for k, v in logs.items()}
                     dt = time.perf_counter() - t_window - off_step
@@ -199,6 +213,8 @@ class IterBasedRunner:
                     self._checkpoint(it)
                 off_step += time.perf_counter() - t_off
         finally:
+            if trace is not None:       # the run ended inside the window
+                trace.__exit__(None, None, None)
             prefetcher.close()
         if it % self.checkpoint_interval != 0:  # avoid a double final save
             self._checkpoint(it)

@@ -2,21 +2,25 @@
 of ``s4former_tpu/data/datasets/custom.py``; reference:
 mmseg/datasets/custom.py:32-512, voc.py:9, dataset_wrappers.py:165-305).
 
-``CustomDataset``, ``PascalVOCDataset``, ``SemiDataset``,
+``CustomDataset``, ``PascalVOCDataset``, ``CityscapesDataset`` (its
+submission format, ``format_results``/``results2img``), ``SemiDataset``,
 ``RepeatDataset`` and ``build_dataset``. Items are numpy dicts made by the
-pipeline; the loader batches them. Cityscapes, ADE20K, COCO-Stuff, the
-other datasets and the concat wrappers are still to be ported.
+pipeline; the loader batches them. ADE20K, COCO-Stuff, the other datasets
+and the concat wrappers are still to be ported.
 """
 from __future__ import annotations
 
 import glob
+import os
 import os.path as osp
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 from PIL import Image
 
-from s4former_tpu_torch.core.class_names import voc_classes, voc_palette
+from s4former_tpu_torch.core.class_names import (cityscapes_classes,
+                                                 cityscapes_palette,
+                                                 voc_classes, voc_palette)
 from s4former_tpu_torch.core.metrics import (eval_metrics, intersect_and_union,
                                              pre_eval_to_metrics)
 from s4former_tpu_torch.data.pipelines.transforms import Compose
@@ -174,6 +178,15 @@ class CustomDataset:
                 out[f'{key}.{name}'] = float(v)
         return out
 
+    def format_results(self, results, imgfile_prefix, indices=None,
+                       **kwargs):
+        """A dataset's submission files (custom.py:179; reference
+        custom.py:275-277): the reference defines none for this dataset,
+        nor for VOC; ``CityscapesDataset`` writes its label-id PNGs."""
+        raise NotImplementedError(
+            f'{type(self).__name__} defines no submission format; '
+            'use a dataset with format_results (e.g. cityscapes)')
+
 
 @DATASETS.register_module()
 class PascalVOCDataset(CustomDataset):
@@ -186,6 +199,71 @@ class PascalVOCDataset(CustomDataset):
         kwargs.setdefault('img_suffix', '.jpg')
         kwargs.setdefault('seg_map_suffix', '.png')
         super().__init__(**kwargs)
+
+
+@DATASETS.register_module()
+class CityscapesDataset(CustomDataset):
+    """(custom.py:210; reference cityscapes.py:14): trainId label maps
+    (``*_gtFine_labelTrainIds``); predictions are submitted as label-id
+    PNGs."""
+
+    CLASSES = tuple(cityscapes_classes())
+    PALETTE = cityscapes_palette()
+    # trainId -> labelId (cityscapesscripts.helpers.labels)
+    TRAINID2LABELID = (7, 8, 11, 12, 13, 17, 19, 20, 21, 22, 23, 24, 25,
+                       26, 27, 28, 31, 32, 33)
+
+    def __init__(self, **kwargs):
+        kwargs.setdefault('img_suffix', '_leftImg8bit.png')
+        kwargs.setdefault('seg_map_suffix', '_gtFine_labelTrainIds.png')
+        super().__init__(**kwargs)
+
+    def _convert_to_label_id(self, result: np.ndarray) -> np.ndarray:
+        """trainId map -> labelId map (reference cityscapes.py:36-47);
+        other values become 0."""
+        out = np.full_like(result, 0)
+        for train_id, label_id in enumerate(self.TRAINID2LABELID):
+            out[result == train_id] = label_id
+        return out
+
+    def results2img(self, results, imgfile_prefix, to_label_id=True,
+                    indices=None) -> List[str]:
+        """Write each prediction as ``imgfile_prefix/<image stem>.png``, a
+        'P' PNG of label ids (or trainIds) under the trainId palette
+        (custom.py:243; reference cityscapes.py:49-93). Returns the
+        paths."""
+        if indices is None:
+            indices = list(range(len(self)))
+        os.makedirs(imgfile_prefix, exist_ok=True)
+        palette = np.zeros((max(self.TRAINID2LABELID) + 1, 3), np.uint8)
+        for tid, lid in enumerate(self.TRAINID2LABELID):
+            palette[lid] = self.PALETTE[tid]
+        files = []
+        for result, idx in zip(results, indices):
+            if to_label_id:
+                result = self._convert_to_label_id(np.asarray(result))
+            base = osp.splitext(osp.basename(
+                self.img_infos[idx]['filename']))[0]
+            png = osp.join(imgfile_prefix, f'{base}.png')
+            out = Image.fromarray(result.astype(np.uint8)).convert('P')
+            out.putpalette(palette.reshape(-1).tolist())
+            out.save(png)
+            files.append(png)
+        return files
+
+    def format_results(self, results, imgfile_prefix, to_label_id=True,
+                       indices=None):
+        """(custom.py:277; reference cityscapes.py:95-128)."""
+        return self.results2img(results, imgfile_prefix, to_label_id,
+                                indices)
+
+    def evaluate(self, results, metric='mIoU', **kwargs):
+        metrics = [metric] if isinstance(metric, str) else list(metric)
+        if 'cityscapes' in metrics:
+            raise NotImplementedError(
+                'not ported: the "cityscapes" metric (the official '
+                'cityscapesscripts evaluator); use mIoU')
+        return super().evaluate(results, metrics, **kwargs)
 
 
 @DATASETS.register_module()

@@ -15,19 +15,30 @@ Randomness: each transform draws from ``results['rng']``, a
 ``np.random.Generator``, in the JAX package's order, so a seeded sample is
 the same array in both packages.
 
-Decode and resize use PIL. The JAX package prefers its host C++ library
-``s4former_tpu/native`` (bit-exact to PIL and to the numpy HSV below by its
-own tests), which releases the interpreter lock; the port's copy of it is
-still to come, so here the threads share the lock in PIL's Python parts.
+Decode, resize, PhotoMetricDistortion's brightness, contrast, saturation
+and hue, and Normalize run in the port's native host library
+(``s4former_tpu_torch/native``), as the JAX package's do in its
+``s4former_tpu/native``: C++ called through ``ctypes``, which releases the
+interpreter lock, so the loader's threads neither wait for each other nor
+hold up the thread that dispatches the training step. Their plain versions
+(``read_rgb_plain``, ``read_label_plain``, ``resize_plain``,
+``convert_plain``, ``saturate_plain``, ``hue_plain``, ``normalize_plain``:
+PIL and numpy) are what the native ones are held to, bit for bit; the
+pipelines do not call them. Two cases stay on PIL: decoding where the
+library was built without ``jpeglib.h``/``png.h`` (``native.HAS_DECODE``
+is False) or a file that is neither JPEG nor PNG, and a nearest resize of
+a non-uint8 array.
 """
 from __future__ import annotations
 
 import copy
+import types
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 from PIL import Image
 
+from s4former_tpu_torch import native
 from s4former_tpu_torch.registry import PIPELINES
 
 
@@ -39,15 +50,15 @@ def _rng(results) -> np.random.Generator:
     return r
 
 
-def _read_rgb(path: str) -> np.ndarray:
-    """Decode an image file to RGB uint8 [h, w, 3]."""
+def read_rgb_plain(path: str) -> np.ndarray:
+    """Decode an image file to RGB uint8 [h, w, 3] with PIL."""
     with Image.open(path) as im:
         return np.asarray(im.convert('RGB'))
 
 
-def _read_label(path: str) -> np.ndarray:
-    """Decode a label map to uint8 [h, w]: raw palette indices for 'P'
-    PNGs, the first channel otherwise (reference loading.py:104)."""
+def read_label_plain(path: str) -> np.ndarray:
+    """Decode a label map to uint8 [h, w] with PIL: raw palette indices for
+    'P' PNGs, the first channel otherwise (reference loading.py:104)."""
     with Image.open(path) as im:
         seg = np.asarray(im).astype(np.uint8)
     if seg.ndim == 3:
@@ -55,8 +66,8 @@ def _read_label(path: str) -> np.ndarray:
     return seg
 
 
-def _pil_resize(img: np.ndarray, size_wh: Tuple[int, int],
-                nearest: bool = False) -> np.ndarray:
+def resize_plain(img: np.ndarray, size_wh: Tuple[int, int],
+                 nearest: bool = False) -> np.ndarray:
     """PIL resize to (w, h): nearest keeps the dtype; bilinear runs on the
     uint8 image and casts back to the input dtype."""
     if nearest:
@@ -64,6 +75,37 @@ def _pil_resize(img: np.ndarray, size_wh: Tuple[int, int],
     pil = Image.fromarray(img if img.dtype == np.uint8
                           else img.astype(np.uint8))
     return np.asarray(pil.resize(size_wh, Image.BILINEAR)).astype(img.dtype)
+
+
+def _read(path: str, label: bool) -> np.ndarray:
+    if native.HAS_DECODE:
+        with open(path, 'rb') as f:
+            data = f.read()
+        if native.decodable(data):
+            return native.decode_label(data) if label else \
+                native.decode_rgb(data)
+    return read_label_plain(path) if label else read_rgb_plain(path)
+
+
+def _read_rgb(path: str) -> np.ndarray:
+    """Decode an image file to RGB uint8 [h, w, 3] (JAX transforms.py:
+    40-52)."""
+    return _read(path, label=False)
+
+
+def _read_label(path: str) -> np.ndarray:
+    """Decode a label map to uint8 [h, w] (JAX transforms.py:55-68)."""
+    return _read(path, label=True)
+
+
+def _pil_resize(img: np.ndarray, size_wh: Tuple[int, int],
+                nearest: bool = False) -> np.ndarray:
+    """PIL-semantics resize to (w, h) (JAX transforms.py:71-87): bilinear
+    on the uint8 image, cast back to the input dtype."""
+    if nearest and img.dtype != np.uint8:
+        return resize_plain(img, size_wh, nearest=True)
+    return native.resize_u8(img.astype(np.uint8, copy=False), size_wh,
+                            nearest).astype(img.dtype, copy=False)
 
 
 @PIPELINES.register_module()
@@ -84,7 +126,8 @@ class Compose:
 class LoadImageFromFile:
     """(loading.py:24-49): read the image, record its shape metas.
     ``color_type``: 'color' (RGB), 'grayscale' (2-D uint8) or 'unchanged'.
-    ``imdecode_backend`` is accepted for config parity; decoding is PIL's."""
+    ``imdecode_backend`` is accepted for config parity; decoding is the
+    native library's (``_read_rgb``)."""
 
     def __init__(self, to_float32: bool = False, color_type: str = 'color',
                  imdecode_backend: str = 'cv2', **kwargs):
@@ -333,6 +376,40 @@ def _hsv_to_rgb_cv(img: np.ndarray) -> np.ndarray:
     return np.clip(np.round((rgb + m) * 255.0), 0, 255).astype(np.uint8)
 
 
+def convert_plain(img, alpha=1.0, beta=0.0):
+    """clip(img * alpha + beta, 0, 255) truncated to uint8, in numpy."""
+    out = img.astype(np.float32) * alpha + beta
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def saturate_plain(img, alpha):
+    """HSV saturation scaled by ``alpha``, in numpy (cv2's HSV)."""
+    hsv = _rgb_to_hsv_cv(img)
+    hsv[..., 1] = convert_plain(hsv[..., 1], alpha=alpha)
+    return _hsv_to_rgb_cv(hsv)
+
+
+def hue_plain(img, dh):
+    """HSV hue shifted by ``dh`` (mod 180), in numpy."""
+    hsv = _rgb_to_hsv_cv(img)
+    hsv[..., 0] = (hsv[..., 0].astype(int) + dh) % 180
+    return _hsv_to_rgb_cv(hsv)
+
+
+def normalize_plain(img, mean, std):
+    """(img - mean) / std in float32, in numpy."""
+    return (img.astype(np.float32) - mean) / std
+
+
+# the plain versions in the shape of the ``native`` module: tests and
+# chip_smoke.py put it in the place of ``native`` to run the pipelines on
+# PIL and numpy, which they hold the native runs to
+PLAIN_HOST = types.SimpleNamespace(
+    HAS_DECODE=False, decodable=native.decodable, resize_u8=resize_plain,
+    convert_u8=convert_plain, saturation_u8=saturate_plain,
+    hue_u8=hue_plain, normalize_f32=normalize_plain)
+
+
 @PIPELINES.register_module()
 class PhotoMetricDistortion:
     """(transforms.py:1165): brightness, contrast, saturation and hue
@@ -348,23 +425,18 @@ class PhotoMetricDistortion:
         self.hue_delta = hue_delta
         self.p = rand_colorjitter_prob
 
+    # the native library's (JAX transforms.py:394-415)
     @staticmethod
     def _convert(img, alpha=1.0, beta=0.0):
-        out = img.astype(np.float32) * alpha + beta
-        return np.clip(out, 0, 255).astype(np.uint8)
+        return native.convert_u8(img, alpha, beta)
 
     @staticmethod
     def _saturate(img, alpha):
-        hsv = _rgb_to_hsv_cv(img)
-        hsv[..., 1] = PhotoMetricDistortion._convert(hsv[..., 1],
-                                                     alpha=alpha)
-        return _hsv_to_rgb_cv(hsv)
+        return native.saturation_u8(img, alpha)
 
     @staticmethod
     def _hue(img, dh):
-        hsv = _rgb_to_hsv_cv(img)
-        hsv[..., 0] = (hsv[..., 0].astype(int) + dh) % 180
-        return _hsv_to_rgb_cv(hsv)
+        return native.hue_u8(img, dh)
 
     def __call__(self, results):
         rng = _rng(results)
@@ -412,10 +484,14 @@ class Normalize:
         self.to_rgb = to_rgb
 
     def __call__(self, results):
-        img = results['img'].astype(np.float32)
+        img = results['img']
         if not self.to_rgb:
             img = img[..., ::-1]
-        results['img'] = (img - self.mean) / self.std
+        if img.dtype == np.uint8 and img.ndim == 3 and img.shape[-1] == 3:
+            # the native library's (JAX transforms.py:475)
+            results['img'] = native.normalize_f32(img, self.mean, self.std)
+        else:
+            results['img'] = normalize_plain(img, self.mean, self.std)
         results['img_norm_cfg'] = dict(mean=self.mean, std=self.std,
                                        to_rgb=self.to_rgb)
         return results

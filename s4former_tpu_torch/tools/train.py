@@ -4,10 +4,14 @@ tools/train.py:115-255):
     python -m s4former_tpu_torch.tools.train CONFIG [--work-dir D]
         [--load-from X.pth] [--resume-from D/iter_N] [--auto-resume]
         [--seed N] [--max-iters N] [--no-validate] [--device cuda|cpu]
-        [--cfg-options k=v ...]
+        [--profile FIRST N] [--cfg-options k=v ...]
 
 config -> datasets -> ``SemiLoader`` -> ``make_semi_train_step`` ->
-``IterBasedRunner`` with periodic exact eval and checkpoints. Runs on one
+``IterBasedRunner`` with periodic exact eval and checkpoints. The log
+starts with the environment (``utils.collect_env``) and says how many of
+the model's tensors the pretrained file overlaid. ``--profile FIRST N``
+traces steps FIRST..FIRST+N-1 into ``WORK_DIR/profile/trace.json``
+(``python -m s4former_tpu_torch.tools.profile_trace`` reads it). Runs on one
 CUDA device unless ``--device cpu`` is given; without a card it fails.
 Not ported yet, and refused with ``NotImplementedError``:
 ``--model-parallel`` > 1, ``--zero3``, a ``--launcher`` other than 'none',
@@ -50,6 +54,10 @@ def parse_args(argv=None):
                         help="multi-process bootstrap (not ported: 'none')")
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (default) or 'cpu'")
+    parser.add_argument('--profile', nargs=2, type=int, default=None,
+                        metavar=('FIRST', 'N'),
+                        help='trace steps FIRST..FIRST+N-1 (from 1) into '
+                             'WORK_DIR/profile/trace.json')
     parser.add_argument('--cfg-options', nargs='+', action=DictAction,
                         default={})
     return parser.parse_args(argv)
@@ -88,6 +96,7 @@ def main(argv=None):
     from s4former_tpu_torch.semi.config import SemiConfig
     from s4former_tpu_torch.semi.train_step import (create_train_state,
                                                     make_semi_train_step)
+    from s4former_tpu_torch.utils.collect_env import format_env
     from s4former_tpu_torch.utils.logger import get_root_logger
 
     cfg = Config.fromfile(args.config)
@@ -103,6 +112,7 @@ def main(argv=None):
     cfg.dump(osp.join(work_dir, osp.basename(args.config)))
     logger = get_root_logger(osp.join(
         work_dir, time.strftime('%Y%m%d_%H%M%S') + '.log'))
+    logger.info('environment:\n' + format_env())
     logger.info(f'device: {device}' + (
         f' ({torch.cuda.get_device_name(device)})'
         if device.type == 'cuda' else ''))
@@ -117,10 +127,10 @@ def main(argv=None):
         logger.warning(f'pretrained {init_ckpt} not found; training from '
                        f'scratch')
         init_ckpt = None
+    # init_segmentor logs how many tensors the file overlaid, and raises
+    # when it overlays none
     model = init_segmentor(cfg, checkpoint=init_ckpt, seed=args.seed,
                            device=device).model
-    if init_ckpt:
-        logger.info(f'loaded pretrained {init_ckpt}')
     semi_cfg = SemiConfig.from_model_cfg(cfg.model)
     state = create_train_state(model, ema=semi_cfg.ema)
 
@@ -190,7 +200,8 @@ def main(argv=None):
         checkpoint_interval=cfg.get('checkpoint_config', {}).get(
             'interval', 5750),
         eval_interval=cfg.get('evaluation', {}).get('interval', 1150),
-        eval_fn=eval_fn, seed=args.seed, logger=logger)
+        eval_fn=eval_fn, seed=args.seed, logger=logger,
+        profile=tuple(args.profile) if args.profile else None)
     try:
         runner.resume(args.resume_from, auto=args.auto_resume)
         return runner.run()

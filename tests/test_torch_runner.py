@@ -12,7 +12,7 @@
   asynchronous save round-trips after ``finalize_pending_saves``.
 - ``tools.train`` -> ``tools.test`` with ``--device cpu`` on a tiny
   config: the offline mIoU is the in-loop one, exactly; ``--auto-resume``
-  continues from the last checkpoint; the unported flags raise.
+  continues from the last checkpoint; what is not ported raises.
 """
 import copy
 import json
@@ -285,11 +285,22 @@ def test_unported_train_flags_raise(argv):
         train_cli.main(['unused.py', '--device', 'cpu'] + argv)
 
 
-@pytest.mark.parametrize('argv', [['--aug-test'], ['--show-dir', 'vis'],
-                                  ['--format-only']])
-def test_unported_test_flags_raise(argv):
+# what tools.test still refuses: a submission format VOC does not have,
+# the JAX eval fast mode, and the official Cityscapes evaluator
+@pytest.mark.parametrize('argv', [
+    (['--format-only'], {}),
+    ([], {'S4_EVAL_BUCKET': '256'}),
+    (['--eval', 'cityscapes', '--cfg-options',
+      'data.test.type=CityscapesDataset', 'data.test.img_suffix=.jpg',
+      'data.test.seg_map_suffix=.png'], {})])
+def test_unported_test_flags_raise(argv, tmp_path, monkeypatch):
+    flags, env = argv
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    cfg_path = write_cli_config(tmp_path, _split(tmp_path, 1))
     with pytest.raises(NotImplementedError):
-        test_cli.main(['unused.py', '--device', 'cpu'] + argv)
+        test_cli.main([cfg_path, '--device', 'cpu', '--imgfile-prefix',
+                       str(tmp_path / 'fmt')] + flags)
 
 
 # ------------------------------------------------- eval vs JAX (last:
