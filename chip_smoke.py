@@ -38,7 +38,19 @@ on the card, then drives the port's paths through its entry points:
 - test: ``tools.test`` on ``iter_12`` with ``--aug-test --show-dir``
   (six ratios and flip over the 16 fixture images) and with
   ``--format-only`` (Cityscapes label-id files); kernel #1 is held to its
-  plain version at the TTA shapes in ``kernel_check``.
+  plain version at the TTA shapes in ``kernel_check``;
+- the SegFormer slice (``configs/segformer/``, MiT-B4 at full width, 19
+  classes, seeded weights, frames and labels made from a seed with
+  numpy), which launches none of the kernels: ``..._sup.py`` serving one
+  2048x1024 frame by slide inference (768² windows at stride 512) in f32
+  at depth [1, 1, 2, 1] against the CPU, then in bf16 at full depth over 8
+  PNGs (one request each, one profiled); one f32 step of
+  ``..._MT_w_ours.py`` at depth [1, 1, 1, 1], 1 + 1 at 768², drop rates 0,
+  against the CPU; the bf16 step at full depth and the config's 4 + 4,
+  drop path and dropout live (the first, 3 timed, 1 profiled by operator
+  class); ``tools.train`` on a seeded Cityscapes tree (6 steps, slide eval
+  and checkpoints at 3 and 6), ``--auto-resume`` to 8, and ``tools.test``
+  (``--eval mIoU`` against the in-loop mIoU, ``--format-only``).
 
 Every phase prints one JSON line; any failed check raises and the script
 exits nonzero without its last line. Each path runs with the kernels'
@@ -672,19 +684,8 @@ def step_kwargs(cfg):
 def make_trainer(name, device, dtype=None, num_layers=None, **semi_over):
     """(state, train_step, cfg) for config ``name`` through the port's
     entry points, with seeded random weights."""
-    import dataclasses
-    from s4former_tpu_torch.apis import init_segmentor
-    from s4former_tpu_torch.semi.config import SemiConfig
-    from s4former_tpu_torch.semi.train_step import (create_train_state,
-                                                    make_semi_train_step)
     cfg = load_config(dtype, name, num_layers)
-    semi = dataclasses.replace(SemiConfig.from_model_cfg(cfg.model),
-                               **semi_over)
-    model = init_segmentor(cfg, seed=0, device=device).model
-    state = create_train_state(model, ema=semi.ema)
-    step = make_semi_train_step(model, semi, model.num_classes,
-                                **step_kwargs(cfg))
-    return state, step, cfg
+    return trainer_from_config(cfg, device, **semi_over) + (cfg,)
 
 
 def to_device(batch, device):
@@ -1307,6 +1308,484 @@ def phase_test_cli(fa, gpu_line, ckpt, root):
     return add_counts(aug_counts, fmt_counts)
 
 
+# ------------------------------------------------- SegFormer / MiT-B4 path
+_MIT_STEM = os.path.join(REPO, 'configs', 'segformer', 'segformer_mit-b4_bs_'
+                         '8_768x768_40k_cityscapes_1over16_split_CPS_')
+MIT_CONFIGS = {'sup': _MIT_STEM + 'sup.py',
+               'ours': _MIT_STEM + 'semi_MT_w_ours.py'}
+# depth cuts of the MiT-B4 ([3, 8, 27, 3]) for the f32 card-vs-CPU phases
+MIT_SERVE_F32_DEPTH = (1, 1, 2, 1)
+MIT_TRAIN_F32_DEPTH = (1, 1, 1, 1)
+MIT_CLASSES = 19
+# Cityscapes frames and the training crop
+CITY_HW = (1024, 2048)
+MIT_CROP = 768
+# operator classes of the MiT step's device time, by the aten operator that
+# launched each kernel (BN has no operator of its own: its mean, rsqrt and
+# affine are among the elementwise and reduction kernels)
+OP_CLASSES = (
+    ('attention matmul (bmm)', ('aten::bmm', 'aten::baddbmm')),
+    ('linear matmul', ('aten::mm', 'aten::addmm')),
+    ('softmax', ('aten::_softmax', 'aten::_softmax_backward_data')),
+    ('layer_norm', ('aten::native_layer_norm',
+                    'aten::native_layer_norm_backward')),
+    ('conv', ('aten::cudnn_convolution', 'aten::_conv_depthwise2d',
+              'aten::convolution_backward', 'aten::_convolution',
+              'aten::cudnn_convolution_add_relu')),
+    ('resize (bilinear gather + lerp, its index_add backward)',
+     ('aten::index_select', 'aten::lerp', 'aten::index_add_',
+      'aten::index_add', 'aten::index_select_backward')),
+)
+
+
+def load_mit_config(name, dtype=None, depth=None, drop=True):
+    """A segformer config as written, with the compute dtype set, the
+    depth cut to ``depth`` blocks a stage, and, with ``drop=False``, drop
+    path and head dropout at 0."""
+    from s4former_tpu_torch.config import Config
+    cfg = Config.fromfile(MIT_CONFIGS[name])
+    if dtype is not None:
+        cfg.model.backbone.dtype = dtype
+        cfg.model.decode_head.dtype = dtype
+    if depth is not None:
+        cfg.model.backbone.num_layers = list(depth)
+    if not drop:
+        cfg.model.backbone.drop_path_rate = 0.0
+        cfg.model.decode_head.dropout_ratio = 0.0
+    return cfg
+
+
+def city_scene(rs, hw=CITY_HW, block=32):
+    """A seeded street-like frame: blocky trainId labels (19 classes and
+    255) and an RGB image of each block's class colour plus noise."""
+    import numpy as np
+    from s4former_tpu_torch.core.class_names import cityscapes_palette
+    palette = np.asarray(cityscapes_palette() + [[0, 0, 0]], np.int16)
+    ids = rs.choice(list(range(MIT_CLASSES)) + [255],
+                    (hw[0] // block, hw[1] // block),
+                    p=[0.95 / MIT_CLASSES] * MIT_CLASSES + [0.05])
+    label = np.kron(ids, np.ones((block, block), np.int64))
+    colour = palette[np.where(label == 255, MIT_CLASSES, label)]
+    img = np.clip(colour + rs.randint(-24, 25, colour.shape), 0, 255)
+    return img.astype(np.uint8), label.astype(np.uint8)
+
+
+def write_city_pngs(rs, directory, n):
+    """n seeded 2048x1024 RGB PNGs (fast zlib level) -> their paths."""
+    from PIL import Image
+    os.makedirs(directory, exist_ok=True)
+    paths = []
+    for i in range(n):
+        img, _ = city_scene(rs)
+        paths.append(os.path.join(directory, f'frame_{i:02d}.png'))
+        Image.fromarray(img).save(paths[-1], compress_level=1)
+    return paths
+
+
+def mit_train_batch(rs, n_sup, n_unsup, size=MIT_CROP):
+    """A step's batch of seeded scenes cropped to ``size``², normalised
+    as the pipelines do: sup images + labels, and unsup images (one view
+    for the teacher and the student)."""
+    import numpy as np
+    from s4former_tpu_torch.apis import _DEFAULT_NORM
+    mean = np.asarray(_DEFAULT_NORM['mean'], np.float32)
+    std = np.asarray(_DEFAULT_NORM['std'], np.float32)
+    xs, ys = [], []
+    for _ in range(n_sup + n_unsup):
+        img, label = city_scene(rs, (size, size))
+        xs.append((img.astype(np.float32) - mean) / std)
+        ys.append(label.astype(np.int32))
+    x, y = np.stack(xs), np.stack(ys)
+    batch = {'sup_img': x[:n_sup], 'sup_gt': y[:n_sup]}
+    if n_unsup:
+        batch['unsup_teacher_img'] = x[n_sup:]
+        batch['unsup_student_img'] = x[n_sup:]
+    return batch
+
+
+def all_zero(path_counts):
+    return not any(path_counts.values())
+
+
+def phase_mit_serve_f32(fa, image):
+    """``..._sup.py`` in f32 cut to depth MIT_SERVE_F32_DEPTH, one seeded
+    2048x1024 frame through slide inference (768² windows at stride 512:
+    8 of them), on the card and on the CPU from the same seeded weights.
+    Returns the card's launch counts."""
+    import torch
+    from s4former_tpu_torch.apis import _prepare_image, init_segmentor
+    from s4former_tpu_torch.models.segmentors.inference import window_origins
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = load_mit_config('sup', 'float32', MIT_SERVE_F32_DEPTH)
+    gpu = init_segmentor(cfg, seed=0, device='cuda')
+    cpu = init_segmentor(cfg, seed=0, device='cpu')
+    check((gpu.mode, gpu.crop_size, gpu.stride) ==
+          ('slide', (768, 768), (512, 512)), 'slide geometry')
+    windows = len(window_origins(*CITY_HW, gpu.crop_size, gpu.stride))
+    check(windows == 8, f'{windows} windows on a 2048x1024 frame')
+    x, _ = _prepare_image(gpu, image)
+    check(x.shape == (1,) + CITY_HW + (3,), f'request shape {x.shape}')
+    reset_counts(fa)                               # the main path starts
+    p_gpu = gpu.probs(torch.from_numpy(x).cuda())
+    torch.cuda.synchronize()
+    path_counts = counts(fa)                       # the main path ends
+    t0 = time.perf_counter()
+    p_cpu = cpu.probs(torch.from_numpy(x))
+    cpu_s = time.perf_counter() - t0
+    check(p_gpu.shape == (1,) + CITY_HW + (MIT_CLASSES,),
+          f'probs shape {p_gpu.shape}')
+    check(torch.isfinite(p_gpu).all().item(), 'non-finite f32 probs')
+    err = (p_gpu.cpu() - p_cpu).abs().max().item()
+    agree = (p_gpu.cpu().argmax(-1) == p_cpu.argmax(-1)).float().mean()
+    emit({'phase': 'mit_serve_f32_vs_cpu', 'config': 'sup',
+          'cut': f'depth [3, 8, 27, 3] -> {list(MIT_SERVE_F32_DEPTH)}',
+          'windows': windows, 'probs_max_abs_err': err,
+          'tol': TOL_MAIN_F32, 'argmax_agreement': agree.item(),
+          'cpu_forward_s': cpu_s, 'launches': path_counts})
+    check(all_zero(path_counts), f'the MiT launched a kernel: {path_counts}')
+    check(err <= TOL_MAIN_F32, f'f32 card vs CPU probs differ by {err}')
+    del gpu, cpu, p_gpu, p_cpu
+    torch.cuda.empty_cache()
+    return path_counts
+
+
+def phase_mit_serve_bf16(fa, images, gpu_line):
+    """``..._sup.py`` at full depth in bf16: ``inference_segmentor`` serves
+    each seeded 2048x1024 PNG of ``images`` as one request (8 slide
+    windows); one more request under the profiler."""
+    import numpy as np
+    import torch
+    from s4former_tpu_torch.apis import inference_segmentor, init_segmentor
+    seg = init_segmentor(load_mit_config('sup', 'bfloat16'), seed=0,
+                         device='cuda')
+    inference_segmentor(seg, images[0])          # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    latencies = []
+    reset_counts(fa)                               # the main path starts
+    for path in images:
+        t0 = time.perf_counter()
+        labels = inference_segmentor(seg, path)   # ends in a device->host copy
+        latencies.append((time.perf_counter() - t0) * 1e3)
+        check(labels.shape == CITY_HW and labels.min() >= 0 and
+              labels.max() < MIT_CLASSES, f'bad label map for {path}')
+    path_counts = counts(fa)                       # the main path ends
+    peak = torch.cuda.max_memory_allocated()
+    _, prof = device_profile(lambda: inference_segmentor(seg, images[1]), 12)
+    lat = np.asarray(latencies)
+    emit({'phase': 'mit_serve_bf16', 'config': 'sup',
+          'requests': len(images), 'frame': '2048x1024 PNG, slide 768/512',
+          'request_ms': [round(t, 3) for t in latencies],
+          'request_ms_mean': float(lat.mean()),
+          'request_ms_p50': float(np.median(lat)),
+          'peak_mem_bytes': peak, 'profile': prof,
+          'launches': path_counts, 'gpu': gpu_line})
+    check(all_zero(path_counts), f'the MiT launched a kernel: {path_counts}')
+    del seg
+    torch.cuda.empty_cache()
+    return path_counts
+
+
+def trainer_from_config(cfg, device, **semi_over):
+    """(state, train_step) of a config through the port's entry points,
+    with seeded random weights."""
+    import dataclasses
+    from s4former_tpu_torch.apis import init_segmentor
+    from s4former_tpu_torch.semi.config import SemiConfig
+    from s4former_tpu_torch.semi.train_step import (create_train_state,
+                                                    make_semi_train_step)
+    semi = dataclasses.replace(SemiConfig.from_model_cfg(cfg.model),
+                               **semi_over)
+    model = init_segmentor(cfg, seed=0, device=device).model
+    state = create_train_state(model, ema=semi.ema)
+    step = make_semi_train_step(model, semi, model.num_classes,
+                                **step_kwargs(cfg))
+    return state, step
+
+
+def phase_mit_train_f32_vs_cpu(fa):
+    """One S4Former step of ``..._MT_w_ours.py`` in f32 cut to depth
+    MIT_TRAIN_F32_DEPTH, drop path and dropout at 0, 1 + 1 seeded scenes at
+    768², the same CutMix box and PatchShuffle permutation, on the card and
+    on the CPU from the same weights. The confidence threshold is the
+    median of the CPU teacher's max softmax on the unsup image (the seeded
+    teacher is far below the config's 0.95), so about half of the pixels
+    are confident: the stage-4 PASA bias, NCR and pseudo-CE are live.
+    Returns the card's launch counts."""
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rs = np.random.RandomState(5)
+    batch = mit_train_batch(rs, 1, 1)
+    mask = np.ones((1, MIT_CROP, MIT_CROP), np.float32)
+    mask[0, 128:512, 192:480] = 0
+    batch['dbg_cutmix_mask'] = mask
+    batch['dbg_patchmix_perm'] = rs.permutation(36)[None].astype(np.int32)
+    cfg = load_mit_config('ours', 'float32', MIT_TRAIN_F32_DEPTH, drop=False)
+    state, _ = trainer_from_config(cfg, 'cpu')
+    with torch.no_grad():
+        t_logits = state.model.forward_decode_from_img(
+            torch.from_numpy(batch['unsup_teacher_img']), train=False)
+    threshold = float(torch.softmax(t_logits.float(), -1).amax(-1).median())
+    runs = {}
+    for device in ('cuda', 'cpu'):
+        state, step = trainer_from_config(cfg, device,
+                                          unsup_confidence=threshold)
+        before = {n: p.detach().cpu().clone()
+                  for n, p in state.model.named_parameters()}
+        dev_batch = to_device(batch, device)
+        reset_counts(fa)
+        t0 = time.perf_counter()
+        state, logs = step(state, dev_batch,
+                           torch.Generator(device=device).manual_seed(0))
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        delta = {n: p.detach().cpu() - before[n]
+                 for n, p in state.model.named_parameters()}
+        runs[device] = (floats(logs), delta, seconds, counts(fa))
+        del state, step, dev_batch
+        torch.cuda.empty_cache()
+    (lg, dg, sg, cg), (lc, dc, sc, cc) = runs['cuda'], runs['cpu']
+    check(sorted(lg) == sorted(lc), 'log keys differ')
+    loss_err = {k: abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-6) for k in lc}
+    scale = max(d.abs().max().item() for d in dc.values())
+    upd_err = max((dg[n] - dc[n]).abs().max().item() for n in dc)
+    emit({'phase': 'mit_train_f32_vs_cpu', 'config': 'ours',
+          'cut': f'depth [3, 8, 27, 3] -> {list(MIT_TRAIN_F32_DEPTH)}; drop '
+                 f'path and head dropout 0',
+          'batch': f'1 sup + 1 unsup at {MIT_CROP}², unsup_confidence '
+                   f'{threshold} (median teacher max-prob)',
+          'mask_ratio': lc['mask_ratio'], 'mask_ratio_card': lg['mask_ratio'],
+          'losses_card': lg, 'losses_cpu': lc, 'loss_rel_err': loss_err,
+          'update_max_abs_err': upd_err, 'update_max_abs_cpu': scale,
+          'tol': TOL_TRAIN_F32, 'card_step_s': sg, 'cpu_step_s': sc,
+          'launches': cg})
+    check(all_zero(cg) and all_zero(cc), f'the MiT launched a kernel: {cg}')
+    check(0 < lc['mask_ratio'] < 1, f'mask_ratio {lc["mask_ratio"]}')
+    check(lc['unsup.loss_seg_unsup'] > 0 and lc['unsup.loss_ncr_unsup'] > 0,
+          'the unsup losses are not live')
+    check(all(np.isfinite(v) for v in lg.values()), 'non-finite losses')
+    check(max(loss_err.values()) <= TOL_TRAIN_F32,
+          f'f32 losses, card vs CPU: {loss_err}')
+    check(upd_err <= TOL_TRAIN_F32 * scale,
+          f'f32 parameter updates differ by {upd_err} (max {scale})')
+    return cg
+
+
+def device_time_by_class(averages):
+    """Device time (µs) of a profiled run (its ``key_averages()``) by
+    operator class: each CPU
+    operator's own kernels (``self_device_time_total``) summed over the
+    classes of OP_CLASSES, the rest as 'elementwise, reductions, copies
+    (incl. BN, GELU, losses, SGD)'. The MixFFN's depthwise 3x3 conv is
+    split from the other convs by its cuDNN kernels' names (grouped /
+    one-channel-a-group kernels)."""
+    import re
+    from torch.autograd import DeviceType
+    out = {}
+    depthwise = 0.0
+    for ev in averages:
+        us = ev.self_device_time_total
+        if us <= 0:
+            continue
+        if ev.device_type == DeviceType.CUDA:
+            if re.search(r'grouped|depthwise|_c1_k1', ev.key):
+                depthwise += us
+            continue
+        cls = next((c for c, ops in OP_CLASSES if ev.key in ops),
+                   'elementwise, reductions, copies (incl. BN, GELU, '
+                   'losses, SGD)')
+        out[cls] = out.get(cls, 0.0) + us
+    if depthwise:
+        out['conv'] = out.get('conv', 0.0) - depthwise
+        out['depthwise conv 3x3'] = depthwise
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def phase_mit_train_bf16(fa, gpu_line, n_sup, n_unsup):
+    """``..._MT_w_ours.py`` at full depth in bf16, drop path and head
+    dropout live, from one fixed batch of seeded scenes at 768²: the first
+    step, 3 timed, 1 profiled (device time by kernel and by operator
+    class). Returns the launch counts."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cfg = load_mit_config('ours', 'bfloat16')
+    state, step = trainer_from_config(cfg, 'cuda')
+    batch = to_device(mit_train_batch(np.random.RandomState(6), n_sup,
+                                      n_unsup), 'cuda')
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa)                               # the main path starts
+    state, logs, ms = timed_steps(state, step, batch, gen, 4)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, logs = step(state, batch, gen)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    path_counts = counts(fa)                       # the main path ends
+    peak = torch.cuda.max_memory_allocated()
+    averages = prof.key_averages()
+    by_class = device_time_by_class(averages)
+    kernels = [ev for ev in averages if ev.device_type == DeviceType.CUDA]
+    device_us = sum(ev.self_device_time_total for ev in kernels)
+    top = sorted(((ev.self_device_time_total, ev.key[:100], ev.count)
+                  for ev in kernels), reverse=True)[:15]
+    lg = floats(logs)
+    timed = np.asarray(ms[1:])
+    emit({'phase': 'mit_train_bf16', 'config': 'ours',
+          'batch': f'{n_sup} + {n_unsup} at {MIT_CROP}², bf16, depth '
+                   f'[3, 8, 27, 3], drop path 0.1 and dropout 0.1 live',
+          'first_step_ms': ms[0], 'step_ms': ms[1:],
+          'step_ms_mean': float(timed.mean()),
+          'step_ms_p50': float(np.median(timed)),
+          'img_per_s': (n_sup + n_unsup) / (timed.mean() / 1e3),
+          'peak_mem_bytes': peak, 'mask_ratio': lg['mask_ratio'],
+          'logs': lg, 'profile': {
+              'wall_us': wall_us, 'device_us': device_us,
+              'device_busy_share': device_us / wall_us,
+              'by_class_us': by_class,
+              'classified_us': sum(by_class.values()),
+              'top': [{'kernel': k, 'device_us': us, 'calls': n}
+                      for us, k, n in top]},
+          'launches': path_counts, 'gpu': gpu_line})
+    check(all(np.isfinite(v) for v in lg.values()), f'non-finite logs {lg}')
+    check(all_zero(path_counts), f'the MiT launched a kernel: {path_counts}')
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return path_counts
+
+
+def write_city_tree(root, seed=8, n_sup=8, n_unsup=8, n_val=2):
+    """A Cityscapes-layout tree of seeded 2048x1024 frames (PNG) and their
+    trainId labels (L PNG), n_sup + n_unsup in train and n_val in val, and
+    split files of their stems. Returns the split paths."""
+    import numpy as np
+    from PIL import Image
+    rs = np.random.RandomState(seed)
+    splits = {'sup': [], 'unsup': [], 'val': []}
+    names = ['sup'] * n_sup + ['unsup'] * n_unsup + ['val'] * n_val
+    for i, which in enumerate(names):
+        part = 'val' if which == 'val' else 'train'
+        city = 'frankfurt' if part == 'val' else ('aachen', 'bremen')[i % 2]
+        stem = f'{city}/{city}_{i:06d}_000019'
+        img, label = city_scene(rs)
+        for sub, suffix, arr in (('leftImg8bit', '_leftImg8bit.png', img),
+                                 ('gtFine', '_gtFine_labelTrainIds.png',
+                                  label)):
+            path = os.path.join(root, sub, part, stem + suffix)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            Image.fromarray(arr).save(path, compress_level=1)
+        splits[which].append(stem)
+    paths = {}
+    for which, stems in splits.items():
+        paths[which] = os.path.join(root, f'{which}.txt')
+        with open(paths[which], 'w') as f:
+            f.write('\n'.join(stems) + '\n')
+    return paths
+
+
+def phase_mit_train_cli(fa, gpu_line, root, n_sup, n_unsup):
+    """The port's training CLI on ``..._MT_w_ours.py`` (bf16, full depth,
+    ``n_sup`` + ``n_unsup`` a step through the Cityscapes pipelines) over a
+    seeded Cityscapes tree: 6 steps with slide eval and checkpoints at 3
+    and 6; ``--auto-resume`` to 8; ``tools.test --eval mIoU`` on
+    ``iter_6`` within TOL_MIOU of the in-loop mIoU; ``--format-only``
+    writes label-id PNGs. Returns the runs' launch counts summed."""
+    import numpy as np
+    import torch
+    from s4former_tpu_torch.tools import test as test_cli
+    from s4former_tpu_torch.tools import train as train_cli
+    splits = write_city_tree(os.path.join(root, 'city'))
+    data_root = os.path.join(root, 'city')
+    cfg_path = MIT_CONFIGS['ours']
+    opts = ['--cfg-options', 'model.backbone.dtype=bfloat16',
+            'model.decode_head.dtype=bfloat16', 'evaluation.interval=3',
+            'checkpoint_config.interval=3', 'log_config.interval=3',
+            f'samples_per_gpu_sup={n_sup}',
+            f'samples_per_gpu_unsup={n_unsup}']
+    for key, split in (('data.train.sup', 'sup'),
+                       ('data.train.unsup', 'unsup'), ('data.val', 'val'),
+                       ('data.test', 'val')):
+        opts += [f'{key}.data_root={data_root}',
+                 f'{key}.split={splits[split]}']
+    wd = os.path.join(root, 'mit_work')
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa)                               # the main path starts
+    t0 = time.perf_counter()
+    state = train_cli.main([cfg_path, '--work-dir', wd, '--max-iters', '6']
+                           + opts)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_counts = counts(fa)                      # the main path ends
+    peak = torch.cuda.max_memory_allocated()
+    check(int(state.step) == 6, f'trained to step {int(state.step)}')
+    del state
+    torch.cuda.empty_cache()
+    records = read_jsonl(os.path.join(wd, 'metrics.jsonl'))
+    train = [r for r in records if r['prefix'] == 'train']
+    val = {r['step']: r for r in records if r['prefix'] == 'val'}
+    check([r['step'] for r in train] == [3, 6] and sorted(val) == [3, 6],
+          f'logged steps {records}')
+    check(all(np.isfinite(r['loss']) for r in train), f'losses {train}')
+    check(all('unsup.loss_seg_unsup' in r for r in train),
+          'the unsup branch did not run')
+
+    reset_counts(fa)
+    state = train_cli.main([cfg_path, '--work-dir', wd, '--auto-resume',
+                            '--max-iters', '8'] + opts)
+    torch.cuda.synchronize()
+    resume_counts = counts(fa)
+    check(int(state.step) == 8, f'resumed run ended at {int(state.step)}')
+    del state
+    torch.cuda.empty_cache()
+    resumed = f'resumed from {os.path.join(wd, "iter_6")}'
+    check(resumed in read_logs(wd), f'no "{resumed}" in the log')
+
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    results = test_cli.main([cfg_path, os.path.join(wd, 'iter_6'),
+                             '--eval', 'mIoU'] + opts)
+    test_s = time.perf_counter() - t0
+    fmt = os.path.join(root, 'mit_fmt')
+    none = test_cli.main([cfg_path, os.path.join(wd, 'iter_6'),
+                          '--format-only', '--imgfile-prefix', fmt] + opts)
+    test_counts = counts(fa)
+    in_loop = val[6]['mIoU']
+    gap = abs(results['mIoU'] - in_loop)
+    formatted = sorted(os.listdir(fmt))
+    emit({'phase': 'mit_train_cli', 'config': os.path.basename(cfg_path),
+          'batch': f'{n_sup} + {n_unsup} at {MIT_CROP}² from 2048x1024 '
+                   f'PNGs, bf16, depth [3, 8, 27, 3]',
+          'data': '8 labeled, 8 unlabeled, 2 val seeded frames',
+          'losses': {r['step']: r['loss'] for r in train},
+          'mask_ratio': {r['step']: r['mask_ratio'] for r in train},
+          'step_ms_windows': [r['step_ms'] for r in train],
+          'data_wait_ms_windows': [r['data_wait_ms'] for r in train],
+          'eval_s': {s: r['eval_s'] for s, r in val.items()},
+          'miou': {s: r['mIoU'] for s, r in val.items()},
+          'train_run_s': train_s, 'peak_mem_bytes': peak,
+          'launches': {'train': train_counts, 'resume': resume_counts,
+                       'test': test_counts},
+          'resumed': resumed, 'test_miou': results['mIoU'],
+          'in_loop_miou_iter_6': in_loop, 'miou_gap': gap, 'tol': TOL_MIOU,
+          'test_run_s': test_s, 'format_only_files': len(formatted),
+          'gpu': gpu_line})
+    check(gap <= TOL_MIOU, f'offline mIoU {results["mIoU"]} vs in-loop '
+          f'{in_loop}: {gap} > {TOL_MIOU}')
+    check(none is None and len(formatted) == 2,
+          f'--format-only wrote {formatted}')
+    total = add_counts(add_counts(train_counts, resume_counts), test_counts)
+    check(all_zero(total), f'the MiT launched a kernel: {total}')
+    shutil.rmtree(wd, ignore_errors=True)
+    return total
+
+
 def phase_build(libs, seconds):
     """Per kernel function of the built libraries: registers and spills
     (ptxas), tensor-core instructions and asynchronous copies (SASS). Every
@@ -1422,6 +1901,29 @@ def main() -> int:
         paths['train_cli_host'] = phase_train_cli_host(
             fa, gpu_line, root, deit['timm'], n_backbone, windows,
             no_loader)
+
+        # the SegFormer MiT-B4 slice: no flash kernel runs on it
+        import numpy as np
+        frames = write_city_pngs(np.random.RandomState(4),
+                                 os.path.join(root, 'frames'), 8)
+        mit_cfg = load_mit_config('ours')
+        mit_batch = (mit_cfg.samples_per_gpu_sup,
+                     mit_cfg.samples_per_gpu_unsup)
+        seconds = {}
+        for name, run in (
+                ('mit_serve_f32', lambda: phase_mit_serve_f32(fa, frames[0])),
+                ('mit_serve_bf16',
+                 lambda: phase_mit_serve_bf16(fa, frames, gpu_line)),
+                ('mit_train_f32', lambda: phase_mit_train_f32_vs_cpu(fa)),
+                ('mit_train_bf16',
+                 lambda: phase_mit_train_bf16(fa, gpu_line, *mit_batch)),
+                ('mit_train_cli', lambda: phase_mit_train_cli(
+                    fa, gpu_line, root, *mit_batch))):
+            t0 = time.perf_counter()
+            paths[name] = run()
+            seconds[name] = time.perf_counter() - t0
+        emit({'phase': 'mit_seconds', **seconds,
+              'total': sum(seconds.values())})
 
     for name in KERNELS:
         entries[name]['launches'] = sum(p[name] for p in paths.values())

@@ -155,9 +155,15 @@ def inference_with_teacher_pasa(segmentor: Segmentor, img,
     """Test-time PASA (reference encode_decode, encoder_decoder.py:265-296):
     the EMA teacher (the same model run with ``ema_state_dict``, in the
     student's key names) gives a continuous max-softmax confidence, which
-    builds the additive attention bias for the student's forward."""
+    builds the additive attention bias for the student's forward. The ViT
+    only, as in the JAX package: a MiT takes its PASA input as a raw map
+    and is refused."""
+    from s4former_tpu_torch.models.backbones.mit import MixVisionTransformer
     from s4former_tpu_torch.ops.resize import resize_bilinear
     from s4former_tpu_torch.semi.pasa import build_pasa_bias
+    if isinstance(segmentor.model.backbone, MixVisionTransformer):
+        raise NotImplementedError('teacher-PASA inference is not ported for '
+                                  'the MiT (ViT token bias only)')
     x, (h, w) = _prepare_image(segmentor, img)
     x = torch.from_numpy(x).to(segmentor.device)
     model = segmentor.model

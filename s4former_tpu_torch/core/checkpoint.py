@@ -8,10 +8,14 @@ The port's modules carry the reference (mmseg) parameter names, so its
   ``{'params', 'batch_stats'[, 'ema_params', 'ema_batch_stats']}`` tree, as
   numpy arrays, -> reference-layout tensors. It unstacks the scanned ViT
   layers and the vmapped aux heads and transposes dense and conv kernels.
-  Same keys and values as JAX ``export_reference_state_dict`` (l.2739).
+  Same keys and values as JAX ``export_reference_state_dict`` (l.2739) for
+  the ViT and SETR-PUP; for the MiT and the SegFormer head it inverts JAX
+  ``convert_mit_backbone`` (l.283) and ``convert_segformer_head`` (l.911).
 - ``load_reference_state_dict(path)``: an mmseg/S4Former ``.pth``, or a
   backbone-only DeiT file with bare OpenMMLab or timm keys
-  (``normalize_backbone_keys``), -> tensors under the port's names, with
+  (``normalize_backbone_keys``, applied to ViT-layout backbones only: a MiT
+  backbone's keys pass unrenamed, as JAX ``convert_mmseg_checkpoint``
+  leaves them), -> tensors under the port's names, with
   the bicubic pos-embed resize on load of JAX ``_resize_pos_embed_np``
   (l.169); ``overlay_state_dict`` loads them over a model, counts what it
   overlaid and raises when that is nothing.
@@ -112,6 +116,104 @@ def _setr_up(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
     return sd
 
 
+def _scale_bias(p: Mapping) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A flax LayerNorm's or BatchNorm's (scale, bias) as torch's (weight,
+    bias)."""
+    return _t(p['scale']), _t(p['bias'])
+
+
+def _dense_as_conv1x1(kernel) -> torch.Tensor:
+    """flax Dense kernel [Cin, Cout] -> torch 1x1 conv weight [Cout, Cin,
+    1, 1]."""
+    return _t(np.asarray(kernel).T[:, :, None, None])
+
+
+def _mit(p: Mapping, prefix: str) -> StateDict:
+    """JAX MixVisionTransformer params -> the mmseg MiT layout (the inverse
+    of JAX ``convert_mit_backbone``)."""
+    sd: StateDict = {}
+
+    def put(key, leaf, weight):
+        sd[prefix + key + '.weight'] = weight
+        if 'bias' in leaf:
+            sd[prefix + key + '.bias'] = _t(leaf['bias'])
+    s = 0
+    while f'patch_embed_{s}' in p:
+        pe = p[f'patch_embed_{s}']
+        put(f'layers.{s}.0.projection', pe['proj'],
+            _conv(pe['proj']['kernel']))
+        (sd[f'{prefix}layers.{s}.0.norm.weight'],
+         sd[f'{prefix}layers.{s}.0.norm.bias']) = _scale_bias(pe['norm'])
+        i = 0
+        while f'stage_{s}_block_{i}' in p:
+            blk = p[f'stage_{s}_block_{i}']
+            pre = f'layers.{s}.1.{i}.'
+            for ln in ('norm1', 'norm2'):
+                (sd[f'{prefix}{pre}{ln}.weight'],
+                 sd[f'{prefix}{pre}{ln}.bias']) = _scale_bias(blk[ln])
+            attn = blk['attn']
+            sd[f'{prefix}{pre}attn.attn.in_proj_weight'] = _t(np.concatenate(
+                [np.asarray(attn['q']['kernel']).T,
+                 np.asarray(attn['kv']['kernel']).T]))
+            if 'bias' in attn['q']:
+                sd[f'{prefix}{pre}attn.attn.in_proj_bias'] = _t(
+                    np.concatenate([np.asarray(attn['q']['bias']),
+                                    np.asarray(attn['kv']['bias'])]))
+            put(pre + 'attn.attn.out_proj', attn['proj'],
+                _t(np.asarray(attn['proj']['kernel']).T))
+            if 'sr' in attn:
+                put(pre + 'attn.sr', attn['sr'], _conv(attn['sr']['kernel']))
+                (sd[f'{prefix}{pre}attn.norm.weight'],
+                 sd[f'{prefix}{pre}attn.norm.bias']) = _scale_bias(attn['sr_norm'])
+            ffn = blk['ffn']
+            put(pre + 'ffn.layers.0', ffn['fc1'],
+                _dense_as_conv1x1(ffn['fc1']['kernel']))
+            put(pre + 'ffn.layers.1', ffn['dwconv'],
+                _conv(ffn['dwconv']['kernel']))
+            put(pre + 'ffn.layers.4', ffn['fc2'],
+                _dense_as_conv1x1(ffn['fc2']['kernel']))
+            i += 1
+        (sd[f'{prefix}layers.{s}.2.weight'],
+         sd[f'{prefix}layers.{s}.2.bias']) = _scale_bias(p[f'norm_{s}'])
+        s += 1
+    return sd
+
+
+def _segformer(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
+    """JAX SegformerHead params + BN statistics -> the mmseg layout (the
+    inverse of JAX ``convert_segformer_head``)."""
+    sd: StateDict = {}
+
+    def bn(key, name):
+        sd[prefix + key + '.bn.weight'], sd[prefix + key + '.bn.bias'] = \
+            _scale_bias(p[name])
+        if name in bs:
+            sd[prefix + key + '.bn.running_mean'] = _t(bs[name]['mean'])
+            sd[prefix + key + '.bn.running_var'] = _t(bs[name]['var'])
+    i = 0
+    while f'convs_{i}' in p:
+        sd[f'{prefix}convs.{i}.conv.weight'] = _dense_as_conv1x1(
+            p[f'convs_{i}']['kernel'])
+        bn(f'convs.{i}', f'convs_{i}_bn')
+        i += 1
+    if 'fusion_conv' in p:
+        sd[prefix + 'fusion_conv.conv.weight'] = _conv(
+            p['fusion_conv']['kernel'])
+        bn('fusion_conv', 'fusion_bn')
+    if 'conv_seg' in p:
+        sd[prefix + 'conv_seg.weight'] = _conv(p['conv_seg']['kernel'])
+        sd[prefix + 'conv_seg.bias'] = _t(p['conv_seg']['bias'])
+    return sd
+
+
+def _backbone(p: Mapping, prefix: str) -> StateDict:
+    return _mit(p, prefix) if 'patch_embed_0' in p else _vit(p, prefix)
+
+
+def _head(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
+    return (_segformer if 'fusion_conv' in p else _setr_up)(p, bs, prefix)
+
+
 def _index_tree(tree, j: int):
     if isinstance(tree, Mapping):
         return {k: _index_tree(v, j) for k, v in tree.items()}
@@ -124,10 +226,10 @@ def state_dict_from_jax_variables(variables: Mapping) -> StateDict:
     bs = variables.get('batch_stats', {})
     sd: StateDict = {}
     if 'backbone_m' in params:
-        sd.update(_vit(params['backbone_m'], 'backbone.'))
+        sd.update(_backbone(params['backbone_m'], 'backbone.'))
     if 'decode_head_m' in params:
-        sd.update(_setr_up(params['decode_head_m'],
-                           bs.get('decode_head_m', {}), 'decode_head.'))
+        sd.update(_head(params['decode_head_m'],
+                        bs.get('decode_head_m', {}), 'decode_head.'))
     if 'aux_heads' in params:     # the vmapped stack of identical aux heads
         stacked_p = params['aux_heads']['head']
         stacked_b = bs.get('aux_heads', {}).get('head', {})
@@ -146,11 +248,11 @@ def state_dict_from_jax_variables(variables: Mapping) -> StateDict:
     if ema:
         ebs = variables.get('ema_batch_stats', {})
         if 'backbone_m' in ema:
-            sd.update(_vit(ema['backbone_m'], 'backbone_ema.'))
+            sd.update(_backbone(ema['backbone_m'], 'backbone_ema.'))
         if 'decode_head_m' in ema:
-            sd.update(_setr_up(ema['decode_head_m'],
-                               ebs.get('decode_head_m', {}),
-                               'decode_head_ema.'))
+            sd.update(_head(ema['decode_head_m'],
+                            ebs.get('decode_head_m', {}),
+                            'decode_head_ema.'))
     return sd
 
 
@@ -218,6 +320,10 @@ def normalize_backbone_keys(sd: Mapping[str, torch.Tensor]) -> StateDict:
     return out
 
 
+# the key that marks an mmseg MiT backbone (JAX convert_backbone's test)
+MIT_MARKER = 'layers.0.0.projection.weight'
+
+
 def _is_bare_backbone(sd: Mapping[str, torch.Tensor]) -> bool:
     """A backbone-only file: no ``backbone.`` key, and ViT keys at the top
     (JAX ``convert_mmseg_checkpoint``, checkpoint.py:2482-2487)."""
@@ -234,7 +340,9 @@ def load_reference_state_dict(path: str,
     Unwraps ``state_dict``/``model``, strips a ``module.`` prefix and drops
     BN ``num_batches_tracked`` counters. A backbone-only file (bare keys,
     OpenMMLab or timm names) becomes ``backbone.*``; timm names under
-    ``backbone.``/``backbone_ema.`` are renamed too. The (EMA) backbone
+    ``backbone.``/``backbone_ema.`` are renamed too, unless the backbone is
+    a MiT (``MIT_MARKER``: its ``layers.{s}.1.{i}.norm1`` keys are not
+    timm's, JAX ``convert_mmseg_checkpoint`` l.2489). The (EMA) backbone
     pos-embed is resized to ``dst_grid``. Keys the model lacks (DeiT's
     ``head.*`` and ``dist_token``, the final norm) stay in the dict; the
     overlay drops them."""
@@ -252,8 +360,9 @@ def load_reference_state_dict(path: str,
     for prefix in ('backbone.', 'backbone_ema.'):
         part = {k[len(prefix):]: v for k, v in raw.items()
                 if k.startswith(prefix)}
-        sd.update({prefix + k: v
-                   for k, v in normalize_backbone_keys(part).items()})
+        if MIT_MARKER not in part:
+            part = normalize_backbone_keys(part)
+        sd.update({prefix + k: v for k, v in part.items()})
     sd.update({k: v for k, v in raw.items()
                if not k.startswith(('backbone.', 'backbone_ema.'))})
     if dst_grid is not None:

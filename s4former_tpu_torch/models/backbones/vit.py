@@ -246,9 +246,12 @@ class VisionTransformer(nn.Module):
                 attn_bias: Optional[torch.Tensor] = None,
                 pos_mode: str = 'default',
                 use_fdrop: bool = False,
-                return_attn: bool = False):
+                return_attn: bool = False,
+                generator: Optional[torch.Generator] = None):
         """``x``: [B, H, W, 3] float. ``attn_bias``: [B, 1|heads, L+1, L+1]
-        additive logit bias (PASA), or None; it gets no gradient."""
+        additive logit bias (PASA), or None; it gets no gradient.
+        ``generator`` is the train forward's randomness, unused here (no
+        dropout is ported for the ViT)."""
         live = [k for k, r in self.drop_rates.items() if r > 0 and train]
         if live or use_fdrop:
             raise NotImplementedError(

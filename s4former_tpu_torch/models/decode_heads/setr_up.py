@@ -34,7 +34,7 @@ def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d,
     channels-last strides, so no copy is made around the conv."""
     b = None if conv.bias is None else conv.bias.to(dtype)
     y = F.conv2d(x.permute(0, 3, 1, 2).to(dtype), conv.weight.to(dtype), b,
-                 stride=conv.stride, padding=conv.padding)
+                 stride=conv.stride, padding=conv.padding, groups=conv.groups)
     return y.permute(0, 2, 3, 1)
 
 
@@ -131,10 +131,12 @@ class SETRUPHead(nn.Module):
 
     def forward(self, inputs, *, train: bool = False,
                 patchmix_perm: Optional[torch.Tensor] = None,
-                patchmix_n: int = 0) -> torch.Tensor:
+                patchmix_n: int = 0,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         """``patchmix_perm`` [B, G*G] with ``patchmix_n`` > 0 undoes a
         PatchShuffle on the token grid before the LayerNorm
-        (setr_up.py:84-90)."""
+        (setr_up.py:84-90). ``generator`` is unused (no dropout)."""
         if train and self.dropout_ratio > 0:
             raise NotImplementedError('SETRUPHead dropout_ratio > 0 in train '
                                       'mode is not ported')

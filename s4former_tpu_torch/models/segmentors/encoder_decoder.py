@@ -9,7 +9,10 @@ dict instead). The aux heads are plain per-level modules under the
 reference's keys ``auxiliary_head.{i}.``; serving builds and loads them
 but runs them only in training. ``train`` selects the training forward
 (BN on batch statistics) per call, as the JAX methods' ``train`` argument
-does; it defaults to eval. Necks are not ported yet.
+does; it defaults to eval. ``generator`` carries a train forward's
+randomness (the MiT's drop path, the SegFormer head's dropout) to the
+backbone and the heads, as the JAX methods' ``rngs={'dropout': ...}``
+does. Necks are not ported yet.
 """
 from __future__ import annotations
 
@@ -61,23 +64,28 @@ class EncoderDecoder(nn.Module):
                      attn_bias: Optional[torch.Tensor] = None,
                      pos_mode: str = 'default',
                      use_fdrop: bool = False,
-                     return_attn: bool = False):
+                     return_attn: bool = False,
+                     generator: Optional[torch.Generator] = None):
         """Backbone features (tuple of NHWC maps) [, (attns, grid)]."""
         return self.backbone(img, train=train, attn_bias=attn_bias,
                              pos_mode=pos_mode, use_fdrop=use_fdrop,
-                             return_attn=return_attn)
+                             return_attn=return_attn, generator=generator)
 
     def decode_logits(self, feats, *, train: bool = False,
                       patchmix_perm: Optional[torch.Tensor] = None,
-                      patchmix_n: int = 0) -> torch.Tensor:
+                      patchmix_n: int = 0,
+                      generator: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
         """Main-head logits (reference ``forward_get_logits``)."""
         return self.decode_head(feats, train=train,
                                 patchmix_perm=patchmix_perm,
-                                patchmix_n=patchmix_n)
+                                patchmix_n=patchmix_n, generator=generator)
 
-    def aux_logits(self, feats, *, train: bool = False
+    def aux_logits(self, feats, *, train: bool = False,
+                   generator: Optional[torch.Generator] = None
                    ) -> List[torch.Tensor]:
-        return [head(feats, train=train) for head in self.auxiliary_head]
+        return [head(feats, train=train, generator=generator)
+                for head in self.auxiliary_head]
 
     def encode_decode(self, img: torch.Tensor) -> torch.Tensor:
         """Logits resized to the input resolution
@@ -93,12 +101,13 @@ class EncoderDecoder(nn.Module):
 
     def forward_train_heads(self, feats, *, train: bool = True,
                             patchmix_perm: Optional[torch.Tensor] = None,
-                            patchmix_n: int = 0):
+                            patchmix_n: int = 0,
+                            generator: Optional[torch.Generator] = None):
         """(main logits, [aux logits...]) for the training step."""
         main = self.decode_logits(feats, train=train,
                                   patchmix_perm=patchmix_perm,
-                                  patchmix_n=patchmix_n)
-        return main, self.aux_logits(feats, train=train)
+                                  patchmix_n=patchmix_n, generator=generator)
+        return main, self.aux_logits(feats, train=train, generator=generator)
 
     def forward_decode_from_img(self, img: torch.Tensor, *,
                                 train: bool = False,
@@ -106,35 +115,51 @@ class EncoderDecoder(nn.Module):
                                 pos_mode: str = 'default',
                                 use_fdrop: bool = False,
                                 patchmix_perm: Optional[torch.Tensor] = None,
-                                patchmix_n: int = 0) -> torch.Tensor:
+                                patchmix_n: int = 0,
+                                generator: Optional[torch.Generator] = None
+                                ) -> torch.Tensor:
         """Main-head logits at head resolution (the unlabeled branch and
         the teacher never use the aux heads, encoder_decoder.py:650-679)."""
         feats = self.extract_feat(img, train=train, attn_bias=attn_bias,
-                                  pos_mode=pos_mode, use_fdrop=use_fdrop)
+                                  pos_mode=pos_mode, use_fdrop=use_fdrop,
+                                  generator=generator)
         return self.decode_logits(feats, train=train,
                                   patchmix_perm=patchmix_perm,
-                                  patchmix_n=patchmix_n)
+                                  patchmix_n=patchmix_n, generator=generator)
 
     def forward_train_heads_from_img(
             self, img: torch.Tensor, *, train: bool = True,
             attn_bias: Optional[torch.Tensor] = None,
             pos_mode: str = 'default', use_fdrop: bool = False,
             patchmix_perm: Optional[torch.Tensor] = None,
-            patchmix_n: int = 0):
+            patchmix_n: int = 0,
+            generator: Optional[torch.Generator] = None):
         feats = self.extract_feat(img, train=train, attn_bias=attn_bias,
-                                  pos_mode=pos_mode, use_fdrop=use_fdrop)
+                                  pos_mode=pos_mode, use_fdrop=use_fdrop,
+                                  generator=generator)
         return self.forward_train_heads(feats, train=train,
                                         patchmix_perm=patchmix_perm,
-                                        patchmix_n=patchmix_n)
+                                        patchmix_n=patchmix_n,
+                                        generator=generator)
 
 
 def build_segmentor(cfg: Dict) -> EncoderDecoder:
     """Build a segmentor from a model config dict, dropping the keys that
     configure training, the semi algorithm or the EMA twin, so reference
-    configs load unchanged."""
+    configs load unchanged. A MiT backbone takes the segmentor's PASA flags
+    ``attn_mask_weight`` and ``adaptive_attn_mask`` as its own config
+    (JAX encoder_decoder.py:236-243; the reference passes them per
+    forward, mit.py:460)."""
     cfg = dict(cfg)
     for k in ('pretrained', 'train_cfg', 'test_cfg', 'init_cfg'):
         cfg.pop(k, None)
+    bb = cfg.get('backbone')
+    if isinstance(bb, dict) and bb.get('type') == 'MixVisionTransformer':
+        bb = dict(bb)
+        for k in ('attn_mask_weight', 'adaptive_attn_mask'):
+            if k in cfg and k not in bb:
+                bb[k] = cfg[k]
+        cfg['backbone'] = bb
     for k in list(cfg):
         if k.endswith('_ema') or k in SEMI_FLAG_KEYS:
             cfg.pop(k)

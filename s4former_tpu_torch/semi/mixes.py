@@ -7,7 +7,10 @@ ported: box CutMix (``random_box_mask``, ``cutmix_with_masks``,
 rest of the JAX family (CutOut, ClassMix, patchwise masks,
 ``mix_with_labeled``, ``cutmix_label_adaptive``) is not ported yet.
 
-Images are NHWC, labels [B, H, W] int (255 = ignore), at one resolution.
+Images are NHWC, labels [B, H, W] int (255 = ignore), at the images'
+resolution or at the head's (the SegFormer head's logits are at a quarter of
+it): CutMix then mixes the labels at image resolution and brings them back,
+nearest, as the JAX package does.
 Randomness comes from an explicit ``torch.Generator`` on the images' device,
 so the draws stay on the card; they are not ``jax.random``'s numbers.
 """
@@ -16,6 +19,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from s4former_tpu_torch.ops.resize import resize_nearest
 
 
 def random_box_mask(generator: Optional[torch.Generator], b: int,
@@ -45,14 +50,17 @@ def cutmix_with_masks(masks: torch.Tensor, imgs: torch.Tensor,
                       labels: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """CutMix with given [B, H, W] {0,1} masks: where a mask is 0, sample
-    i takes sample (i+1) % B's pixels and labels."""
-    if tuple(labels.shape[1:]) != tuple(imgs.shape[1:3]):
-        raise NotImplementedError('labels at another resolution than the '
-                                  'images (nearest resize) are not ported')
+    i takes sample (i+1) % B's pixels and labels. Labels at another
+    resolution are mixed at the images' (nearest up, then back down)."""
+    img_hw = tuple(imgs.shape[1:3])
+    label_hw = tuple(labels.shape[1:])
+    full = labels if label_hw == img_hw else resize_nearest(labels, img_hw)
     nxt = torch.roll(torch.arange(imgs.shape[0], device=imgs.device), -1)
     m4 = masks[..., None].to(imgs.dtype)
     new_imgs = imgs * m4 + imgs[nxt] * (1.0 - m4)
-    new_labels = torch.where(masks > 0.5, labels, labels[nxt])
+    new_labels = torch.where(masks > 0.5, full, full[nxt])
+    if label_hw != img_hw:
+        new_labels = resize_nearest(new_labels, label_hw)
     return new_imgs, new_labels.to(labels.dtype)
 
 

@@ -18,6 +18,15 @@ next step. ``batch`` holds NHWC device tensors under the JAX keys
 optionally ``dbg_cutmix_mask`` / ``dbg_patchmix_perm``, fixed randomness
 that replaces the sampled CutMix box and PatchShuffle (parity tests only).
 
+With a MiT backbone (JAX train_step.py:286-288, 376-390, 527-529) the PASA
+input is the raw unconfidence map ``1 - conf_mask`` lifted to image
+resolution (nearest), which the MiT pools per stage; its "no bias" is not
+a zero tensor, so a MiT never takes the fused 2B pass: it runs the
+sequential passes (sup, PASA on the unmixed strong images, the final pass
+on the mixed images with PatchShuffle undone). The step's generator goes
+to every student forward, where the MiT's drop path and the SegFormer
+head's dropout draw from it (the JAX step's ``rngs={'dropout': ...}``).
+
 The step makes no host round-trip: logs stay device tensors, and the mix
 gates are ``torch.where``s on the device. The student module, its SGD
 buffers and the EMA teacher (a second copy of the module) are updated in
@@ -30,7 +39,8 @@ strong mixes (``use_CutMix``, ``use_CutOut``, ``use_ClassMix``,
 ``mix_with_labeled``, ``use_cutmix_adaptive``), the supervised mixes
 (``sup_cutmix``, ``sup_ClassMix``), supervised NCR (modes 'sup_only' and
 'both'), ``sup_ema``, ``momentum_head_dropout`` and the layer-wise LR decay
-(``paramwise_cfg``); train-mode dropout and drop-path raise in the models.
+(``paramwise_cfg``); the ViT's and the SETR head's train-mode dropout and
+drop-path raise in the models.
 """
 from __future__ import annotations
 
@@ -47,7 +57,8 @@ from s4former_tpu_torch.core.optim import (build_lr_mult_tree,
                                            clip_grads_by_norm, poly_lr,
                                            sgd_init, sgd_update)
 from s4former_tpu_torch.models.losses.cross_entropy import accuracy
-from s4former_tpu_torch.ops.resize import resize_bilinear
+from s4former_tpu_torch.models.backbones.mit import MixVisionTransformer
+from s4former_tpu_torch.ops.resize import resize_bilinear, resize_nearest
 from s4former_tpu_torch.registry import LOSSES
 from s4former_tpu_torch.semi import mixes
 from s4former_tpu_torch.semi.config import SemiConfig
@@ -111,10 +122,11 @@ def _head_loss_fns(model: nn.Module) -> Tuple[Callable, List[Callable]]:
     return build(model.decode_head), [build(a) for a in model.auxiliary_head]
 
 
-def _sup_losses(model, main_loss, aux_losses, img, gt):
+def _sup_losses(model, main_loss, aux_losses, img, gt, generator):
     """Supervised branch: every head against the ground truth
     (encoder_decoder.py:426-441)."""
-    main, aux = model.forward_train_heads_from_img(img, train=True)
+    main, aux = model.forward_train_heads_from_img(img, train=True,
+                                                   generator=generator)
     gt_hw = tuple(gt.shape[1:3])
 
     def to_gt(logits):
@@ -193,7 +205,8 @@ def make_semi_train_step(model: nn.Module,
                          patch_size: int = 16,
                          paramwise_cfg: Optional[Dict] = None):
     """Returns ``train_step(state, batch, generator) -> (state, logs)``.
-    ``generator`` draws the mixes' randomness on the batch's device."""
+    ``generator`` draws the mixes' randomness on the batch's device, and
+    the student forwards' drop path and dropout where the model has them."""
     cfg = semi_cfg
     missing = unported_flags(cfg, paramwise_cfg)
     if missing:
@@ -203,6 +216,7 @@ def make_semi_train_step(model: nn.Module,
         custom_keys = {'head': 10.0}
     ncr_unsup = (cfg.negative_class_ranking and
                  cfg.negative_class_ranking_mode != 'sup_only')
+    mit = isinstance(model.backbone, MixVisionTransformer)
     anneal = cfg.momentum_head_exp != 0 or cfg.momentum_exp != 0
 
     def train_step(state: TrainState, batch: Dict[str, Tensor],
@@ -244,7 +258,14 @@ def make_semi_train_step(model: nn.Module,
                 exp = cfg.momentum_head_exp or cfg.momentum_exp
                 new_annealed = logs['mask_ratio'] ** exp
                 logs['momentum_head'] = new_annealed
-            if cfg.attn_mask_seperate_head or cfg.use_attn_mask_inline:
+            if (cfg.attn_mask_seperate_head or cfg.use_attn_mask_inline) \
+                    and mit:
+                # the MiT pools the raw unconfidence map per stage; lift it
+                # from head-output to image resolution
+                pasa_bias = resize_nearest(
+                    1.0 - teacher.conf_mask.float(),
+                    tuple(batch['unsup_teacher_img'].shape[1:3]))
+            elif cfg.attn_mask_seperate_head or cfg.use_attn_mask_inline:
                 # the conf mask lives at head-output resolution; pool it to
                 # the backbone's token grid
                 grid_h = batch['unsup_teacher_img'].shape[1] // patch_size
@@ -265,11 +286,13 @@ def make_semi_train_step(model: nn.Module,
                 teacher.hard_label, overrides)
 
         # ---- 3. differentiable student losses
-        losses = _sup_losses(model, main_loss, aux_losses, sup_img, sup_gt)
+        losses = _sup_losses(model, main_loss, aux_losses, sup_img, sup_gt,
+                             generator)
         if has_unsup:
             unsup: Dict[str, Tensor] = {}
             student_img = batch['unsup_student_img']
-            if cfg.fuse_unsup_passes and cfg.attn_mask_seperate_head:
+            if cfg.fuse_unsup_passes and cfg.attn_mask_seperate_head and \
+                    not mit:
                 # PASA pass (unmixed images + bias) and the final pass
                 # (mixed images, PatchShuffle undo) as ONE 2B forward; per
                 # sample the same maths, BN moments span the 2B batch
@@ -283,18 +306,19 @@ def make_semi_train_step(model: nn.Module,
                     perm2, n2 = torch.cat([identity, perm]), cfg.PatchMix_N
                 logits2 = model.forward_decode_from_img(
                     imgs2, train=True, attn_bias=bias2, pos_mode=cfg.pos_mode,
-                    patchmix_perm=perm2, patchmix_n=n2)
+                    patchmix_perm=perm2, patchmix_n=n2, generator=generator)
                 pasa_logits, stu_logits = logits2[:bu], logits2[bu:]
             else:
                 if cfg.attn_mask_seperate_head:
                     pasa_logits = model.forward_decode_from_img(
                         student_img, train=True, attn_bias=pasa_bias,
-                        pos_mode=cfg.pos_mode)
+                        pos_mode=cfg.pos_mode, generator=generator)
                 inline_bias = pasa_bias if cfg.use_attn_mask_inline else None
                 stu_logits = model.forward_decode_from_img(
                     mixed_imgs, train=True, attn_bias=inline_bias,
                     pos_mode=cfg.pos_mode, patchmix_perm=perm,
-                    patchmix_n=cfg.PatchMix_N if perm is not None else 0)
+                    patchmix_n=cfg.PatchMix_N if perm is not None else 0,
+                    generator=generator)
             if cfg.attn_mask_seperate_head:
                 unsup['loss_seg_unsup_attn_mask'] = 0.5 * pseudo_ce_loss(
                     pasa_logits, teacher.hard_label)

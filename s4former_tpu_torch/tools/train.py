@@ -186,11 +186,13 @@ def main(argv=None):
     if not args.no_validate and 'val' in cfg.data:
         try:
             val_ds = build_dataset(cfg.data['val'])
-            test_mode = (cfg.model.get('test_cfg') or {}).get('mode',
-                                                              'whole')
-            eval_fn = make_eval_fn(val_ds, mode=test_mode,
-                                   crop_size=tuple(cfg.get('crop_size',
-                                                           (512, 512))))
+            # slide geometry from test_cfg, as tools.test reads it
+            test_cfg = cfg.model.get('test_cfg') or {}
+            eval_fn = make_eval_fn(
+                val_ds, mode=test_cfg.get('mode', 'whole'),
+                crop_size=tuple(test_cfg.get(
+                    'crop_size', cfg.get('crop_size', (512, 512)))),
+                stride=tuple(test_cfg.get('stride', (341, 341))))
         except FileNotFoundError as e:
             logger.warning(f'val dataset unavailable ({e}); skipping eval')
 

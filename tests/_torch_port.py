@@ -252,3 +252,36 @@ def write_cli_config(directory, val_split: str) -> str:
                                    test_pipeline=repr(TEST_PIPELINE),
                                    val_split=val_split))
     return str(path)
+
+
+# The SegFormer tests' model (tests/test_torch_mit.py and the card tests):
+# the MIT_MODEL of tests/test_semi/test_mit_semi.py (MiT embed 8, 4 stages
+# of one block, heads 1/2/4/8, sr 8/4/2/1, mlp ratio 2; SegFormer head of
+# 16 channels, 5 classes) with the PASA flags on the segmentor, adaptive;
+# head dropout 0, so two packages (or devices) compute the same.
+MIT_MODEL = dict(
+    type='EncoderDecoder',
+    backbone=dict(
+        type='MixVisionTransformer', embed_dims=8, num_stages=4,
+        num_layers=[1, 1, 1, 1], num_heads=[1, 2, 4, 8],
+        patch_sizes=[7, 3, 3, 3], sr_ratios=[8, 4, 2, 1],
+        out_indices=(0, 1, 2, 3), mlp_ratio=2),
+    decode_head=dict(
+        type='SegformerHead', in_channels=[8, 16, 40, 64],
+        in_index=[0, 1, 2, 3], channels=16, num_classes=5,
+        dropout_ratio=0.0,
+        loss_decode=dict(type='CrossEntropyLoss', loss_weight=1.0)),
+    attn_mask_seperate_head=True, attn_mask_weight=5,
+    adaptive_attn_mask=True)
+
+
+def mit_model_cfg(adaptive: bool = True, drop_path_rate: float = 0.0,
+                  **head):
+    """A copy of MIT_MODEL with the adaptive flag, the drop-path rate and
+    head keys set."""
+    import copy
+    cfg = copy.deepcopy(MIT_MODEL)
+    cfg['adaptive_attn_mask'] = adaptive
+    cfg['backbone']['drop_path_rate'] = drop_path_rate
+    cfg['decode_head'].update(head)
+    return cfg

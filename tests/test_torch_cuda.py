@@ -255,3 +255,104 @@ def test_prefetcher_batches_arrive_whole(cuda):
             want = torch.from_numpy(v)
             assert torch.equal(early[i][k].cpu(), want), (i, k, 'first read')
             assert torch.equal(late[i][k].cpu(), want), (i, k, 'second read')
+
+
+# ------------------------------------------------------- the SegFormer MiT
+def _mit_pair(cuda, **cfg_kw):
+    """The tiny MiT of tests/_torch_port.py with one set of seeded weights
+    on the CPU and on the card, f32 without TF32."""
+    from s4former_tpu_torch.models import (build_segmentor,
+                                           init_segmentor_weights)
+    from tests._torch_port import mit_model_cfg
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = build_segmentor(mit_model_cfg(**cfg_kw))
+    init_segmentor_weights(cpu, torch.Generator().manual_seed(0))
+    gpu = build_segmentor(mit_model_cfg(**cfg_kw))
+    gpu.load_state_dict(cpu.state_dict())
+    return cpu, gpu.to(cuda)
+
+
+def _no_flash_launches():
+    return (fa.launch_count, fa.fused_launch_count, fa.dkv_launch_count,
+            fa.dq_launch_count)
+
+
+def test_mit_forward_matches_cpu(cuda):
+    """The MiT + SegFormer head on the card against the CPU, with and
+    without a PASA map, f32: logits within 1e-4; no flash kernel runs."""
+    cpu, gpu = _mit_pair(cuda)
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(2, 128, 128, 3).astype(np.float32))
+    unconf = torch.from_numpy((rs.rand(2, 128, 128) > 0.4).astype(
+        np.float32))
+    before = _no_flash_launches()
+    for bias in (None, unconf):
+        with torch.no_grad():
+            want = cpu.forward_decode_from_img(x, attn_bias=bias)
+            got = gpu.forward_decode_from_img(
+                x.to(cuda), attn_bias=None if bias is None else
+                bias.to(cuda))
+        assert got.shape == want.shape == (2, 32, 32, 5)
+        assert (got.cpu() - want).abs().max().item() <= 1e-4
+    assert _no_flash_launches() == before
+
+
+def test_mit_step_matches_cpu(cuda):
+    """One step of the _MT_w_ours flags (EMA, adaptive PASA, PatchShuffle
+    + CutMix injected, NCR, drop rates 0) on the card and on the CPU from
+    the same weights: losses within 1e-4 relative, the updated parameters
+    within 1e-4 abs."""
+    from s4former_tpu_torch.semi.config import SemiConfig
+    from s4former_tpu_torch.semi.train_step import (create_train_state,
+                                                    make_semi_train_step)
+    flags = SemiConfig(
+        ema=True, ema_momentum=0.99, unsup_weight=1.0, unsup_confidence=0.3,
+        attn_mask_seperate_head=True, attn_mask_weight=5.0,
+        adaptive_attn_mask=True, use_PatchShuffle_w_Cutmix=True,
+        PatchMix_N=2, negative_class_ranking=True,
+        negative_class_ranking_mode='unsup_only')
+    rs = np.random.RandomState(1)
+    masks = np.ones((2, 64, 64), np.float32)
+    masks[0, 8:40, 16:48] = 0
+    batch = {'sup_img': rs.randn(2, 64, 64, 3).astype(np.float32),
+             'sup_gt': rs.randint(0, 5, (2, 64, 64)).astype(np.int32),
+             'unsup_teacher_img': rs.randn(2, 64, 64, 3).astype(np.float32),
+             'unsup_student_img': rs.randn(2, 64, 64, 3).astype(np.float32),
+             'dbg_cutmix_mask': masks,
+             'dbg_patchmix_perm': np.array([[2, 0, 3, 1], [1, 0, 3, 2]],
+                                           np.int32)}
+    out = {}
+    for model, device in zip(_mit_pair(cuda), ('cpu', cuda)):
+        state = create_train_state(model, ema=True)
+        step = make_semi_train_step(model, flags, num_classes=5,
+                                    base_lr=0.01, max_iters=100)
+        state, logs = step(state, {k: torch.from_numpy(v).to(device)
+                                   for k, v in batch.items()},
+                           torch.Generator(device=device).manual_seed(0))
+        out[str(device)] = ({k: float(v) for k, v in logs.items()},
+                            {k: v.detach().cpu() for k, v in
+                             state.model.state_dict().items()})
+    (lc, sc), (lg, sg) = out['cpu'], out[str(cuda)]
+    assert 0 < lc['mask_ratio'] < 1 and lc['unsup.loss_ncr_unsup'] > 0
+    for k, v in lc.items():
+        assert abs(lg[k] - v) <= 1e-4 * max(abs(v), 1e-3), k
+    for k, v in sc.items():
+        assert (sg[k].float() - v.float()).abs().max().item() <= 1e-4, k
+
+
+def test_mit_drop_path_and_dropout_rerun_on_card(cuda):
+    """Drop path 0.5 and head dropout 0.5 drawn on the card from a CUDA
+    generator: the same seed gives the same train forward, another seed
+    another; eval ignores both."""
+    _, gpu = _mit_pair(cuda, drop_path_rate=0.5, dropout_ratio=0.5)
+    x = torch.randn((4, 64, 64, 3), generator=torch.Generator(
+        device=cuda).manual_seed(3), device=cuda)
+    with torch.no_grad():
+        outs = [gpu.forward_decode_from_img(
+            x, train=True, generator=torch.Generator(device=cuda).manual_seed(
+                s)) for s in (0, 0, 1)]
+        assert torch.equal(outs[0], outs[1])
+        assert not torch.equal(outs[0], outs[2])
+        assert torch.equal(gpu.forward_decode_from_img(x),
+                           gpu.forward_decode_from_img(x))
