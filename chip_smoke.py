@@ -50,7 +50,16 @@ on the card, then drives the port's paths through its entry points:
   drop path and dropout live (the first, 3 timed, 1 profiled by operator
   class); ``tools.train`` on a seeded Cityscapes tree (6 steps, slide eval
   and checkpoints at 3 and 6), ``--auto-resume`` to 8, and ``tools.test``
-  (``--eval mIoU`` against the in-loop mIoU, ``--format-only``).
+  (``--eval mIoU`` against the in-loop mIoU, ``--format-only``);
+- the ablation flags of the step (``ablation_*``): one f32 step of
+  ``..._MT_w_ours.py`` at 4 layers with every flag group whose draws can be
+  handed to both devices, against the CPU; three bf16 flag sets at full
+  width, 4 + 4 at 512² (strong mixes; adaptive CutMix, PatchShuffle +
+  ClassMix and the supervised mixes; dropout, drop path, head dropout,
+  fdrop, EMA head dropout, supervised NCR, ``sup_ema``, layer decay and a
+  sigmoid aux CE), each step's launches checked against the passes its
+  flags imply; MiT-B4 with fdrop at 4 + 4, 768²; ``tools.train`` with the
+  regularisers by ``--cfg-options``, 6 steps, resumed to 8.
 
 Every phase prints one JSON line; any failed check raises and the script
 exits nonzero without its last line. Each path runs with the kernels'
@@ -1487,9 +1496,10 @@ def phase_mit_serve_bf16(fa, images, gpu_line):
     return path_counts
 
 
-def trainer_from_config(cfg, device, **semi_over):
+def trainer_from_config(cfg, device, paramwise_cfg=None, **semi_over):
     """(state, train_step) of a config through the port's entry points,
-    with seeded random weights."""
+    with seeded random weights; ``paramwise_cfg`` turns on the layer-wise
+    LR decay."""
     import dataclasses
     from s4former_tpu_torch.apis import init_segmentor
     from s4former_tpu_torch.semi.config import SemiConfig
@@ -1500,6 +1510,7 @@ def trainer_from_config(cfg, device, **semi_over):
     model = init_segmentor(cfg, seed=0, device=device).model
     state = create_train_state(model, ema=semi.ema)
     step = make_semi_train_step(model, semi, model.num_classes,
+                                paramwise_cfg=paramwise_cfg,
                                 **step_kwargs(cfg))
     return state, step
 
@@ -1786,6 +1797,380 @@ def phase_mit_train_cli(fa, gpu_line, root, n_sup, n_unsup):
     return total
 
 
+# ---------------------------------------------------- the ablation flags
+# the flag sets of ``ablation_train_bf16``, over ``..._MT_w_ours.py``: every
+# flag ported for the ablations is live at full width in one of them. The
+# flagship's PatchShuffle + CutMix is off in (a) and (b), which shuffle
+# otherwise (a second shuffle would leave the first one's undone).
+ABLATION_SETS = {
+    'a_strong_mixes': dict(
+        use_PatchShuffle_w_Cutmix=False, use_CutMix=True, patchwise=True,
+        use_CutOut=True, use_ClassMix=True, mix_with_labeled=True,
+        use_PatchShuffle=True, sup_cutmix=True),
+    'b_adaptive_ps_classmix': dict(
+        use_PatchShuffle_w_Cutmix=False, use_cutmix_adaptive=True,
+        use_PatchShuffle_w_Classmix=True, sup_ClassMix=True),
+    'c_regularisers': dict(
+        use_fdrop=True, attn_mask_w_fdrop=True, momentum_head_dropout=0.1,
+        negative_class_ranking_mode='both', sup_ema=True),
+}
+# set (c)'s model and optimizer: ViT dropout, drop path and attention
+# dropout, SETR head dropout, sigmoid CE on the aux heads, layer decay
+ABLATION_RATES = dict(drop_rate=0.1, drop_path_rate=0.1, attn_drop_rate=0.1)
+ABLATION_DROPOUT_RATIO = 0.1
+ABLATION_LAYER_DECAY = dict(num_layers=12, decay_rate=0.65)
+# ablation_f32_vs_cpu: every group of the ablation tests whose draws
+# chip_smoke can hand both devices (fdrop's masks are drawn in the model;
+# 'sup_only' and sup_ClassMix exclude 'both' and sup_cutmix)
+ABLATION_F32 = dict(
+    use_CutMix=True, patchwise=True, use_CutOut=True, use_ClassMix=True,
+    mix_with_labeled=True, use_PatchShuffle=True,
+    use_PatchShuffle_w_Classmix=True, use_cutmix_adaptive=True,
+    sup_cutmix=True, momentum_head_dropout=0.5,
+    negative_class_ranking_mode='both', sup_ema=True)
+
+
+def ablation_config(name, dtype=None, num_layers=None, regularisers=False):
+    """``..._MT_w_ours.py``; with ``regularisers`` set (c)'s rates, head
+    dropout and sigmoid aux CE."""
+    cfg = load_config(dtype, name, num_layers)
+    if regularisers:
+        cfg.model.backbone.update(ABLATION_RATES)
+        cfg.model.decode_head.dropout_ratio = ABLATION_DROPOUT_RATIO
+        for head in cfg.model.auxiliary_head:
+            head.dropout_ratio = ABLATION_DROPOUT_RATIO
+            head.loss_decode.use_sigmoid = True
+    return cfg
+
+
+def predicted_launches(semi, num_layers):
+    """The flash kernels' launches a step at L = 1025 from the flags: every
+    ViT forward launches the forward kernel once a layer and every student
+    pass the fused backward once a layer. Teacher; the EMA on the labeled
+    images (supervised NCR or sup_ema); the supervised pass; the supervised
+    NCR pass; the unsup passes, one fused 2B pass or PASA, fdrop and the
+    final pass."""
+    ncr_sup = semi.negative_class_ranking and \
+        semi.negative_class_ranking_mode in ('sup_only', 'both')
+    fused = (semi.fuse_unsup_passes and semi.attn_mask_seperate_head and
+             not semi.use_fdrop and not semi.attn_mask_w_fdrop)
+    unsup = 1 if fused else (int(semi.attn_mask_seperate_head) +
+                             int(semi.use_fdrop) + 1)
+    student = 1 + int(ncr_sup) + unsup
+    fwd = 1 + int(ncr_sup or semi.sup_ema) + student
+    return {'flash_attn_fwd': fwd * num_layers,
+            'flash_attn_bwd_fused': student * num_layers,
+            'flash_attn_bwd_dkv': 0, 'flash_attn_bwd_dq': 0}
+
+
+def ablation_draws(semi, n, size, num_classes, n_head_params, seed=0):
+    """Every draw of ``semi``'s mixes and EMA head skips, made once with a
+    CPU generator, as ``dbg_`` batch keys for both devices."""
+    import torch
+    from s4former_tpu_torch.semi import mixes
+    from s4former_tpu_torch.semi.ema import head_skip_draw
+    gen = torch.Generator().manual_seed(seed)
+    hw = (size, size)
+    ps = semi.patchsize * semi.PatchMix_N
+    dummy = torch.zeros((n, size, size, 1))
+
+    def perm():
+        return mixes.patch_shuffle(gen, dummy, semi.PatchMix_N,
+                                   semi.patchsize, semi.patchmix_ratio)[1]
+    out = {
+        'strong_cutmix_mask': mixes.mix_masks(gen, n, hw, semi.cutout_area,
+                                              semi.patchwise, ps),
+        'cutout_mask': mixes.mix_masks(gen, n, hw, semi.cutout_area,
+                                       semi.patchwise, ps),
+        'classmix_scores': mixes.class_scores(gen, n, num_classes, hw,
+                                              semi.patchwise, 128),
+        'shuffle_perm': perm(),
+        'cutmix_mask': mixes.random_box_mask(gen, n, hw, semi.cutout_area),
+        'patchmix_perm': perm(),
+        'ps_classmix_scores': mixes.class_scores(gen, n, num_classes, hw,
+                                                 semi.patchwise, ps),
+        'sup_cutmix_mask': mixes.random_box_mask(gen, n, hw, 2.0),
+        'sup_classmix_scores': mixes.class_scores(gen, n, num_classes, hw),
+        'ema_head_skip': head_skip_draw(gen, n_head_params,
+                                        semi.momentum_head_dropout, 'cpu')}
+    out.update({'adaptive_' + k: v for k, v in
+                mixes.adaptive_draws(gen, n, hw).items()})
+    return {'dbg_' + k: v.numpy() for k, v in out.items()}
+
+
+def phase_ablation_f32_vs_cpu(fa, images):
+    """One S4Former step of ``..._MT_w_ours.py`` with ABLATION_F32's flags
+    and set (c)'s layer decay and sigmoid aux CE, in f32 at full width,
+    depth cut to 4 layers, 2 + 2 images at 512², dropout rates 0: on the
+    card and on the CPU from the same weights and the same draws (every
+    mix, gate and EMA head skip from ``ablation_draws``). Tolerances of
+    train_f32_vs_cpu. Returns the card's launch counts."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from s4former_tpu_torch.semi.config import SemiConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = ablation_config('ours', 'float32', 4, regularisers=True)
+    for head in [cfg.model.decode_head] + list(cfg.model.auxiliary_head):
+        head.dropout_ratio = 0.0
+    cfg.model.backbone.update({k: 0.0 for k in ABLATION_RATES})
+    semi = dataclasses.replace(SemiConfig.from_model_cfg(cfg.model),
+                               unsup_confidence=UNSUP_CONFIDENCE_F32,
+                               **ABLATION_F32)
+    batch = train_batch(images, 2, 2)
+    layer_decay = dict(ABLATION_LAYER_DECAY, num_layers=4)
+    runs = {}
+    for device in ('cuda', 'cpu'):
+        state, step = trainer_from_config(
+            cfg, device, layer_decay, unsup_confidence=UNSUP_CONFIDENCE_F32,
+            **ABLATION_F32)
+        if device == 'cuda':
+            n_head = len(list(state.model.decode_head.parameters()))
+            batch.update(ablation_draws(semi, 2, 512, state.model.num_classes,
+                                        n_head))
+        before = {n: p.detach().cpu().clone()
+                  for n, p in state.model.named_parameters()}
+        dev_batch = to_device(batch, device)
+        reset_counts(fa)
+        t0 = time.perf_counter()
+        state, logs = step(state, dev_batch,
+                           torch.Generator(device=device).manual_seed(0))
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        delta = {n: p.detach().cpu() - before[n]
+                 for n, p in state.model.named_parameters()}
+        runs[device] = (floats(logs), delta, seconds, counts(fa))
+        del state, step, dev_batch
+        torch.cuda.empty_cache()
+    (lg, dg, sg, cg), (lc, dc, sc, cc) = runs['cuda'], runs['cpu']
+    expect = predicted_launches(semi, 4)
+    loss_err = {k: abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-6) for k in lc}
+    scale = max(d.abs().max().item() for d in dc.values())
+    upd_err = max((dg[n] - dc[n]).abs().max().item() for n in dc)
+    emit({'phase': 'ablation_f32_vs_cpu', 'config': 'ours',
+          'flags': {k: v for k, v in ABLATION_F32.items()},
+          'layer_decay': layer_decay, 'sigmoid_aux_ce': True,
+          'cut': 'num_layers 12 -> 4, out_indices (0, 1, 2, 3); dropout, '
+                 'drop path and head dropout 0',
+          'batch': f'2 sup + 2 unsup at 512², unsup_confidence '
+                   f'{UNSUP_CONFIDENCE_F32}',
+          'losses_card': lg, 'losses_cpu': lc, 'loss_rel_err': loss_err,
+          'update_max_abs_err': upd_err, 'update_max_abs_cpu': scale,
+          'tol': TOL_TRAIN_F32, 'card_step_s': sg, 'cpu_step_s': sc,
+          'launches': cg, 'launches_predicted': expect})
+    check(cg == expect, f'f32 ablation step launches {cg}, not {expect}')
+    check(not any(cc.values()), 'the CPU step reached a kernel')
+    check(sorted(lg) == sorted(lc), 'log keys differ')
+    check(lc['mask_ratio'] > 0 and lc['unsup.loss_seg_unsup'] > 0 and
+          lc['loss_ncr_sup'] > 0 and lc['loss_decode_sup_ema'] > 0,
+          'the ablation losses are not live')
+    check(all(np.isfinite(v) for v in lg.values()), 'non-finite losses')
+    check(max(loss_err.values()) <= TOL_TRAIN_F32,
+          f'f32 ablation losses, card vs CPU: {loss_err}')
+    check(upd_err <= TOL_TRAIN_F32 * scale,
+          f'f32 ablation updates differ by {upd_err} (max {scale})')
+    return cg
+
+
+def phase_ablation_train_bf16(fa, images, gpu_line):
+    """``..._MT_w_ours.py`` in bf16 at full depth, 4 + 4 fixture images at
+    512² from one batch, once for each of ABLATION_SETS ((c) with its
+    rates, head dropout, sigmoid aux CE and layer decay): the first step, 3
+    timed (mean, p50), 1 profiled; the flash launches of every step checked
+    against the flags' predicted passes; peak memory; finite losses.
+    Returns the launch counts of the three sets summed."""
+    import numpy as np
+    import torch
+    from s4former_tpu_torch.semi.config import SemiConfig
+    total = None
+    batch = to_device(train_batch(images, 4, 4), 'cuda')
+    for name, flags in ABLATION_SETS.items():
+        regularisers = name.startswith('c_')
+        cfg = ablation_config('ours', None, None, regularisers)
+        check(cfg.model.backbone.dtype == 'bfloat16', 'flagship dtype')
+        state, step = trainer_from_config(
+            cfg, 'cuda', ABLATION_LAYER_DECAY if regularisers else None,
+            **flags)
+        semi = SemiConfig.from_model_cfg(dict(cfg.model, **flags))
+        expect = predicted_launches(semi, 12)
+        gen = torch.Generator(device='cuda').manual_seed(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fa)                           # the main path starts
+        state, logs, ms = timed_steps(state, step, batch, gen, 4)
+        (state, logs), prof = device_profile(
+            lambda: step(state, batch, gen), 12)
+        path_counts = counts(fa)                   # the main path ends
+        peak = torch.cuda.max_memory_allocated()
+        lg = floats(logs)
+        timed = np.asarray(ms[1:])
+        emit({'phase': 'ablation_train_bf16', 'set': name, 'flags': flags,
+              'regularisers': dict(ABLATION_RATES,
+                                   dropout_ratio=ABLATION_DROPOUT_RATIO,
+                                   sigmoid_aux_ce=True,
+                                   layer_decay=ABLATION_LAYER_DECAY)
+              if regularisers else None,
+              'batch': '4 + 4 at 512², bf16, 12 layers',
+              'first_step_ms': ms[0], 'step_ms': ms[1:],
+              'step_ms_mean': float(timed.mean()),
+              'step_ms_p50': float(np.median(timed)),
+              'img_per_s': 8 / (timed.mean() / 1e3),
+              'peak_mem_bytes': peak, 'mask_ratio': lg['mask_ratio'],
+              'logs': lg, 'profile': prof, 'launches': path_counts,
+              'launches_per_step_predicted': expect, 'gpu': gpu_line})
+        check(all(np.isfinite(v) for v in lg.values()),
+              f'{name}: non-finite logs {lg}')
+        check(path_counts == {k: 5 * v for k, v in expect.items()},
+              f'{name}: 5 steps launched {path_counts}, not {expect} a step')
+        total = path_counts if total is None else add_counts(total,
+                                                             path_counts)
+        del state, step
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_ablation_mit_fdrop(fa, gpu_line, n_sup, n_unsup):
+    """MiT-B4 ``..._MT_w_ours.py`` in bf16 with ``use_fdrop`` and
+    ``attn_mask_w_fdrop``, drop path and head dropout live, ``n_sup`` +
+    ``n_unsup`` seeded scenes at 768²: 2 steps, timed; fdrop's loss live,
+    finite losses, peak memory, and no flash launch."""
+    import numpy as np
+    import torch
+    cfg = load_mit_config('ours', 'bfloat16')
+    state, step = trainer_from_config(cfg, 'cuda', use_fdrop=True,
+                                      attn_mask_w_fdrop=True)
+    batch = to_device(mit_train_batch(np.random.RandomState(6), n_sup,
+                                      n_unsup), 'cuda')
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa)                               # the main path starts
+    state, logs, ms = timed_steps(state, step, batch, gen, 2)
+    path_counts = counts(fa)                       # the main path ends
+    lg = floats(logs)
+    emit({'phase': 'ablation_mit_fdrop', 'config': 'ours',
+          'batch': f'{n_sup} + {n_unsup} at {MIT_CROP}², bf16, depth '
+                   f'[3, 8, 27, 3], fdrop + PASA fdrop, drop path 0.1 and '
+                   f'dropout 0.1 live',
+          'step_ms': ms, 'peak_mem_bytes': torch.cuda.max_memory_allocated(),
+          'mask_ratio': lg['mask_ratio'], 'logs': lg,
+          'launches': path_counts, 'gpu': gpu_line})
+    check(all(np.isfinite(v) for v in lg.values()), f'non-finite logs {lg}')
+    check('unsup.loss_seg_unsup_fdrop' in lg, 'no fdrop loss')
+    check(all_zero(path_counts), f'the MiT launched a kernel: {path_counts}')
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return path_counts
+
+
+def phase_ablation_train_cli(fa, gpu_line, root):
+    """``tools.train`` on ``setr_fixture_voc_mini_fullflag.py`` (bf16,
+    DeiT-B, 4 + 4 a step) with set (c) through ``--cfg-options``: ViT
+    dropout, drop path and attention dropout, SETR head dropout, fdrop
+    with the PASA pass, EMA head dropout, NCR 'both', sup_ema, layer decay
+    through ``optimizer.paramwise_cfg`` and the main head's CE as sigmoid
+    (the config takes no list keys, so the aux heads' cannot be set). 6
+    steps, eval and checkpoint at 6, then ``--auto-resume`` to 8; each run's
+    launches checked against the flags' passes and the eval's. Returns
+    the runs' counts summed."""
+    import numpy as np
+    import torch
+    from s4former_tpu_torch.semi.config import SemiConfig
+    from s4former_tpu_torch.tools import train as train_cli
+    sets = ABLATION_SETS['c_regularisers']
+    opts = ['--cfg-options', 'evaluation.interval=6',
+            'checkpoint_config.interval=6', 'log_config.interval=3',
+            'model.decode_head.dropout_ratio=0.1',
+            'model.decode_head.loss_decode.use_sigmoid=True',
+            'optimizer.paramwise_cfg.num_layers=12',
+            'optimizer.paramwise_cfg.decay_rate=0.65'] + \
+        [f'model.backbone.{k}={v}' for k, v in ABLATION_RATES.items()] + \
+        [f'model.{k}={v}' for k, v in sets.items()]
+    from s4former_tpu_torch.config import Config
+    semi = SemiConfig.from_model_cfg(dict(Config.fromfile(FULLFLAG).model,
+                                          **sets))
+    per_step = predicted_launches(semi, 12)
+    per_eval = 12 * 4                              # 16 val images, 4 a flush
+    wd = os.path.join(root, 'ablation_work')
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa)                               # the main path starts
+    t0 = time.perf_counter()
+    state = train_cli.main([FULLFLAG, '--work-dir', wd, '--max-iters', '6']
+                           + opts)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_counts = counts(fa)                      # the main path ends
+    peak = torch.cuda.max_memory_allocated()
+    check(int(state.step) == 6, f'trained to step {int(state.step)}')
+    check(state.model.backbone.drop_path_rate == 0.1 and
+          state.model.decode_head.dropout_ratio == 0.1,
+          'the --cfg-options did not reach the model')
+    del state
+    torch.cuda.empty_cache()
+    records = read_jsonl(os.path.join(wd, 'metrics.jsonl'))
+    train = [r for r in records if r['prefix'] == 'train']
+    val = {r['step']: r for r in records if r['prefix'] == 'val'}
+    check([r['step'] for r in train] == [3, 6] and sorted(val) == [6],
+          f'logged steps {records}')
+    check(all(np.isfinite(r['loss']) for r in train), f'losses {train}')
+    check({'loss_ncr_sup', 'loss_decode_sup_ema',
+           'unsup.loss_seg_unsup_fdrop'} <= set(train[-1]),
+          f'the ablation losses are not logged: {sorted(train[-1])}')
+    want = {k: 6 * v for k, v in per_step.items()}
+    want['flash_attn_fwd'] += per_eval
+    check(train_counts == want, f'6 steps + 1 eval launched '
+          f'{train_counts}, not {want}')
+
+    reset_counts(fa)
+    state = train_cli.main([FULLFLAG, '--work-dir', wd, '--auto-resume',
+                            '--max-iters', '8'] + opts)
+    torch.cuda.synchronize()
+    resume_counts = counts(fa)
+    check(int(state.step) == 8, f'resumed run ended at {int(state.step)}')
+    del state
+    torch.cuda.empty_cache()
+    resumed = f'resumed from {os.path.join(wd, "iter_6")}'
+    check(resumed in read_logs(wd), f'no "{resumed}" in the log')
+    check(resume_counts == {k: 2 * v for k, v in per_step.items()},
+          f'2 resumed steps launched {resume_counts}')
+    emit({'phase': 'ablation_train_cli', 'config': os.path.basename(FULLFLAG),
+          'cfg_options': opts[1:], 'batch': '4 + 4 at 512², bf16, 12 layers',
+          'losses': {r['step']: r['loss'] for r in train},
+          'logs_iter_6': train[-1],
+          'step_ms_windows': [r['step_ms'] for r in train],
+          'data_wait_ms_windows': [r['data_wait_ms'] for r in train],
+          'miou_6': val[6]['mIoU'], 'eval_s': val[6]['eval_s'],
+          'train_run_s': train_s, 'peak_mem_bytes': peak,
+          'launches': {'train': train_counts, 'resume': resume_counts},
+          'launches_per_step_predicted': per_step, 'resumed': resumed,
+          'gpu': gpu_line})
+    shutil.rmtree(wd, ignore_errors=True)
+    return add_counts(train_counts, resume_counts)
+
+
+def run_ablation(fa, images, gpu_line, root):
+    """The ablation slice's phases; returns their launch counts by path
+    and prints their seconds."""
+    mit_cfg = load_mit_config('ours')
+    mit_batch = (mit_cfg.samples_per_gpu_sup, mit_cfg.samples_per_gpu_unsup)
+    paths, seconds = {}, {}
+    for name, run in (
+            ('ablation_f32', lambda: phase_ablation_f32_vs_cpu(fa, images)),
+            ('ablation_train_bf16',
+             lambda: phase_ablation_train_bf16(fa, images, gpu_line)),
+            ('ablation_mit_fdrop',
+             lambda: phase_ablation_mit_fdrop(fa, gpu_line, *mit_batch)),
+            ('ablation_train_cli',
+             lambda: phase_ablation_train_cli(fa, gpu_line, root))):
+        t0 = time.perf_counter()
+        paths[name] = run()
+        seconds[name] = time.perf_counter() - t0
+    emit({'phase': 'ablation_seconds', **seconds,
+          'total': sum(seconds.values())})
+    return paths
+
+
 def phase_build(libs, seconds):
     """Per kernel function of the built libraries: registers and spills
     (ptxas), tensor-core instructions and asynchronous copies (SASS). Every
@@ -1924,6 +2309,8 @@ def main() -> int:
             seconds[name] = time.perf_counter() - t0
         emit({'phase': 'mit_seconds', **seconds,
               'total': sum(seconds.values())})
+        # the ablation slice: the rest of the step's flags
+        paths.update(run_ablation(fa, images, gpu_line, root))
 
     for name in KERNELS:
         entries[name]['launches'] = sum(p[name] for p in paths.values())

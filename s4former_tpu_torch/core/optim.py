@@ -10,12 +10,17 @@ DefaultOptimizerConstructor ``custom_keys``).
   paths; ``'head'`` hits ``decode_head_m`` and ``aux_heads`` there and
   ``decode_head.`` and ``auxiliary_head.`` here, nothing of the backbone.
 - Parameters and momentum buffers are dicts of tensors by name; the update
-  runs in place with ``torch._foreach`` ops, one group per multiplier.
-The layer-wise LR decay constructor is not ported yet.
+  runs in place with ``torch._foreach`` ops, one group per (lr, weight
+  decay) multiplier pair.
+- Layer-wise LR decay (``build_layer_decay_trees``, the reference's
+  LearningRateDecayOptimizerConstructor as JAX core/optim.py:66-120 maps
+  it): lr multipliers by layer and the no-decay group's weight-decay
+  multiplier 0, from the reference parameter names.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional
+import re
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -38,6 +43,56 @@ def build_lr_mult_tree(names: Iterable[str],
             for n in names}
 
 
+def build_layer_decay_trees(names: Iterable[str], ndims: Dict[str, int],
+                            num_layers: int, decay_rate: float,
+                            decay_type: str = 'layer_wise', mit: bool = False
+                            ) -> Tuple[Dict[str, float], Dict[str, float]]:
+    """(lr multipliers, weight-decay multipliers) by parameter name
+    (reference layer_decay_optimizer_constructor.py:79-189):
+
+    - the embeddings get ``decay_rate ** (num_layers + 1)``: the ViT's
+      ``backbone.patch_embed``, ``pos_embed`` and ``cls_token``, a MiT's
+      patch embeddings ``backbone.layers.{s}.0.`` (JAX ``patch_embed_{s}``);
+    - ViT block i (``backbone.layers.{i}.``) gets
+      ``decay_rate ** (num_layers - i)`` when the backbone has exactly
+      ``num_layers`` blocks (JAX matches its stacked leaves' leading axis
+      to ``num_layers`` and gives 1 otherwise);
+    - everything else gets 1 (a MiT's blocks too: JAX finds no stack);
+    - the weight-decay multiplier is 0 for 1-D tensors, biases, pos_embed
+      and cls_token, else 1.
+
+    ``ndims``: each name's tensor rank."""
+    if decay_type != 'layer_wise':
+        raise NotImplementedError(
+            f'decay_type={decay_type!r}: stage_wise is ConvNeXt-only in '
+            f'the reference and no ConvNeXt backbone is ported')
+    names = list(names)
+    block = re.compile(r'backbone\.layers\.(\d+)\.')
+    blocks = {int(m.group(1)) for m in map(block.match, names) if m}
+    stacked = not mit and len(blocks) == num_layers
+    embed = decay_rate ** (num_layers + 1)
+    lr_mults, wd_mults = {}, {}
+    for name in names:
+        m = block.match(name)
+        if mit:
+            is_embed = m is not None and name.startswith(
+                f'backbone.layers.{m.group(1)}.0.')
+        else:
+            is_embed = name.startswith(('backbone.patch_embed.',
+                                        'backbone.pos_embed',
+                                        'backbone.cls_token'))
+        if is_embed:
+            lr_mults[name] = embed
+        elif m is not None and stacked:
+            lr_mults[name] = decay_rate ** (num_layers - int(m.group(1)))
+        else:
+            lr_mults[name] = 1.0
+        no_decay = (ndims[name] == 1 or name.endswith('bias') or
+                    'pos_embed' in name or 'cls_token' in name)
+        wd_mults[name] = 0.0 if no_decay else 1.0
+    return lr_mults, wd_mults
+
+
 def sgd_init(params: Tensors) -> Tensors:
     return {n: torch.zeros_like(p, dtype=torch.float32)
             for n, p in params.items()}
@@ -45,20 +100,22 @@ def sgd_init(params: Tensors) -> Tensors:
 
 def sgd_update(params: Tensors, grads: Tensors, momentum_buf: Tensors,
                lr: torch.Tensor, lr_mults: Dict[str, float],
-               momentum: float = 0.9, weight_decay: float = 0.0) -> None:
+               momentum: float = 0.9, weight_decay: float = 0.0,
+               wd_mults: Optional[Dict[str, float]] = None) -> None:
     """One torch-style SGD step, in place on ``params`` and
-    ``momentum_buf``."""
-    groups: Dict[float, list] = {}
+    ``momentum_buf``; ``wd_mults`` scales the weight decay by name."""
+    groups: Dict[Tuple[float, float], list] = {}
     for n, p in params.items():
-        groups.setdefault(lr_mults[n], []).append(n)
+        wdm = 1.0 if wd_mults is None else wd_mults[n]
+        groups.setdefault((lr_mults[n], wdm), []).append(n)
     with torch.no_grad():
-        for mult, names in groups.items():
+        for (mult, wdm), names in groups.items():
             ps = [params[n] for n in names]
             bufs = [momentum_buf[n] for n in names]
             gs = [grads[n].float() for n in names]
-            if weight_decay:
+            if weight_decay * wdm:
                 gs = torch._foreach_add(gs, [p.float() for p in ps],
-                                        alpha=weight_decay)
+                                        alpha=weight_decay * wdm)
             torch._foreach_mul_(bufs, momentum)
             torch._foreach_add_(bufs, gs)
             torch._foreach_sub_(ps, torch._foreach_mul(bufs, lr * mult))

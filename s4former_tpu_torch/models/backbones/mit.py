@@ -28,7 +28,9 @@ mmseg/models/backbones/mit.py).
   ``torch.Generator``, kept values scaled by 1/keep. ``drop_rate`` and
   ``attn_drop_rate`` are accepted and unused, as in the JAX module;
   ``with_cp`` (activation checkpointing) is accepted and unused too.
-  ``use_fdrop`` is not ported and raises.
+- fdrop (``use_fdrop``, JAX mit.py:218-224): each ``out_indices`` output,
+  not the map the next stage reads, gets one channelwise keep-0.5 mask
+  [B, 1, 1, C] (kept channels x2), in train and eval alike, as in JAX.
 """
 from __future__ import annotations
 
@@ -41,25 +43,12 @@ from torch import nn
 from s4former_tpu_torch.models.backbones.vit import (_MHAProjections,
                                                      layer_norm, linear)
 from s4former_tpu_torch.models.decode_heads.setr_up import conv_nhwc
+from s4former_tpu_torch.models.dropout import channel_dropout, drop_path
 from s4former_tpu_torch.ops.attention import dot_product_attention
 from s4former_tpu_torch.registry import BACKBONES
 from s4former_tpu_torch.semi.pasa import mit_stage_bias
 
 Grid = Tuple[int, int]
-
-
-def drop_path(y: torch.Tensor, rate: float,
-              generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Per-sample stochastic depth: each sample's ``y`` is kept with
-    probability 1 - rate (scaled by 1/keep) or zeroed."""
-    if generator is None:
-        raise ValueError('drop path in train mode draws from a '
-                         'torch.Generator; pass generator=')
-    keep = 1.0 - rate
-    mask = torch.rand((y.shape[0],) + (1,) * (y.dim() - 1),
-                      generator=generator, device=y.device) < keep
-    return torch.where(mask, y / keep, torch.zeros((), dtype=y.dtype,
-                                                   device=y.device))
 
 
 class EfficientAttention(nn.Module):
@@ -255,8 +244,6 @@ class MixVisionTransformer(nn.Module):
         position embedding). With ``return_attn`` the JAX module's
         ``(outs, ([], None))``: the MiT exposes no attention maps."""
         del pos_mode
-        if use_fdrop:
-            raise NotImplementedError('use_fdrop is not ported')
         outs = []
         for s, (embed, blocks, norm) in enumerate(self.layers):
             tokens, hw = embed(x)
@@ -268,7 +255,8 @@ class MixVisionTransformer(nn.Module):
             tokens = layer_norm(tokens, norm, torch.float32)
             x = tokens.reshape(tokens.shape[0], hw[0], hw[1], -1)
             if s in self.out_indices:
-                outs.append(x)
+                outs.append(channel_dropout(x, generator) if use_fdrop
+                            else x)
         if return_attn:
             return tuple(outs), ([], None)
         return tuple(outs)

@@ -14,14 +14,20 @@ mmseg/models/backbones/vit.py:187-569).
   config in ``configs/``.
 - The 12 layers are a Python loop over ``nn.Module``s (the JAX package
   scans stacked parameters); the ``out_indices`` taps read the loop.
-- ``train=True`` is the training forward. With the flagship's zero rates
-  it computes what eval mode computes; dropout, drop-path and fdrop are not
-  ported, so a nonzero ``drop_rate``, ``attn_drop_rate`` or
-  ``drop_path_rate`` raises in train mode (in eval mode they are
-  identities, as in the JAX package), and ``use_fdrop`` raises in either
-  mode. ``scan_unroll`` is a JAX
-  compile option the flagship config sets; it is accepted and means
-  nothing here.
+- ``train=True`` is the training forward, with the JAX module's dropout
+  (``models/dropout.py``, drawn from the caller's ``torch.Generator``):
+  ``drop_rate`` element-wise on the tokens after the position embedding,
+  on the attention projection's output and after each FFN linear;
+  ``drop_path_rate`` one per-sample mask per residual branch, the same
+  rate in every layer, as the JAX scan passes it (mmseg's ViT ramps it
+  linearly). ``attn_drop_rate`` is accepted and changes no output: the
+  JAX module drops the attention probabilities it returns, after the
+  output is computed (JAX vit.py:66-70). In eval mode every rate is an
+  identity. ``use_fdrop`` multiplies each ``out_indices`` map by a
+  channelwise keep-0.5 mask [B, 1, 1, C] (x2), in train and eval alike, as
+  JAX does. The flash kernels run unchanged: no dropout is inside them.
+  ``scan_unroll`` is a JAX compile option the flagship config sets; it is
+  accepted and means nothing here.
 """
 from __future__ import annotations
 
@@ -31,6 +37,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from s4former_tpu_torch.models.dropout import (channel_dropout, drop_path,
+                                              dropout)
 from s4former_tpu_torch.ops.attention import (dot_product_attention,
                                               multi_head_attention)
 from s4former_tpu_torch.ops.resize import resize_bilinear
@@ -83,13 +91,16 @@ class MultiheadSelfAttention(nn.Module):
         return [t.view(b, l, h, c // h) for t in qkv.split(c, dim=-1)]
 
     def forward(self, x: torch.Tensor,
-                attn_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                attn_bias: Optional[torch.Tensor] = None,
+                drop: Optional[Tuple[float, torch.Generator]] = None
+                ) -> torch.Tensor:
         b, l, c = x.shape
         q, k, v = self.qkv(x, self.dtype)
         out, _ = multi_head_attention(q, k, v, bias=attn_bias)
         proj = self.attn.out_proj
-        return linear(out.reshape(b, l, c), proj.weight, proj.bias,
-                      self.dtype)
+        out = linear(out.reshape(b, l, c), proj.weight, proj.bias,
+                     self.dtype)
+        return out if drop is None else dropout(out, *drop)
 
 
 class FFN(nn.Module):
@@ -104,10 +115,15 @@ class FFN(nn.Module):
             nn.ModuleList([nn.Linear(embed_dims, feedforward_channels)]),
             nn.Linear(feedforward_channels, embed_dims)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                drop: Optional[Tuple[float, torch.Generator]] = None
+                ) -> torch.Tensor:
         fc1, fc2 = self.layers[0][0], self.layers[1]
         y = F.gelu(linear(x, fc1.weight, fc1.bias, self.dtype))
-        return linear(y, fc2.weight, fc2.bias, self.dtype)
+        if drop is not None:
+            y = dropout(y, *drop)
+        y = linear(y, fc2.weight, fc2.bias, self.dtype)
+        return y if drop is None else dropout(y, *drop)
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -124,9 +140,22 @@ class TransformerEncoderLayer(nn.Module):
         self.ffn = FFN(embed_dims, feedforward_channels, dtype)
 
     def forward(self, x: torch.Tensor,
-                attn_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.attn(layer_norm(x, self.ln1, self.dtype), attn_bias)
-        return x + self.ffn(layer_norm(x, self.ln2, self.dtype))
+                attn_bias: Optional[torch.Tensor] = None,
+                drop_rate: float = 0.0, drop_path_rate: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The rates are the train forward's (0 in eval). Masks are drawn
+        in the JAX layer's order: projection dropout, the attention
+        branch's drop path, the two FFN dropouts, the FFN branch's drop
+        path."""
+        drop = (drop_rate, generator) if drop_rate > 0 else None
+
+        def branch(y):
+            if drop_path_rate > 0:
+                return drop_path(y, drop_path_rate, generator)
+            return y
+        x = x + branch(self.attn(layer_norm(x, self.ln1, self.dtype),
+                                 attn_bias, drop))
+        return x + branch(self.ffn(layer_norm(x, self.ln2, self.dtype), drop))
 
 
 class PatchEmbed(nn.Module):
@@ -227,9 +256,9 @@ class VisionTransformer(nn.Module):
         self.out_indices = tuple(out_indices)
         self.with_cls_token = with_cls_token
         self.dtype = dtype
-        self.drop_rates = dict(drop_rate=drop_rate,
-                               attn_drop_rate=attn_drop_rate,
-                               drop_path_rate=drop_path_rate)
+        self.drop_rate = drop_rate
+        self.attn_drop_rate = attn_drop_rate    # changes no output (above)
+        self.drop_path_rate = drop_path_rate
         self.patch_embed = PatchEmbed(in_channels, embed_dims, patch_size)
         if with_cls_token:
             self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dims))
@@ -250,13 +279,10 @@ class VisionTransformer(nn.Module):
                 generator: Optional[torch.Generator] = None):
         """``x``: [B, H, W, 3] float. ``attn_bias``: [B, 1|heads, L+1, L+1]
         additive logit bias (PASA), or None; it gets no gradient.
-        ``generator`` is the train forward's randomness, unused here (no
-        dropout is ported for the ViT)."""
-        live = [k for k, r in self.drop_rates.items() if r > 0 and train]
-        if live or use_fdrop:
-            raise NotImplementedError(
-                f'dropout is not ported: '
-                f'{live + (["use_fdrop"] if use_fdrop else [])}')
+        ``generator`` draws the train forward's dropout and drop path and
+        the fdrop masks."""
+        drop_rate = self.drop_rate if train else 0.0
+        drop_path_rate = self.drop_path_rate if train else 0.0
         # flash attention takes the bias in the compute dtype: cast once
         # here for every layer (the JAX wrapper casts it in each call)
         layer_bias = None if attn_bias is None else \
@@ -282,18 +308,22 @@ class VisionTransformer(nn.Module):
         if n_pos != pos.shape[1]:
             pos = _resize_pos_embed(pos, hw, self.with_cls_token)
         tokens = tokens + pos.to(tokens.dtype)
+        if drop_rate > 0:
+            tokens = dropout(tokens, drop_rate, generator)
 
         states = []
         h = tokens
         for layer in self.layers:
-            h = layer(h, layer_bias)
+            h = layer(h, layer_bias, drop_rate, drop_path_rate, generator)
             states.append(h)
 
         outs, attns = [], []
         for i in self.out_indices:
             feat_tokens = states[i][:, 1:] if self.with_cls_token \
                 else states[i]
-            outs.append(feat_tokens.reshape(b, hw[0], hw[1], self.embed_dims))
+            out = feat_tokens.reshape(b, hw[0], hw[1], self.embed_dims)
+            outs.append(channel_dropout(out, generator) if use_fdrop
+                        else out)
             if return_attn:
                 x_in = tokens if i == 0 else states[i - 1]
                 attns.append(self._attn_probs(i, x_in, attn_bias))

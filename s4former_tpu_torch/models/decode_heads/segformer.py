@@ -27,21 +27,9 @@ from torch import nn
 
 from s4former_tpu_torch.models.decode_heads.base import unshuffle_feature_map
 from s4former_tpu_torch.models.decode_heads.setr_up import ConvBNReLU
+from s4former_tpu_torch.models.dropout import dropout
 from s4former_tpu_torch.ops.resize import resize_bilinear
 from s4former_tpu_torch.registry import HEADS
-
-
-def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Element-wise dropout: each value kept with probability 1 - rate
-    (scaled by 1/keep) or zeroed."""
-    if generator is None:
-        raise ValueError('dropout in train mode draws from a '
-                         'torch.Generator; pass generator=')
-    keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
-                                                   device=x.device))
 
 
 def conv1x1(x: torch.Tensor, conv: nn.Conv2d,

@@ -10,8 +10,14 @@ the reference layout (``norm``, ``up_convs.{i}.0.conv``,
 BN (eps 1e-5, statistics in f32) runs with its running statistics in eval
 mode and with the batch's in train mode, where it updates the running
 statistics as flax does: ``running = 0.9 running + 0.1 batch`` with the
-BIASED batch variance (``F.batch_norm`` would use the unbiased one). The
-JAX head's ``dropout_ratio`` > 0 is not ported and raises in train mode.
+BIASED batch variance (``F.batch_norm`` would use the unbiased one).
+
+``dropout_ratio`` > 0: element-wise dropout (flax ``nn.Dropout``, from the
+caller's ``torch.Generator``) on the last feature map in train mode. The
+1x1 classifier commutes with the last bilinear upsample, so with no
+dropout it runs first and the upsample moves ``num_classes`` channels;
+with dropout, whatever the mode, the head takes JAX's order
+(setr_up.py:100-118): upsample the ``channels``-wide map, drop, classify.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from torch import nn
 from s4former_tpu_torch.models.backbones.vit import layer_norm
 from s4former_tpu_torch.models.decode_heads.base import (
     transform_inputs, unshuffle_feature_map)
+from s4former_tpu_torch.models.dropout import dropout
 from s4former_tpu_torch.ops.resize import resize_bilinear
 from s4former_tpu_torch.registry import HEADS
 
@@ -136,24 +143,22 @@ class SETRUPHead(nn.Module):
                 ) -> torch.Tensor:
         """``patchmix_perm`` [B, G*G] with ``patchmix_n`` > 0 undoes a
         PatchShuffle on the token grid before the LayerNorm
-        (setr_up.py:84-90). ``generator`` is unused (no dropout)."""
-        if train and self.dropout_ratio > 0:
-            raise NotImplementedError('SETRUPHead dropout_ratio > 0 in train '
-                                      'mode is not ported')
+        (setr_up.py:84-90). ``generator`` draws the train forward's
+        dropout."""
         x = transform_inputs(inputs, self.in_index, self.input_transform,
                              self.align_corners) \
             if isinstance(inputs, (list, tuple)) else inputs
         if patchmix_perm is not None and patchmix_n:
             x = unshuffle_feature_map(x, patchmix_perm, patchmix_n)
         x = layer_norm(x, self.norm, self.dtype)
-        # the 1x1 classifier commutes with the last bilinear upsample (its
-        # 2-tap rows sum to 1), so it runs first and the upsample moves
-        # num_classes channels instead of `channels` (setr_up.py:92-132)
+        defer_last_up = self.num_convs > 0 and self.dropout_ratio == 0
         for i, (block,) in enumerate(self.up_convs):
             x = block(x, train)
-            if i < self.num_convs - 1:
+            if not (defer_last_up and i == self.num_convs - 1):
                 x = self._upsample(x, self.up_scale)
+        if train and self.dropout_ratio > 0:
+            x = dropout(x, self.dropout_ratio, generator)
         logits = conv_nhwc(x, self.conv_seg, self.dtype)
-        if self.num_convs:
+        if defer_last_up:
             logits = self._upsample(logits, self.up_scale)
         return logits

@@ -7,7 +7,12 @@ mmseg/models/losses/cross_entropy_loss.py).
   ``avg_non_ignore=True`` divides by the number of non-ignored pixels.
 - Logits arrive in the compute dtype (bf16 in the flagship) and are upcast
   to f32 inside the loss.
-- The sigmoid (``use_sigmoid=True``) variant is not ported yet and raises.
+- ``use_sigmoid=True``: the per-class sigmoid BCE summed over classes
+  (``binary_cross_entropy_loss``), against a one-hot of class indices or a
+  target of the logits' shape, with the same two denominators; the JAX
+  package's sigmoid path takes no class weight.
+- ``reduction`` is accepted and changes nothing: the loss is always the
+  mean, as in the JAX package (which stores the value and ignores it).
 """
 from __future__ import annotations
 
@@ -54,6 +59,35 @@ def cross_entropy_loss(logits: torch.Tensor,
     return loss_weight * nll.sum() / denom
 
 
+def binary_cross_entropy_loss(logits: torch.Tensor,
+                              label: torch.Tensor,
+                              ignore_index: int = 255,
+                              loss_weight: float = 1.0,
+                              avg_non_ignore: bool = False) -> torch.Tensor:
+    """Sigmoid BCE of ``use_sigmoid=True`` heads (reference
+    cross_entropy_loss.py:92-152). logits [..., C]; label either class
+    indices [...] (one-hot here; an index outside 0..C-1 is an all-zero
+    row, as ``jax.nn.one_hot`` gives) or a target of the logits' shape."""
+    logits = logits.float()
+    if label.shape == logits.shape:
+        target = label.float()
+        valid = torch.ones(label.shape[:-1], device=logits.device)
+    else:
+        keep = label != ignore_index
+        safe = torch.where(keep, label, torch.zeros_like(label))
+        classes = torch.arange(logits.shape[-1], device=logits.device)
+        target = (safe[..., None] == classes).float()
+        valid = keep.float()
+    per = logits.clamp(min=0) - logits * target + \
+        torch.log1p(torch.exp(-logits.abs()))
+    per = per.sum(dim=-1) * valid
+    if avg_non_ignore:
+        denom = valid.sum().clamp(min=1.0)
+    else:
+        denom = float(per.numel())
+    return loss_weight * per.sum() / denom
+
+
 def accuracy(logits: torch.Tensor, label: torch.Tensor,
              ignore_index: int = 255) -> torch.Tensor:
     """Top-1 pixel accuracy in percent over non-ignored pixels
@@ -75,13 +109,10 @@ class CrossEntropyLoss:
                  avg_non_ignore: bool = False,
                  reduction: str = 'mean',
                  loss_name: str = 'loss_ce'):
-        if use_sigmoid or use_mask:
-            raise NotImplementedError('the port has the softmax CE only '
-                                      '(use_sigmoid / use_mask are not '
-                                      'ported)')
-        if reduction != 'mean':
-            raise NotImplementedError(f'reduction={reduction!r}: the port '
-                                      f'reduces by the mean only')
+        if use_mask:
+            raise NotImplementedError('mask CE is detection-only upstream')
+        self.use_sigmoid = use_sigmoid
+        self.reduction = reduction       # accepted; the mean is taken
         self.loss_weight = loss_weight
         self.class_weight = class_weight
         self.avg_non_ignore = avg_non_ignore
@@ -89,6 +120,10 @@ class CrossEntropyLoss:
 
     def __call__(self, logits: torch.Tensor, label: torch.Tensor,
                  ignore_index: int = 255) -> torch.Tensor:
+        if self.use_sigmoid:
+            return binary_cross_entropy_loss(logits, label, ignore_index,
+                                             self.loss_weight,
+                                             self.avg_non_ignore)
         return cross_entropy_loss(logits, label, ignore_index,
                                   self.class_weight, self.avg_non_ignore,
                                   self.loss_weight)

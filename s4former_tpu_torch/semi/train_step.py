@@ -5,47 +5,55 @@ OptimizerHook and PolyLR).
 
 ``make_semi_train_step(model, semi_cfg, num_classes, ...)`` returns
 ``train_step(state, batch, generator) -> (state, logs)``. In the JAX step's
-order: EMA update before any forward; teacher forward in eval mode,
-pseudo-labels and ``mask_ratio``; the PASA bias; the strong mixes (gated
-CutMix then PatchShuffle); the supervised pass (main and aux CE,
-``decode.acc_seg``); the unsup losses, either as one fused 2B forward (the
-PASA half carries the bias, the mixed half zeros; the default
-``fuse_unsup_passes=True``) or as the sequential passes; the sum of the
-entries whose key contains 'loss'; autograd; poly LR with the head x10
-multiplier and torch SGD with momentum; the annealed EMA momentum for the
-next step. ``batch`` holds NHWC device tensors under the JAX keys
-(``sup_img``, ``sup_gt``, ``unsup_teacher_img``, ``unsup_student_img``) and
-optionally ``dbg_cutmix_mask`` / ``dbg_patchmix_perm``, fixed randomness
-that replaces the sampled CutMix box and PatchShuffle (parity tests only).
+order: EMA update before any forward (with ``momentum_head_dropout``, each
+decode-head parameter skipped with that probability); the supervised mixes
+(``sup_cutmix``, ``sup_ClassMix``); teacher forward in eval mode,
+pseudo-labels and ``mask_ratio``; the PASA bias; the strong-mix cascade
+(``apply_strong_mixes``: ``mix_with_labeled``, CutMix, CutOut, ClassMix,
+adaptive CutMix, PatchShuffle, PatchShuffle with CutMix or ClassMix); the
+EMA teacher on the weak labeled images for supervised NCR ('sup_only',
+'both') and ``sup_ema``; the supervised pass (main and aux CE,
+``decode.acc_seg``), the supervised NCR pass and the ``sup_ema`` loss; the
+unsup losses, either as one fused 2B forward (the PASA half carries the
+bias, the mixed half zeros; the default ``fuse_unsup_passes=True``) or as
+the sequential passes (PASA, with fdrop under ``attn_mask_w_fdrop``; the
+fdrop pass under ``use_fdrop``; the final pass), which fdrop and a MiT
+always take; the sum of the entries whose key contains 'loss'; autograd;
+poly LR with the head x10 multiplier, the layer-wise decay when
+``paramwise_cfg`` is given, and torch SGD with momentum; the annealed EMA
+momentum for the next step. ``batch`` holds NHWC device tensors under the
+JAX keys (``sup_img``, ``sup_gt``, ``unsup_teacher_img``,
+``unsup_student_img``) and optionally ``dbg_``-prefixed fixed draws that
+replace a mix's sampled draw and gate (keys in ``apply_strong_mixes`` and
+``sup_mixes``) or the EMA head skips (``dbg_ema_head_skip``, [n] bool in
+``decode_head.named_parameters()`` order): parity tests and
+``chip_smoke.py`` only; the JAX step reads only ``dbg_cutmix_mask`` and
+``dbg_patchmix_perm``.
 
 With a MiT backbone (JAX train_step.py:286-288, 376-390, 527-529) the PASA
 input is the raw unconfidence map ``1 - conf_mask`` lifted to image
 resolution (nearest), which the MiT pools per stage; its "no bias" is not
-a zero tensor, so a MiT never takes the fused 2B pass: it runs the
-sequential passes (sup, PASA on the unmixed strong images, the final pass
-on the mixed images with PatchShuffle undone). The step's generator goes
-to every student forward, where the MiT's drop path and the SegFormer
-head's dropout draw from it (the JAX step's ``rngs={'dropout': ...}``).
+a zero tensor, so a MiT never takes the fused 2B pass. The step's
+generator goes to every student forward, where the models draw their
+dropout, drop path and fdrop (the JAX step's ``rngs={'dropout': ...,
+'fdrop': ...}``). The JAX step hands its PASA and fdrop passes one fdrop
+key, so their masks coincide there; here each pass draws its own, as the
+reference's ``Dropout2d`` does.
 
 The step makes no host round-trip: logs stay device tensors, and the mix
-gates are ``torch.where``s on the device. The student module, its SGD
-buffers and the EMA teacher (a second copy of the module) are updated in
-place; the returned state holds them with the next step counter.
+gates and EMA skips are ``torch.where``s on the device. The student
+module, its SGD buffers and the EMA teacher (a second copy of the module)
+are updated in place; the returned state holds them with the next step
+counter.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: UniMatch, fdrop (``use_fdrop``, ``attn_mask_w_fdrop``), the other
-strong mixes (``use_CutMix``, ``use_CutOut``, ``use_ClassMix``,
-``use_PatchShuffle``, ``use_PatchShuffle_w_Classmix``,
-``mix_with_labeled``, ``use_cutmix_adaptive``), the supervised mixes
-(``sup_cutmix``, ``sup_ClassMix``), supervised NCR (modes 'sup_only' and
-'both'), ``sup_ema``, ``momentum_head_dropout`` and the layer-wise LR decay
-(``paramwise_cfg``); the ViT's and the SETR head's train-mode dropout and
-drop-path raise in the models.
+ignored: UniMatch (``unimatch``).
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
+import math
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -53,7 +61,8 @@ import torch
 from torch import nn
 
 from s4former_tpu_torch.core.checkpoint import train_state_dicts_from_jax
-from s4former_tpu_torch.core.optim import (build_lr_mult_tree,
+from s4former_tpu_torch.core.optim import (build_layer_decay_trees,
+                                           build_lr_mult_tree,
                                            clip_grads_by_norm, poly_lr,
                                            sgd_init, sgd_update)
 from s4former_tpu_torch.models.losses.cross_entropy import accuracy
@@ -62,7 +71,7 @@ from s4former_tpu_torch.ops.resize import resize_bilinear, resize_nearest
 from s4former_tpu_torch.registry import LOSSES
 from s4former_tpu_torch.semi import mixes
 from s4former_tpu_torch.semi.config import SemiConfig
-from s4former_tpu_torch.semi.ema import ema_update_scoped
+from s4former_tpu_torch.semi.ema import ema_update_scoped, head_skip_draw
 from s4former_tpu_torch.semi.ncr import ncr_loss
 from s4former_tpu_torch.semi.pasa import pasa_bias_from_conf_mask
 from s4former_tpu_torch.semi.pseudo import (extract_teacher_info, mask_ratio,
@@ -124,7 +133,8 @@ def _head_loss_fns(model: nn.Module) -> Tuple[Callable, List[Callable]]:
 
 def _sup_losses(model, main_loss, aux_losses, img, gt, generator):
     """Supervised branch: every head against the ground truth
-    (encoder_decoder.py:426-441)."""
+    (encoder_decoder.py:426-441). Returns (losses, main logits at the
+    ground truth's resolution)."""
     main, aux = model.forward_train_heads_from_img(img, train=True,
                                                    generator=generator)
     gt_hw = tuple(gt.shape[1:3])
@@ -139,56 +149,153 @@ def _sup_losses(model, main_loss, aux_losses, img, gt, generator):
               'decode.acc_seg': accuracy(main.detach(), gt)}
     for i, (a, lfn) in enumerate(zip(aux, aux_losses)):
         losses[f'aux_{i}.loss_ce'] = lfn(to_gt(a), gt)
-    return losses
+    return losses, main
+
+
+def _gate(generator: Optional[torch.Generator], prob: float,
+          device) -> Tensor:
+    """0-d bool, True with probability ``prob`` (``bernoulli(key, p)``)."""
+    return torch.rand((), generator=generator, device=device) < prob
+
+
+def _gated(overrides: Dict[str, Tensor], key: str, generator, prob: float,
+           draw: Callable[[], Tensor], apply: Callable, imgs: Tensor,
+           labels: Tensor) -> Tuple[Tensor, Tensor]:
+    """One gated mix of the cascade: the apply of ``draw()`` where a gate
+    of probability ``prob`` opens, else the inputs. ``overrides[key]``, if
+    given, replaces the draw and the gate (the mix applies)."""
+    if key in overrides:
+        return apply(overrides[key], imgs, labels)
+    gate = _gate(generator, prob, imgs.device)
+    new_imgs, new_labels = apply(draw(), imgs, labels)
+    return (torch.where(gate, new_imgs, imgs),
+            torch.where(gate, new_labels, labels))
+
+
+def _shuffle(cfg: SemiConfig, overrides: Dict[str, Tensor], key: str,
+             generator, imgs: Tensor) -> Tuple[Tensor, Tensor]:
+    if key in overrides:
+        perm = overrides[key]
+        return mixes.apply_patch_perm(imgs, perm, cfg.PatchMix_N,
+                                      cfg.patchsize), perm
+    return mixes.patch_shuffle(generator, imgs, cfg.PatchMix_N,
+                               cfg.patchsize, cfg.patchmix_ratio)
 
 
 def apply_strong_mixes(cfg: SemiConfig, generator: Optional[torch.Generator],
-                       imgs: Tensor, labels: Tensor,
+                       imgs: Tensor, labels: Tensor, teacher, sup_imgs: Tensor,
+                       sup_gts: Tensor, num_classes: int,
                        overrides: Optional[Dict[str, Tensor]] = None):
-    """The strong-augmentation cascade on (student images, teacher labels),
-    flagship branch ``use_PatchShuffle_w_Cutmix`` (encoder_decoder.py:
-    635-643): CutMix gated by ``strong_aug_prob``, then PatchShuffle.
-    ``overrides`` ``cutmix_mask`` [B,H,W] / ``patchmix_perm`` [B,G*G]
-    replace the sampled box (ungated) and the sampled shuffle. Returns
-    (images, labels, perm or None)."""
+    """The strong-augmentation cascade on (student images, teacher labels)
+    in the JAX step's order (encoder_decoder.py:584-648):
+    ``mix_with_labeled``; CutMix gated by ``strong_aug_prob``; CutOut and
+    ClassMix gated by 0.5 (patchwise with ``patchwise``); adaptive CutMix
+    on the PRE-mix images with a fresh teacher argmax, which overwrites
+    what came before, as the reference does; PatchShuffle; the flagship's
+    PatchShuffle + CutMix; PatchShuffle + ClassMix with super-patches of
+    ``patchsize * PatchMix_N``. ``overrides`` replace a mix's draw and its
+    gate, by key: [B, H, W] masks ``strong_cutmix_mask`` (use_CutMix),
+    ``cutout_mask``, ``cutmix_mask`` (PatchShuffle + CutMix); [B, C]
+    scores ([B, n_patches, C] patchwise) ``classmix_scores``,
+    ``ps_classmix_scores``; [B, G*G] perms ``shuffle_perm``
+    (use_PatchShuffle), ``patchmix_perm`` (PatchShuffle + CutMix or
+    ClassMix); adaptive CutMix's draws as ``'adaptive_' + name`` of
+    ``mixes.adaptive_draws``. Returns (images, labels, perm or None)."""
     overrides = overrides or {}
+    b, h, w, _ = imgs.shape
+    dev = imgs.device
     perm = None
+    raw_imgs = imgs
+    ps = cfg.patchsize * cfg.PatchMix_N
+
+    def masks(patchwise=cfg.patchwise):
+        return lambda: mixes.mix_masks(generator, b, (h, w), cfg.cutout_area,
+                                       patchwise, ps, dev)
+
+    def scores(patchsize):
+        return lambda: mixes.class_scores(generator, b, num_classes, (h, w),
+                                          cfg.patchwise, patchsize, dev)
+
+    def classmix(patchsize):
+        return lambda sc, i, lab: mixes.classmix_with_scores(
+            sc, i, lab, num_classes, cfg.patchwise, patchsize)
+
+    if cfg.mix_with_labeled:
+        imgs, labels = mixes.mix_with_labeled(
+            imgs, labels, sup_imgs, sup_gts, teacher.conf_mask,
+            cfg.patchsize)
+    if cfg.use_CutMix:
+        imgs, labels = _gated(overrides, 'strong_cutmix_mask', generator,
+                              cfg.strong_aug_prob, masks(),
+                              mixes.cutmix_with_masks, imgs, labels)
+    if cfg.use_CutOut:
+        imgs, labels = _gated(overrides, 'cutout_mask', generator, 0.5,
+                              masks(), mixes.cutout_with_masks, imgs, labels)
+    if cfg.use_ClassMix:
+        # the JAX step passes no patchsize here: classmix's default, 128
+        imgs, labels = _gated(overrides, 'classmix_scores', generator, 0.5,
+                              scores(128), classmix(128), imgs, labels)
+    if cfg.use_cutmix_adaptive:
+        # per-sample confidence mean((1 - normalised entropy) * max prob)
+        # (:608-620); the PRE-mix images with a fresh argmax (:621-630)
+        probs = torch.softmax(teacher.seg_logits, dim=-1)
+        ent = -(probs * torch.log(probs + 1e-10)).sum(dim=-1)
+        ent = ent / math.log(num_classes)
+        confidence = ((1.0 - ent) * teacher.max_prob).mean(dim=(1, 2))
+        fresh = probs.argmax(dim=-1).to(teacher.hard_label.dtype)
+        draws = {k: overrides['adaptive_' + k] for k in
+                 ('perm', 'lam_l', 'lam_u', 'cx_l', 'cy_l', 'cx_u', 'cy_u',
+                  'u')} if 'adaptive_perm' in overrides else \
+            mixes.adaptive_draws(generator, b, (h, w), dev)
+        imgs, new_labels, new_probs = mixes.cutmix_label_adaptive(
+            draws, raw_imgs, fresh, teacher.max_prob, sup_imgs, sup_gts,
+            confidence)
+        labels = torch.where(new_probs < cfg.unsup_confidence,
+                             torch.full_like(new_labels, 255), new_labels)
+    if cfg.use_PatchShuffle:
+        imgs, perm = _shuffle(cfg, overrides, 'shuffle_perm', generator,
+                              imgs)
     if cfg.use_PatchShuffle_w_Cutmix:
-        if 'cutmix_mask' in overrides:
-            imgs, labels = mixes.cutmix_with_masks(overrides['cutmix_mask'],
-                                                   imgs, labels)
-        else:
-            gate = torch.rand((), generator=generator,
-                              device=imgs.device) < cfg.strong_aug_prob
-            new_imgs, new_labels = mixes.cutmix(generator, imgs, labels,
-                                                cfg.cutout_area)
-            imgs = torch.where(gate, new_imgs, imgs)
-            labels = torch.where(gate, new_labels, labels)
-        if 'patchmix_perm' in overrides:
-            perm = overrides['patchmix_perm']
-            imgs = mixes.apply_patch_perm(imgs, perm, cfg.PatchMix_N,
-                                          cfg.patchsize)
-        else:
-            imgs, perm = mixes.patch_shuffle(generator, imgs, cfg.PatchMix_N,
-                                             cfg.patchsize,
-                                             cfg.patchmix_ratio)
+        imgs, labels = _gated(overrides, 'cutmix_mask', generator,
+                              cfg.strong_aug_prob, masks(patchwise=False),
+                              mixes.cutmix_with_masks, imgs, labels)
+        imgs, perm = _shuffle(cfg, overrides, 'patchmix_perm', generator,
+                              imgs)
+    if cfg.use_PatchShuffle_w_Classmix:
+        # the reference passes patchsize=16*PatchMix_N here (:644-648)
+        imgs, labels = _gated(overrides, 'ps_classmix_scores', generator,
+                              0.5, scores(ps), classmix(ps), imgs, labels)
+        imgs, perm = _shuffle(cfg, overrides, 'patchmix_perm', generator,
+                              imgs)
     return imgs, labels, perm
 
 
-def unported_flags(cfg: SemiConfig,
-                   paramwise_cfg: Optional[Dict] = None) -> List[str]:
-    """The flags of ``cfg`` this port does not run."""
-    flags = {name: bool(getattr(cfg, name)) for name in (
-        'unimatch', 'use_fdrop', 'attn_mask_w_fdrop', 'use_CutMix',
-        'use_CutOut', 'use_ClassMix', 'use_PatchShuffle',
-        'use_PatchShuffle_w_Classmix', 'mix_with_labeled',
-        'use_cutmix_adaptive', 'sup_cutmix', 'sup_ClassMix', 'sup_ema',
-        'momentum_head_dropout')}
-    flags['negative_class_ranking_mode (supervised NCR)'] = (
-        cfg.negative_class_ranking and
-        cfg.negative_class_ranking_mode in ('sup_only', 'both'))
-    flags['paramwise_cfg (layer-wise LR decay)'] = paramwise_cfg is not None
-    return [name for name, on in flags.items() if on]
+def sup_mixes(cfg: SemiConfig, generator: Optional[torch.Generator],
+              img: Tensor, gt: Tensor, num_classes: int,
+              overrides: Dict[str, Tensor]) -> Tuple[Tensor, Tensor]:
+    """The supervised mixes (encoder_decoder.py:429-434): ``sup_cutmix``
+    (box, ratio 2, gated by ``strong_aug_prob``; override
+    ``sup_cutmix_mask``), else ``sup_ClassMix`` (gated by 0.5; override
+    ``sup_classmix_scores``)."""
+    b, h, w, _ = img.shape
+    if cfg.sup_cutmix:
+        return _gated(overrides, 'sup_cutmix_mask', generator,
+                      cfg.strong_aug_prob,
+                      lambda: mixes.random_box_mask(generator, b, (h, w),
+                                                    2.0, img.device),
+                      mixes.cutmix_with_masks, img, gt)
+    if cfg.sup_ClassMix:
+        return _gated(overrides, 'sup_classmix_scores', generator, 0.5,
+                      lambda: mixes.class_scores(generator, b, num_classes,
+                                                 (h, w), device=img.device),
+                      lambda sc, i, lab: mixes.classmix_with_scores(
+                          sc, i, lab, num_classes), img, gt)
+    return img, gt
+
+
+def unported_flags(cfg: SemiConfig) -> List[str]:
+    """The flags of ``cfg`` this port does not run: UniMatch only."""
+    return ['unimatch'] if cfg.unimatch else []
 
 
 def make_semi_train_step(model: nn.Module,
@@ -205,10 +312,12 @@ def make_semi_train_step(model: nn.Module,
                          patch_size: int = 16,
                          paramwise_cfg: Optional[Dict] = None):
     """Returns ``train_step(state, batch, generator) -> (state, logs)``.
-    ``generator`` draws the mixes' randomness on the batch's device, and
-    the student forwards' drop path and dropout where the model has them."""
+    ``generator`` draws the mixes' randomness on the batch's device, the
+    EMA head skips, and the student forwards' dropout, drop path and fdrop.
+    ``paramwise_cfg`` ``{num_layers, decay_rate[, decay_type]}`` turns on
+    the layer-wise LR decay, composed with ``custom_keys``."""
     cfg = semi_cfg
-    missing = unported_flags(cfg, paramwise_cfg)
+    missing = unported_flags(cfg)
     if missing:
         raise NotImplementedError(f'not ported yet: {", ".join(missing)}')
     main_loss, aux_losses = _head_loss_fns(model)
@@ -216,14 +325,34 @@ def make_semi_train_step(model: nn.Module,
         custom_keys = {'head': 10.0}
     ncr_unsup = (cfg.negative_class_ranking and
                  cfg.negative_class_ranking_mode != 'sup_only')
+    ncr_sup = (cfg.negative_class_ranking and
+               cfg.negative_class_ranking_mode in ('sup_only', 'both'))
     mit = isinstance(model.backbone, MixVisionTransformer)
     anneal = cfg.momentum_head_exp != 0 or cfg.momentum_exp != 0
+    fdrop = cfg.use_fdrop or cfg.attn_mask_w_fdrop
+    # the fused 2B pass needs a zero "no bias" and no fdrop pass
+    # (JAX train_step.py:527-529)
+    fused = (cfg.fuse_unsup_passes and cfg.attn_mask_seperate_head and
+             not fdrop and not mit)
+    params0 = dict(model.named_parameters())
+    lr_mults = build_lr_mult_tree(params0, custom_keys)
+    wd_mults = None
+    if paramwise_cfg is not None:
+        ld_mults, wd_mults = build_layer_decay_trees(
+            params0, {n: p.dim() for n, p in params0.items()},
+            paramwise_cfg['num_layers'], paramwise_cfg['decay_rate'],
+            paramwise_cfg.get('decay_type', 'layer_wise'), mit=mit)
+        lr_mults = {n: m * ld_mults[n] for n, m in lr_mults.items()}
+    head_params = ['decode_head.' + n
+                   for n, _ in model.decode_head.named_parameters()]
 
     def train_step(state: TrainState, batch: Dict[str, Tensor],
                    generator: Optional[torch.Generator] = None
                    ) -> Tuple[TrainState, Dict[str, Tensor]]:
         model = state.model
         logs: Dict[str, Tensor] = {}
+        overrides = {key[4:]: v for key, v in batch.items()
+                     if key.startswith('dbg_')}
 
         # ---- 1. EMA update BEFORE the forwards (encoder_decoder.py:416-423)
         if cfg.ema:
@@ -234,12 +363,25 @@ def make_semi_train_step(model: nn.Module,
                 m_head = state.annealed_momentum
                 if cfg.momentum_exp != 0:
                     m_backbone = state.annealed_momentum
+            head_skips = None
+            if cfg.momentum_head_dropout > 0:
+                skips = overrides.get('ema_head_skip')
+                if skips is None:
+                    skips = head_skip_draw(generator, len(head_params),
+                                           cfg.momentum_head_dropout,
+                                           state.step.device)
+                head_skips = dict(zip(head_params, skips.bool()))
             ema_update_scoped(state.ema_model.state_dict(),
                               model.state_dict(), m_backbone, m_head,
-                              cfg.ema_momentum)
+                              cfg.ema_momentum, head_skips)
 
         has_unsup = 'unsup_teacher_img' in batch and cfg.unsup_weight != 0
-        sup_img, sup_gt = batch['sup_img'], batch['sup_gt']
+        # supervised mixes, before the unsup branch, whose labeled mixes
+        # take the mixed images and labels (:429-434, :488)
+        sup_img, sup_gt = sup_mixes(cfg, generator, batch['sup_img'],
+                                    batch['sup_gt'], num_classes, overrides)
+        # a strong labeled view, if the batch has one, feeds the
+        # supervised NCR pass and the unsup mixes (:451, :490-492)
         sup_student_img = batch.get('sup_student_img', sup_img)
 
         # ---- 2. teacher pseudo-labels (no grad, eval mode; :516-542)
@@ -279,20 +421,49 @@ def make_semi_train_step(model: nn.Module,
                     f'unsup batch ({bu}) > sup batch '
                     f'({sup_student_img.shape[0]}): the strong mixes pair '
                     f'each unsup sample with a labeled one')
-            overrides = {key[4:]: v for key, v in batch.items()
-                         if key.startswith('dbg_')}
             mixed_imgs, mixed_labels, perm = apply_strong_mixes(
                 cfg, generator, batch['unsup_student_img'],
-                teacher.hard_label, overrides)
+                teacher.hard_label, teacher, sup_student_img[:bu],
+                sup_gt[:bu], num_classes, overrides)
+
+        # ---- 2b. the EMA teacher on the WEAK (unmixed) labeled images,
+        # shared by supervised NCR (:447-449) and sup_ema (:477-480)
+        sup_ema_logits = None
+        if ncr_sup or cfg.sup_ema:
+            e_model = state.ema_model if cfg.ema else model
+            with torch.no_grad():
+                sup_ema_logits = e_model.forward_decode_from_img(
+                    batch['sup_img'], train=False)
 
         # ---- 3. differentiable student losses
-        losses = _sup_losses(model, main_loss, aux_losses, sup_img, sup_gt,
-                             generator)
+        losses, sup_main = _sup_losses(model, main_loss, aux_losses, sup_img,
+                                       sup_gt, generator)
+        if ncr_sup:
+            # the student on the strong labeled view vs the EMA on the weak
+            # one, ranked against the unmixed labels ('sup' mode, :443-474)
+            s_logits = model.forward_decode_from_img(
+                sup_student_img, train=True, generator=generator)
+            t_logits = sup_ema_logits
+            img_hw = tuple(sup_student_img.shape[1:3])
+            if tuple(s_logits.shape[1:3]) != img_hw:
+                s_logits = resize_bilinear(s_logits, img_hw, False)
+                t_logits = resize_bilinear(t_logits, img_hw, False)
+            losses['loss_ncr_sup'] = ncr_loss(s_logits, t_logits,
+                                              batch['sup_gt'], num_classes,
+                                              'sup')
+        if cfg.sup_ema:
+            # the EMA's argmax (softmax nearest-resized to the labels) as
+            # labels of the supervised pass's main logits (:476-487)
+            ema_probs = torch.softmax(sup_ema_logits.float(), dim=-1)
+            gt_hw = tuple(sup_gt.shape[1:3])
+            if tuple(ema_probs.shape[1:3]) != gt_hw:
+                ema_probs = resize_nearest(ema_probs, gt_hw)
+            losses['loss_decode_sup_ema'] = main_loss(
+                sup_main, ema_probs.argmax(dim=-1).to(torch.int32))
         if has_unsup:
             unsup: Dict[str, Tensor] = {}
             student_img = batch['unsup_student_img']
-            if cfg.fuse_unsup_passes and cfg.attn_mask_seperate_head and \
-                    not mit:
+            if fused:
                 # PASA pass (unmixed images + bias) and the final pass
                 # (mixed images, PatchShuffle undo) as ONE 2B forward; per
                 # sample the same maths, BN moments span the 2B batch
@@ -312,7 +483,14 @@ def make_semi_train_step(model: nn.Module,
                 if cfg.attn_mask_seperate_head:
                     pasa_logits = model.forward_decode_from_img(
                         student_img, train=True, attn_bias=pasa_bias,
-                        pos_mode=cfg.pos_mode, generator=generator)
+                        pos_mode=cfg.pos_mode,
+                        use_fdrop=cfg.attn_mask_w_fdrop, generator=generator)
+                if cfg.use_fdrop:
+                    fdrop_logits = model.forward_decode_from_img(
+                        student_img, train=True, pos_mode=cfg.pos_mode,
+                        use_fdrop=True, generator=generator)
+                    unsup['loss_seg_unsup_fdrop'] = 0.5 * pseudo_ce_loss(
+                        fdrop_logits, teacher.hard_label)
                 inline_bias = pasa_bias if cfg.use_attn_mask_inline else None
                 stu_logits = model.forward_decode_from_img(
                     mixed_imgs, train=True, attn_bias=inline_bias,
@@ -328,11 +506,11 @@ def make_semi_train_step(model: nn.Module,
                     teacher.conf_mask if cfg.unsup_confidence != 0 else None)
             else:
                 main_pseudo = pseudo_ce_loss(stu_logits, mixed_labels)
-            separate = cfg.attn_mask_seperate_head
+            halved = cfg.use_fdrop or cfg.attn_mask_seperate_head
             unsup['loss_seg_unsup'] = main_pseudo * (
-                cfg.fdrop_loss_weight if separate else 1.0)
+                cfg.fdrop_loss_weight if halved else 1.0)
             if ncr_unsup:
-                unsup['loss_ncr_unsup'] = (0.5 if separate else 1.0) * \
+                unsup['loss_ncr_unsup'] = (0.5 if halved else 1.0) * \
                     ncr_loss(stu_logits, teacher.seg_logits, mixed_labels,
                              num_classes, cfg.negative_class_ranking_mode)
             # weighted by unsup_weight, gated by iter_unsup_start (:488-512)
@@ -353,9 +531,8 @@ def make_semi_train_step(model: nn.Module,
 
         # ---- 4. SGD + poly LR
         lr = poly_lr(state.step, base_lr, max_iters, power, min_lr)
-        sgd_update(params, grads, state.momentum, lr,
-                   build_lr_mult_tree(params, custom_keys), sgd_momentum,
-                   weight_decay)
+        sgd_update(params, grads, state.momentum, lr, lr_mults, sgd_momentum,
+                   weight_decay, wd_mults)
 
         logs.update({key: v.detach() for key, v in losses.items()})
         logs['loss'] = total.detach()

@@ -13,10 +13,14 @@ the model's tensors the pretrained file overlaid. ``--profile FIRST N``
 traces steps FIRST..FIRST+N-1 into ``WORK_DIR/profile/trace.json``
 (``python -m s4former_tpu_torch.tools.profile_trace`` reads it). Runs on one
 CUDA device unless ``--device cpu`` is given; without a card it fails.
-Not ported yet, and refused with ``NotImplementedError``:
-``--model-parallel`` > 1, ``--zero3``, a ``--launcher`` other than 'none',
-the UniMatch mix stream, and layer-wise LR decay (the train step refuses
-``paramwise_cfg``).
+Every flag of the S4Former step but UniMatch runs, set in the config or
+with ``--cfg-options`` (e.g. ``model.use_fdrop=True``,
+``model.backbone.drop_path_rate=0.1``); ``optimizer.paramwise_cfg``'s
+``num_layers`` and ``decay_rate`` turn on the layer-wise LR decay, as in
+JAX tools/train.py:166-187. Not ported yet, and refused with
+``NotImplementedError``: ``--model-parallel`` > 1, ``--zero3``, a
+``--launcher`` other than 'none', and UniMatch (``model.unimatch`` and the
+``unsup_mix`` stream).
 """
 import argparse
 import os

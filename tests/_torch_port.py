@@ -104,16 +104,17 @@ TRAIN_MODEL = dict(
                     for i in range(2)])
 
 
-def jax_train_model(seed: int = 0, ema: bool = True):
-    """(JAX model, JAX TrainState) of TRAIN_MODEL with perturbed weights;
-    the EMA teacher gets weights of its own. The JAX side runs its XLA
-    attention (its Pallas kernels are held to the port in test_torch_ops)."""
+def jax_train_model(seed: int = 0, ema: bool = True, cfg=None):
+    """(JAX model, JAX TrainState) of TRAIN_MODEL (or ``cfg``, a variant of
+    it) with perturbed weights; the EMA teacher gets weights of its own. The
+    JAX side runs its XLA attention (its Pallas kernels are held to the
+    port in test_torch_ops)."""
     import copy
     import jax
     import jax.numpy as jnp
     from s4former_tpu.models import build_segmentor, init_segmentor_variables
     from s4former_tpu.semi.train_step import create_train_state
-    cfg = copy.deepcopy(TRAIN_MODEL)
+    cfg = copy.deepcopy(cfg or TRAIN_MODEL)
     cfg['backbone']['use_flash'] = False
     model = build_segmentor(cfg)
     variables = init_segmentor_variables(model, jax.random.PRNGKey(seed),
@@ -131,12 +132,13 @@ def jax_train_model(seed: int = 0, ema: bool = True):
     return model, state
 
 
-def torch_train_model():
-    """The port's TRAIN_MODEL (weights to be loaded through the bridge)."""
+def torch_train_model(cfg=None):
+    """The port's TRAIN_MODEL, or ``cfg`` (weights to be loaded through the
+    bridge)."""
     import copy
     import s4former_tpu_torch.models  # noqa: F401
     from s4former_tpu_torch.models import build_segmentor
-    return build_segmentor(copy.deepcopy(TRAIN_MODEL))
+    return build_segmentor(copy.deepcopy(cfg or TRAIN_MODEL))
 
 
 # ------------------------------------------------- the CLIs' tiny config

@@ -356,3 +356,29 @@ def test_mit_drop_path_and_dropout_rerun_on_card(cuda):
         assert not torch.equal(outs[0], outs[2])
         assert torch.equal(gpu.forward_decode_from_img(x),
                            gpu.forward_decode_from_img(x))
+
+
+@pytest.mark.parametrize('what', ['dropout', 'drop_path', 'fdrop'])
+def test_keep_rates_on_card(cuda, what):
+    """Dropout (keep 0.9), drop path (keep 0.8) and fdrop (keep 0.5) drawn
+    on the card from a CUDA generator keep their rate within 5 sigma, and
+    kept values are scaled by 1/keep."""
+    from s4former_tpu_torch.models import dropout as drop
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.rand((64, 32, 32, 64), generator=gen, device=cuda) + 0.5
+    if what == 'dropout':
+        out, keep, units = drop.dropout(x, 0.1, gen), 0.9, x.numel()
+        kept = out != 0
+    elif what == 'drop_path':
+        x = x.reshape(64 * 32, 32, 64)
+        out, keep, units = drop.drop_path(x, 0.2, gen), 0.8, x.shape[0]
+        kept = (out != 0).all(dim=(1, 2))
+        assert torch.equal(kept, (out != 0).any(dim=(1, 2)))
+    else:
+        out, keep, units = drop.channel_dropout(x, gen), 0.5, 64 * 64
+        kept = (out != 0).all(dim=(1, 2))
+        assert torch.equal(kept, (out != 0).any(dim=(1, 2)))
+    sigma = (units * keep * (1 - keep)) ** 0.5
+    assert abs(int(kept.sum()) - units * keep) <= 5 * sigma
+    nz = out != 0
+    torch.testing.assert_close(out[nz], x[nz] / keep)

@@ -31,13 +31,17 @@ def _imported_modules(path: Path):
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = _port_files()
     assert len(files) > 15
-    # the host runtime, the profiler's reader, the test CLI's modules and
-    # the SegFormer slice's are among the files read
+    # the host runtime, the profiler's reader, the test CLI's modules, the
+    # SegFormer slice's and the ablation slice's are among the files read
     assert {'native/__init__.py', 'native/build.py', 'core/hooks.py',
             'tools/profile_trace.py', 'utils/palette.py',
             'utils/collect_env.py', 'tools/test.py',
             'models/backbones/mit.py', 'models/decode_heads/segformer.py',
-            'semi/pasa.py'} <= {
+            'semi/pasa.py', 'models/dropout.py', 'models/backbones/vit.py',
+            'models/decode_heads/setr_up.py',
+            'models/losses/cross_entropy.py', 'core/optim.py',
+            'semi/ema.py', 'semi/mixes.py', 'semi/train_step.py',
+            'tools/train.py'} <= {
         str(p.relative_to(REPO / 's4former_tpu_torch')) for p in files
         if REPO / 's4former_tpu_torch' in p.parents}
     bad = [(str(p.relative_to(REPO)), m) for p in files
@@ -77,15 +81,19 @@ def test_cli_fails_without_a_card(tmp_path, tool):
 
 
 def test_unported_training_flags_raise():
-    """Every semi flag and option the port's train step does not run raises
-    NotImplementedError when the step is made; none is ignored."""
+    """The one semi flag the port's train step does not run, UniMatch,
+    raises NotImplementedError when the step is made; every other flag of
+    the JAX step, the layer-wise LR decay and the models' dropout, drop
+    path, fdrop and head dropout are accepted and run."""
     import torch
     from s4former_tpu_torch.semi.config import SemiConfig
     from s4former_tpu_torch.semi.train_step import make_semi_train_step
     from tests._torch_port import torch_train_model
     model = torch_train_model()
     kw = dict(num_classes=5, base_lr=0.01, max_iters=100)
-    flags = [dict(unimatch=True), dict(use_fdrop=True),
+    with pytest.raises(NotImplementedError, match='unimatch'):
+        make_semi_train_step(model, SemiConfig(unimatch=True), **kw)
+    flags = [dict(use_fdrop=True),
              dict(attn_mask_w_fdrop=True), dict(use_ClassMix=True),
              dict(use_CutOut=True), dict(use_CutMix=True),
              dict(use_PatchShuffle=True),
@@ -98,26 +106,23 @@ def test_unported_training_flags_raise():
              dict(negative_class_ranking=True,
                   negative_class_ranking_mode='both')]
     for flag in flags:
-        with pytest.raises(NotImplementedError):
-            make_semi_train_step(model, SemiConfig(**flag), **kw)
-    with pytest.raises(NotImplementedError, match='paramwise'):
-        make_semi_train_step(model, SemiConfig(), **kw,
-                             paramwise_cfg=dict(num_layers=2, decay_rate=0.9))
+        make_semi_train_step(model, SemiConfig(**flag), **kw)
+    make_semi_train_step(model, SemiConfig(), **kw,
+                         paramwise_cfg=dict(num_layers=2, decay_rate=0.9))
     # the flagship's flags are accepted
     make_semi_train_step(model, SemiConfig(
         ema=True, attn_mask_seperate_head=True, adaptive_attn_mask=True,
         use_PatchShuffle_w_Cutmix=True, negative_class_ranking=True,
         negative_class_ranking_mode='unsup_only'), **kw)
-    # dropout, drop-path and fdrop in the models
+    # dropout, drop-path and fdrop in the models: identities in eval (fdrop
+    # aside), drawn from the generator in train
     x = torch.zeros(1, 64, 64, 3)
-    with pytest.raises(NotImplementedError, match='use_fdrop'):
-        model.forward_decode_from_img(x, use_fdrop=True)
+    gen = torch.Generator().manual_seed(0)
+    model.forward_decode_from_img(x, use_fdrop=True, generator=gen)
     for rate in ('drop_rate', 'attn_drop_rate', 'drop_path_rate'):
-        model.backbone.drop_rates[rate] = 0.1
-        model.forward_decode_from_img(x, train=False)   # identity in eval
-        with pytest.raises(NotImplementedError, match=rate):
-            model.forward_decode_from_img(x, train=True)
-        model.backbone.drop_rates[rate] = 0.0
+        setattr(model.backbone, rate, 0.1)
+        model.forward_decode_from_img(x, train=False)
+        model.forward_decode_from_img(x, train=True, generator=gen)
+        setattr(model.backbone, rate, 0.0)
     model.decode_head.dropout_ratio = 0.1
-    with pytest.raises(NotImplementedError, match='dropout_ratio'):
-        model.forward_decode_from_img(x, train=True)
+    model.forward_decode_from_img(x, train=True, generator=gen)
