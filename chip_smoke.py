@@ -59,7 +59,18 @@ on the card, then drives the port's paths through its entry points:
   fdrop, EMA head dropout, supervised NCR, ``sup_ema``, layer decay and a
   sigmoid aux CE), each step's launches checked against the passes its
   flags imply; MiT-B4 with fdrop at 4 + 4, 768²; ``tools.train`` with the
-  regularisers by ``--cfg-options``, 6 steps, resumed to 8.
+  regularisers by ``--cfg-options``, 6 steps, resumed to 8;
+- UniMatch and the ViT's remat (``unimatch_*``, ``remat_*``): one f32
+  UniMatch step against the CPU (``..._MT_w_ours.py`` at 4 layers, 2 + 2 at
+  512², head 1 as the PASA pass and as the fdrop pass; MiT-B4 at depth
+  [1, 1, 1, 1], 1 + 1 at 768²), the streams' boxes and permutations
+  injected; the bf16 UniMatch step at full depth, 8 + 8 at 512² with its
+  mix stream (timed, profiled); the flagship and the UniMatch 8 + 8 steps
+  with remat off, 'dots' and 'full' (losses and updates against remat off,
+  step time, peak memory); ``tools.train`` on a UniMatch variant of the
+  fixture config (``UniSemiDataset``, three-branch pipelines with
+  RandomGrayscale and GaussianBlur), 3 steps, resumed to 6, and
+  ``tools.test`` against the in-loop mIoU.
 
 Every phase prints one JSON line; any failed check raises and the script
 exits nonzero without its last line. Each path runs with the kernels'
@@ -1843,21 +1854,28 @@ def ablation_config(name, dtype=None, num_layers=None, regularisers=False):
     return cfg
 
 
-def predicted_launches(semi, num_layers):
+def predicted_launches(semi, num_layers, remat=False):
     """The flash kernels' launches a step at L = 1025 from the flags: every
     ViT forward launches the forward kernel once a layer and every student
-    pass the fused backward once a layer. Teacher; the EMA on the labeled
-    images (supervised NCR or sup_ema); the supervised pass; the supervised
-    NCR pass; the unsup passes, one fused 2B pass or PASA, fdrop and the
-    final pass."""
+    pass the fused backward once a layer. Teacher (twice under UniMatch,
+    whose batches carry the mix stream); the EMA on the labeled images
+    (supervised NCR or sup_ema); the supervised pass; the supervised NCR
+    pass; the unsup passes: UniMatch's head 1 and two streams, else one
+    fused 2B pass or PASA, fdrop and the final pass. With ``remat`` each
+    student pass launches the forward once more a layer (the layer's
+    recomputation in the backward)."""
     ncr_sup = semi.negative_class_ranking and \
         semi.negative_class_ranking_mode in ('sup_only', 'both')
     fused = (semi.fuse_unsup_passes and semi.attn_mask_seperate_head and
              not semi.use_fdrop and not semi.attn_mask_w_fdrop)
-    unsup = 1 if fused else (int(semi.attn_mask_seperate_head) +
-                             int(semi.use_fdrop) + 1)
+    if semi.unimatch:
+        teacher, unsup = 2, 3
+    else:
+        teacher = 1
+        unsup = 1 if fused else (int(semi.attn_mask_seperate_head) +
+                                 int(semi.use_fdrop) + 1)
     student = 1 + int(ncr_sup) + unsup
-    fwd = 1 + int(ncr_sup or semi.sup_ema) + student
+    fwd = teacher + int(ncr_sup or semi.sup_ema) + student * (1 + remat)
     return {'flash_attn_fwd': fwd * num_layers,
             'flash_attn_bwd_fused': student * num_layers,
             'flash_attn_bwd_dkv': 0, 'flash_attn_bwd_dq': 0}
@@ -2171,6 +2189,497 @@ def run_ablation(fa, images, gpu_line, root):
     return paths
 
 
+# ------------------------------------------------------ UniMatch and remat
+# UniMatch over ``..._MT_w_ours.py``: the two streams PatchShuffled, the
+# flagship's PatchShuffle + CutMix off (UniMatch runs no strong-mix cascade)
+UNIMATCH_FLAGS = dict(unimatch=True, use_PatchShuffle=True,
+                      use_PatchShuffle_w_Cutmix=False)
+REMAT = {'off': dict(remat_layers=False),
+         'dots': dict(remat_layers=True, remat_policy='dots'),
+         'full': dict(remat_layers=True, remat_policy='full')}
+# one bf16 step with remat against the same step without, from the same
+# weights, batch and draws: the forwards are the same kernels on the same
+# inputs, but the fused backward adds dq over its k tiles with atomics in a
+# run-dependent order and every gradient is rounded to bf16 (2^-8 of its
+# value), so losses and updates agree to bf16 rounding, relative to the
+# loss and to the largest update. Two runs without remat are compared too.
+TOL_REMAT_BF16 = 2e-2
+
+
+def unimatch_batch(images, n_sup, n_unsup, size=512):
+    """``train_batch`` with UniMatch's views: the unsup images are the
+    teacher's and the first student's view, their mirror images the second
+    student's; the labeled images in reverse order are the mix-source
+    stream (the same three views). ``n_unsup <= n_sup``."""
+    import numpy as np
+    batch = train_batch(images, n_sup, n_unsup, size)
+    return with_mix_views(batch, batch['sup_img'][::-1][:n_unsup])
+
+
+def with_mix_views(batch, mix):
+    """``batch`` with the second student view (the unsup images mirrored)
+    and the mix-source stream's three views of ``mix``."""
+    import numpy as np
+
+    def mirror(x):
+        return np.ascontiguousarray(x[:, :, ::-1])
+    batch = dict(batch)
+    mix = np.ascontiguousarray(mix)
+    batch['unsup_student_2_img'] = mirror(batch['unsup_student_img'])
+    batch['unsup_teacher_mix_img'] = batch['unsup_student_mix_img'] = mix
+    batch['unsup_student_2_mix_img'] = mirror(mix)
+    return batch
+
+
+def unimatch_draws(semi, n, size, seed=0):
+    """Fixed boxes (a square of a quarter of the image each) and
+    super-patch permutations of the two streams, as the ``dbg_um_*`` keys
+    of both devices."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    gg = (size // (semi.patchsize * semi.PatchMix_N)) ** 2
+    out = {}
+    for idx in (1, 2):
+        mask = np.ones((n, size, size), np.float32)
+        for b in range(n):
+            y, x = rs.randint(0, size // 2, 2)
+            mask[b, y:y + size // 2, x:x + size // 2] = 0
+        out[f'dbg_um_cutmix_mask_{idx}'] = mask
+        out[f'dbg_um_patchmix_perm_{idx}'] = np.stack(
+            [rs.permutation(gg) for _ in range(n)]).astype(np.int32)
+    return out
+
+
+@contextlib.contextmanager
+def masks_from_cpu(seed=0):
+    """The models' dropout, drop-path and fdrop masks
+    (``models.dropout.keep_mask``) drawn from one seeded CPU generator and
+    moved to the tensor's device, so the card and the CPU drop the same
+    values; the step's own generator is not used for them."""
+    import torch
+    from s4former_tpu_torch.models import dropout
+    original = dropout.keep_mask
+    gen = torch.Generator().manual_seed(seed)
+
+    def keep_mask(generator, keep, shape, device):
+        return (torch.rand(tuple(shape), generator=gen) < keep).to(device)
+    dropout.keep_mask = keep_mask
+    try:
+        yield
+    finally:
+        dropout.keep_mask = original
+
+
+def unimatch_step_vs_cpu(fa, cfg, batch, semi_over):
+    """One step of ``cfg`` on the card and on the CPU from the same seeded
+    weights, batch, injected draws and masks: (logs, parameter updates,
+    seconds, launch counts) by device."""
+    import torch
+    runs = {}
+    for device in ('cuda', 'cpu'):
+        state, step = trainer_from_config(cfg, device, **semi_over)
+        before = {n: p.detach().cpu().clone()
+                  for n, p in state.model.named_parameters()}
+        dev_batch = to_device(batch, device)
+        reset_counts(fa)
+        t0 = time.perf_counter()
+        with masks_from_cpu():
+            state, logs = step(state, dev_batch,
+                               torch.Generator(device=device).manual_seed(0))
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        delta = {n: p.detach().cpu() - before[n]
+                 for n, p in state.model.named_parameters()}
+        runs[device] = (floats(logs), delta, seconds, counts(fa))
+        del state, step, dev_batch
+        torch.cuda.empty_cache()
+    return runs
+
+
+def phase_unimatch_f32_vs_cpu(fa, images):
+    """One UniMatch step in f32 against the CPU, the streams' boxes and
+    permutations injected: ``..._MT_w_ours.py`` at full width, depth cut to
+    4 layers, 2 + 2 at 512², dropout and drop path 0, the threshold
+    UNSUP_CONFIDENCE_F32, with head 1 as the PASA pass and as the fdrop
+    pass (``attn_mask_seperate_head`` off; its fdrop masks from
+    ``masks_from_cpu``); then MiT-B4 ``_MT_w_ours`` at depth
+    MIT_TRAIN_F32_DEPTH, 1 + 1 at 768², the threshold the CPU teacher's
+    median max-probability. Tolerances of train_f32_vs_cpu. Returns the
+    card's launch counts summed."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from s4former_tpu_torch.semi.config import SemiConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cases = []
+    vit_cfg = load_config('float32', 'ours', 4)
+    vit_cfg.model.backbone.update(drop_rate=0.0, drop_path_rate=0.0)
+    vit_batch = unimatch_batch(images, 2, 2)
+    for head in ('pasa', 'fdrop'):
+        over = dict(UNIMATCH_FLAGS, unsup_confidence=UNSUP_CONFIDENCE_F32,
+                    attn_mask_seperate_head=head == 'pasa')
+        cases.append((f'deit_{head}', vit_cfg, vit_batch, over, 512))
+    mit_cfg = load_mit_config('ours', 'float32', MIT_TRAIN_F32_DEPTH,
+                              drop=False)
+    mit_batch = mit_train_batch(np.random.RandomState(5), 1, 1)
+    mit_batch = with_mix_views(mit_batch, mit_batch['sup_img'])
+    state, _ = trainer_from_config(mit_cfg, 'cpu')
+    with torch.no_grad():
+        t_logits = state.model.forward_decode_from_img(
+            torch.from_numpy(mit_batch['unsup_teacher_img']), train=False)
+    threshold = float(torch.softmax(t_logits.float(), -1).amax(-1).median())
+    del state
+    cases.append(('mit_pasa', mit_cfg, mit_batch,
+                  dict(UNIMATCH_FLAGS, unsup_confidence=threshold), MIT_CROP))
+    total = None
+    for name, cfg, batch, over, size in cases:
+        semi = dataclasses.replace(SemiConfig.from_model_cfg(cfg.model),
+                                   **over)
+        n = batch['unsup_student_img'].shape[0]
+        batch = dict(batch, **unimatch_draws(semi, n, size))
+        runs = unimatch_step_vs_cpu(fa, cfg, batch, over)
+        (lg, dg, sg, cg), (lc, dc, sc, cc) = runs['cuda'], runs['cpu']
+        mit = name.startswith('mit')
+        expect = {k: 0 for k in KERNELS} if mit else \
+            predicted_launches(semi, 4)
+        loss_err = {k: abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-6)
+                    for k in lc}
+        scale = max(d.abs().max().item() for d in dc.values())
+        upd_err = max((dg[n_] - dc[n_]).abs().max().item() for n_ in dc)
+        head = 'unsup.loss_seg_unsup_fdrop' if name == 'deit_fdrop' else \
+            'unsup.loss_seg_unsup_attn_mask'
+        emit({'phase': 'unimatch_f32_vs_cpu', 'case': name,
+              'config': 'ours', 'flags': over,
+              'cut': f'depth [3, 8, 27, 3] -> {list(MIT_TRAIN_F32_DEPTH)}'
+                     if mit else 'num_layers 12 -> 4, out_indices (0, 1, '
+                                 '2, 3); dropout and drop path 0',
+              'batch': f'{n} + {n} at {size}² (+ the mix stream), '
+                       f'unsup_confidence {over["unsup_confidence"]}',
+              'losses_card': lg, 'losses_cpu': lc, 'loss_rel_err': loss_err,
+              'update_max_abs_err': upd_err, 'update_max_abs_cpu': scale,
+              'tol': TOL_TRAIN_F32, 'card_step_s': sg, 'cpu_step_s': sc,
+              'launches': cg, 'launches_predicted': expect})
+        check(cg == expect, f'{name}: launches {cg}, not {expect}')
+        check(not any(cc.values()), f'{name}: the CPU step reached a kernel')
+        check(sorted(lg) == sorted(lc), f'{name}: log keys differ')
+        check(0 < lc['mask_ratio'] < 1 and lc[head] > 0 and
+              lc['unsup.loss_seg_unsup_1'] > 0 and
+              lc['unsup.loss_ncr_unsup_2'] > 0,
+              f'{name}: the UniMatch losses are not live: {lc}')
+        check(all(np.isfinite(v) for v in lg.values()),
+              f'{name}: non-finite losses')
+        check(max(loss_err.values()) <= TOL_TRAIN_F32,
+              f'{name}: f32 losses, card vs CPU: {loss_err}')
+        check(upd_err <= TOL_TRAIN_F32 * scale,
+              f'{name}: f32 updates differ by {upd_err} (max {scale})')
+        total = cg if total is None else add_counts(total, cg)
+    return total
+
+
+def remat_config(name, remat):
+    """A flagship config as written (bf16) with the ViT's remat set."""
+    cfg = load_config(None, name)
+    cfg.model.backbone.update(REMAT[remat])
+    return cfg
+
+
+def phase_unimatch_train_bf16(fa, images, gpu_line):
+    """UniMatch on ``..._MT_w_ours.py`` in bf16 at full depth, 8 + 8 at
+    512² (bench.py's batch) from one fixed batch with its mix stream, the
+    streams PatchShuffled: the first step, 3 timed (mean, p50), 1 profiled;
+    every step's launches against predicted_launches (72 + 48); peak
+    memory. Returns the launch counts."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from s4former_tpu_torch.semi.config import SemiConfig
+    cfg = remat_config('ours', 'off')
+    check(cfg.model.backbone.dtype == 'bfloat16', 'flagship dtype')
+    semi = dataclasses.replace(SemiConfig.from_model_cfg(cfg.model),
+                               **UNIMATCH_FLAGS)
+    expect = predicted_launches(semi, 12)
+    check(expect['flash_attn_fwd'] == 72 and
+          expect['flash_attn_bwd_fused'] == 48, f'prediction {expect}')
+    state, step = trainer_from_config(cfg, 'cuda', **UNIMATCH_FLAGS)
+    batch = to_device(unimatch_batch(images, 8, 8), 'cuda')
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa)                               # the main path starts
+    state, logs, ms = timed_steps(state, step, batch, gen, 4)
+    (state, logs), prof = device_profile(lambda: step(state, batch, gen), 14)
+    path_counts = counts(fa)                       # the main path ends
+    peak = torch.cuda.max_memory_allocated()
+    lg = floats(logs)
+    timed = np.asarray(ms[1:])
+    emit({'phase': 'unimatch_train_bf16', 'config': 'ours',
+          'flags': UNIMATCH_FLAGS, 'batch': '8 + 8 at 512² (+ the mix '
+          'stream), bf16, 12 layers', 'first_step_ms': ms[0],
+          'step_ms': ms[1:], 'step_ms_mean': float(timed.mean()),
+          'step_ms_p50': float(np.median(timed)),
+          'img_per_s': 16 / (timed.mean() / 1e3), 'peak_mem_bytes': peak,
+          'mask_ratio': lg['mask_ratio'], 'logs': lg, 'profile': prof,
+          'launches': path_counts, 'launches_per_step_predicted': expect,
+          'gpu': gpu_line})
+    check(all(np.isfinite(v) for v in lg.values()), f'non-finite logs {lg}')
+    check({'unsup.loss_seg_unsup_attn_mask', 'unsup.loss_seg_unsup_1',
+           'unsup.loss_seg_unsup_2'} <= set(lg), f'UniMatch logs {sorted(lg)}')
+    check(path_counts == {k: 5 * v for k, v in expect.items()},
+          f'5 UniMatch steps launched {path_counts}, not {expect} a step')
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return path_counts
+
+
+def phase_remat_train_bf16(fa, images, gpu_line):
+    """The flagship ``..._MT_w_ours.py`` 8 + 8 step and the UniMatch 8 + 8
+    step (bf16, 12 layers, one fixed batch), each with remat off, 'dots'
+    and 'full': the first step's losses and parameter updates against
+    remat off's (and a second run without remat) within TOL_REMAT_BF16;
+    then 3 steps timed and 1 profiled, with peak memory; launches against
+    predicted_launches with remat (60 + 24, 120 + 48). Returns the counts
+    summed."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from s4former_tpu_torch.semi.config import SemiConfig
+    total = None
+    for regime, over in (('flagship', {}), ('unimatch', UNIMATCH_FLAGS)):
+        batch = to_device(unimatch_batch(images, 8, 8) if over else
+                          train_batch(images, 8, 8), 'cuda')
+        first = {}
+        for remat in ('off', 'dots', 'full', 'off_again'):
+            cfg = remat_config('ours', remat.split('_')[0])
+            semi = dataclasses.replace(SemiConfig.from_model_cfg(cfg.model),
+                                       **over)
+            expect = predicted_launches(semi, 12, remat != 'off' and
+                                        remat != 'off_again')
+            state, step = trainer_from_config(cfg, 'cuda', **over)
+            before = {n: p.detach().clone()
+                      for n, p in state.model.named_parameters()}
+            gen = torch.Generator(device='cuda').manual_seed(0)
+            torch.cuda.synchronize()
+            reset_counts(fa)                       # the main path starts
+            state, logs, ms = timed_steps(state, step, batch, gen, 1)
+            delta = {n: (p.detach() - before[n]).float().cpu()
+                     for n, p in state.model.named_parameters()}
+            del before
+            first[remat] = (floats(logs), delta)
+            if remat == 'off_again':
+                path_counts = counts(fa)
+                del state, step
+                torch.cuda.empty_cache()
+                check(path_counts == expect, f'{regime}, remat off again: '
+                      f'launched {path_counts}, not {expect}')
+                break
+            torch.cuda.reset_peak_memory_stats()
+            state, _, timed = timed_steps(state, step, batch, gen, 3)
+            (state, _), prof = device_profile(
+                lambda: step(state, batch, gen), 6)
+            path_counts = counts(fa)               # the main path ends
+            peak = torch.cuda.max_memory_allocated()
+            del state, step
+            torch.cuda.empty_cache()
+            lg, dg = first[remat]
+            l0, d0 = first['off']
+            scale = max(d.abs().max().item() for d in d0.values())
+            loss_err = {k: abs(lg[k] - l0[k]) / max(abs(l0[k]), 1e-6)
+                        for k in l0 if 'loss' in k}
+            upd_err = max((dg[n] - d0[n]).abs().max().item() for n in d0)
+            emit({'phase': 'remat_train_bf16', 'regime': regime,
+                  'remat': REMAT[remat], 'config': 'ours', 'flags': over,
+                  'batch': '8 + 8 at 512², bf16, 12 layers',
+                  'first_step_ms': ms[0], 'step_ms': timed,
+                  'step_ms_mean': float(np.mean(timed)),
+                  'step_ms_p50': float(np.median(timed)),
+                  'peak_mem_bytes': peak, 'profile': prof,
+                  'loss_rel_err_vs_off': loss_err,
+                  'update_max_abs_err_vs_off': upd_err,
+                  'update_max_abs_off': scale, 'tol': TOL_REMAT_BF16,
+                  'launches': path_counts,
+                  'launches_per_step_predicted': expect, 'gpu': gpu_line})
+            check(all(np.isfinite(v) for v in lg.values()),
+                  f'{regime} {remat}: non-finite logs {lg}')
+            check(path_counts == {k: 5 * v for k, v in expect.items()},
+                  f'{regime} {remat}: 5 steps launched {path_counts}, not '
+                  f'{expect} a step')
+            check(max(loss_err.values()) <= TOL_REMAT_BF16,
+                  f'{regime} {remat}: losses vs remat off {loss_err}')
+            check(upd_err <= TOL_REMAT_BF16 * scale,
+                  f'{regime} {remat}: updates vs remat off {upd_err} (max '
+                  f'{scale})')
+            total = path_counts if total is None else add_counts(
+                total, path_counts)
+        l0, d0 = first['off']
+        la, da = first['off_again']
+        emit({'phase': 'remat_train_bf16', 'regime': regime,
+              'remat': 'off, a second run',
+              'loss_rel_err_vs_off': {
+                  k: abs(la[k] - l0[k]) / max(abs(l0[k]), 1e-6)
+                  for k in l0 if 'loss' in k},
+              'update_max_abs_err_vs_off': max(
+                  (da[n] - d0[n]).abs().max().item() for n in d0)})
+        total = add_counts(total, path_counts)
+        del first, batch
+        torch.cuda.empty_cache()
+    return total
+
+
+def unimatch_cli_config(root):
+    """A UniMatch variant of ``setr_fixture_voc_mini_fullflag.py`` written
+    to ``root``: it inherits the file by ``_base_`` and sets
+    ``UniSemiDataset`` with three-branch unsup pipelines (the teacher's
+    view as the file writes it, and two student views that add
+    RandomGrayscale and GaussianBlur after its photometric distortion) and
+    their ``_mix``-tagged copies as ``unsup_mix``, and the UniMatch flags."""
+    import copy
+    from s4former_tpu_torch.config import Config
+    base = Config.fromfile(FULLFLAG).to_dict()
+    unsup = base['data']['train']['unsup']
+    branch_at = next(i for i, t in enumerate(unsup['pipeline'])
+                     if t['type'] == 'MultiBranch')
+    branches = unsup['pipeline'][branch_at]
+    weak, strong = branches['unsup_teacher'], branches['unsup_student']
+    at = next(i for i, t in enumerate(strong)
+              if t['type'] == 'PhotoMetricDistortion') + 1
+    strong = strong[:at] + [dict(type='RandomGrayscale', prob=0.2),
+                            dict(type='GaussianBlur', prob=0.5)] + strong[at:]
+
+    def tagged(steps, tag):
+        steps = copy.deepcopy(steps)
+        for t in steps:
+            if t['type'] == 'ExtraAttrs':
+                t['tag'] = tag
+        return steps
+
+    def pipeline(suffix):
+        return unsup['pipeline'][:branch_at] + [dict(type='MultiBranch', **{
+            'unsup_teacher' + suffix: tagged(weak, 'unsup_teacher' + suffix),
+            'unsup_student' + suffix: tagged(strong,
+                                             'unsup_student' + suffix),
+            'unsup_student_2' + suffix: tagged(strong,
+                                               'unsup_student_2' + suffix)})]
+    mix = dict(unsup, pipeline=pipeline('_mix'))
+    path = os.path.join(root, 'setr_fixture_voc_mini_unimatch.py')
+    with open(path, 'w') as f:
+        f.write(f'_base_ = [{FULLFLAG!r}]\n'
+                f'data = dict(train=dict(\n'
+                f'    type="UniSemiDataset",\n'
+                f'    unsup=dict(pipeline={pipeline("")!r}),\n'
+                f'    unsup_mix={mix!r}))\n'
+                f'model = dict(**{UNIMATCH_FLAGS!r})\n')
+    return path
+
+
+def phase_unimatch_train_cli(fa, gpu_line, root):
+    """``tools.train`` on the UniMatch variant of the fixture config (bf16,
+    DeiT-B, 4 + 4 a step and the mix stream through the loader): 3 steps,
+    eval and checkpoint at 3, then ``--auto-resume`` to 6 (eval and
+    checkpoint at 6); launches of each run against the UniMatch step's and
+    the eval's; ``data_wait_ms``; ``tools.test`` on ``iter_6`` within
+    TOL_MIOU of the in-loop mIoU. Returns the runs' counts summed."""
+    import numpy as np
+    import torch
+    from s4former_tpu_torch.config import Config
+    from s4former_tpu_torch.semi.config import SemiConfig
+    from s4former_tpu_torch.tools import test as test_cli
+    from s4former_tpu_torch.tools import train as train_cli
+    cfg_path = unimatch_cli_config(root)
+    semi = SemiConfig.from_model_cfg(Config.fromfile(cfg_path).model)
+    check(semi.unimatch and semi.use_PatchShuffle, 'UniMatch flags')
+    per_step = predicted_launches(semi, 12)
+    per_eval = 12 * 4                              # 16 val images, 4 a flush
+    opts = ['--cfg-options', 'evaluation.interval=3',
+            'checkpoint_config.interval=3', 'log_config.interval=3']
+    wd = os.path.join(root, 'unimatch_work')
+    want = {k: 3 * v for k, v in per_step.items()}
+    want['flash_attn_fwd'] += per_eval
+    runs, peaks = {}, {}
+    for name, argv in (('train', ['--max-iters', '3']),
+                       ('resume', ['--auto-resume', '--max-iters', '6'])):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fa)                           # the main path starts
+        t0 = time.perf_counter()
+        state = train_cli.main([cfg_path, '--work-dir', wd] + argv + opts)
+        torch.cuda.synchronize()
+        runs[name] = (counts(fa), time.perf_counter() - t0)
+        peaks[name] = torch.cuda.max_memory_allocated()
+        check(int(state.step) == (3 if name == 'train' else 6),
+              f'{name}: ended at step {int(state.step)}')
+        del state
+        torch.cuda.empty_cache()
+        check(runs[name][0] == want, f'{name}: 3 steps + 1 eval launched '
+              f'{runs[name][0]}, not {want}')
+    resumed = f'resumed from {os.path.join(wd, "iter_3")}'
+    check(resumed in read_logs(wd), f'no "{resumed}" in the log')
+    records = read_jsonl(os.path.join(wd, 'metrics.jsonl'))
+    train = [r for r in records if r['prefix'] == 'train']
+    val = {r['step']: r for r in records if r['prefix'] == 'val'}
+    check([r['step'] for r in train] == [3, 6] and sorted(val) == [3, 6],
+          f'logged steps {records}')
+    check(all(np.isfinite(r['loss']) for r in train), f'losses {train}')
+    check(all({'unsup.loss_seg_unsup_1', 'unsup.loss_seg_unsup_2',
+               'unsup.loss_seg_unsup_attn_mask'} <= set(r) for r in train),
+          f'the UniMatch losses are not logged: {sorted(train[-1])}')
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    results = test_cli.main([cfg_path, os.path.join(wd, 'iter_6')])
+    test_s = time.perf_counter() - t0
+    test_counts = counts(fa)
+    check(test_counts == dict({k: 0 for k in KERNELS},
+                              flash_attn_fwd=per_eval),
+          f'offline test launched {test_counts}')
+    in_loop = val[6]['mIoU']
+    gap = abs(results['mIoU'] - in_loop)
+    emit({'phase': 'unimatch_train_cli',
+          'config': os.path.basename(cfg_path),
+          'base': os.path.basename(FULLFLAG),
+          'batch': '4 + 4 at 512² (+ 4 of the mix stream, three views '
+                   'each), bf16, 12 layers',
+          'losses': {r['step']: r['loss'] for r in train},
+          'mask_ratio': {r['step']: r['mask_ratio'] for r in train},
+          'logs_iter_6': train[-1],
+          'step_ms_windows': [r['step_ms'] for r in train],
+          'data_wait_ms_windows': [r['data_wait_ms'] for r in train],
+          'eval_s': {s: r['eval_s'] for s, r in val.items()},
+          'miou': {s: r['mIoU'] for s, r in val.items()},
+          'run_s': {k: v[1] for k, v in runs.items()},
+          'peak_mem_bytes': peaks,
+          'launches': {'train': runs['train'][0],
+                       'resume': runs['resume'][0], 'test': test_counts},
+          'launches_per_step_predicted': per_step, 'resumed': resumed,
+          'test_miou': results['mIoU'], 'in_loop_miou_iter_6': in_loop,
+          'miou_gap': gap, 'tol': TOL_MIOU, 'test_run_s': test_s,
+          'gpu': gpu_line})
+    check(gap <= TOL_MIOU, f'offline mIoU {results["mIoU"]} vs in-loop '
+          f'{in_loop}: {gap} > {TOL_MIOU}')
+    shutil.rmtree(wd, ignore_errors=True)
+    return add_counts(add_counts(runs['train'][0], runs['resume'][0]),
+                      test_counts)
+
+
+def run_unimatch(fa, images, gpu_line, root):
+    """The UniMatch slice's phases (and the ViT's remat); returns their
+    launch counts by path and prints their seconds."""
+    paths, seconds = {}, {}
+    for name, run in (
+            ('unimatch_f32', lambda: phase_unimatch_f32_vs_cpu(fa, images)),
+            ('unimatch_train_bf16',
+             lambda: phase_unimatch_train_bf16(fa, images, gpu_line)),
+            ('remat_train_bf16',
+             lambda: phase_remat_train_bf16(fa, images, gpu_line)),
+            ('unimatch_train_cli',
+             lambda: phase_unimatch_train_cli(fa, gpu_line, root))):
+        t0 = time.perf_counter()
+        paths[name] = run()
+        seconds[name] = time.perf_counter() - t0
+    emit({'phase': 'unimatch_seconds', **seconds,
+          'total': sum(seconds.values())})
+    return paths
+
+
 def phase_build(libs, seconds):
     """Per kernel function of the built libraries: registers and spills
     (ptxas), tensor-core instructions and asynchronous copies (SASS). Every
@@ -2311,6 +2820,8 @@ def main() -> int:
               'total': sum(seconds.values())})
         # the ablation slice: the rest of the step's flags
         paths.update(run_ablation(fa, images, gpu_line, root))
+        # the UniMatch slice and the ViT's remat
+        paths.update(run_unimatch(fa, images, gpu_line, root))
 
     for name in KERNELS:
         entries[name]['launches'] = sum(p[name] for p in paths.values())

@@ -284,6 +284,24 @@ class SemiDataset:
 
 
 @DATASETS.register_module()
+class UniSemiDataset(SemiDataset):
+    """(dataset_wrappers.py:308; JAX custom.py:541-552): a SemiDataset with
+    a third, unlabeled source ``unsup2``, the mix-source stream of
+    UniMatch. ``tools.train`` reads it from the train config's
+    ``unsup_mix`` (or ``unsup2``) and hands it to ``SemiLoader``, whose
+    batches then hold the ``*_mix`` views."""
+
+    def __init__(self, sup: dict, unsup: dict, unsup2: Optional[dict] = None,
+                 **kwargs):
+        super().__init__(sup, unsup, **kwargs)
+        self.unsup2 = DATASETS.build(dict(unsup2)) if unsup2 else None
+
+    def __len__(self):
+        n = super().__len__()
+        return n + (len(self.unsup2) if self.unsup2 else 0)
+
+
+@DATASETS.register_module()
 class RepeatDataset:
     """(dataset_wrappers.py:165-192): ``times`` x the dataset, items
     repeating modulo its length."""

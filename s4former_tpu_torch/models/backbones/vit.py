@@ -28,16 +28,32 @@ mmseg/models/backbones/vit.py:187-569).
   JAX does. The flash kernels run unchanged: no dropout is inside them.
   ``scan_unroll`` is a JAX compile option the flagship config sets; it is
   accepted and means nothing here.
+- ``remat_layers`` recomputes each layer in the backward
+  (``torch.utils.checkpoint``, non-reentrant), only while gradients are on.
+  ``remat_policy='dots'`` keeps the matrix products' outputs and recomputes
+  the rest, as JAX's ``checkpoint_dots``; any other value recomputes
+  everything. The flash forward is a ctypes call no policy sees, so it is
+  recomputed under both: one more launch of the forward kernel a layer of
+  each pass that takes a gradient, as the Pallas call is under JAX's
+  policy. A layer's dropout and drop-path masks are drawn before the
+  checkpointed call and passed in, so the recomputation sees the same masks
+  and the generator advances as it does without remat. The default is off,
+  unlike JAX's (True, set for a 16 GB TPU): remat changes no output, only
+  memory and time, and the configs fit the 80 GB card without it.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
-from s4former_tpu_torch.models.dropout import (channel_dropout, drop_path,
+from s4former_tpu_torch.models import dropout as dropout_mod
+from s4former_tpu_torch.models.dropout import (apply_keep, channel_dropout,
                                               dropout)
 from s4former_tpu_torch.ops.attention import (dot_product_attention,
                                               multi_head_attention)
@@ -92,15 +108,16 @@ class MultiheadSelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 attn_bias: Optional[torch.Tensor] = None,
-                drop: Optional[Tuple[float, torch.Generator]] = None
+                drop: Optional[Tuple[float, torch.Tensor]] = None
                 ) -> torch.Tensor:
+        """``drop``: (rate, keep mask) of the projection's dropout."""
         b, l, c = x.shape
         q, k, v = self.qkv(x, self.dtype)
         out, _ = multi_head_attention(q, k, v, bias=attn_bias)
         proj = self.attn.out_proj
         out = linear(out.reshape(b, l, c), proj.weight, proj.bias,
                      self.dtype)
-        return out if drop is None else dropout(out, *drop)
+        return out if drop is None else apply_keep(out, drop[1], drop[0])
 
 
 class FFN(nn.Module):
@@ -111,19 +128,22 @@ class FFN(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
+        self.feedforward_channels = feedforward_channels
         self.layers = nn.ModuleList([
             nn.ModuleList([nn.Linear(embed_dims, feedforward_channels)]),
             nn.Linear(feedforward_channels, embed_dims)])
 
-    def forward(self, x: torch.Tensor,
-                drop: Optional[Tuple[float, torch.Generator]] = None
+    def forward(self, x: torch.Tensor, rate: float = 0.0,
+                masks: Tuple[Optional[torch.Tensor], ...] = (None, None)
                 ) -> torch.Tensor:
+        """``masks``: the keep masks of the dropouts after each linear, or
+        None."""
         fc1, fc2 = self.layers[0][0], self.layers[1]
         y = F.gelu(linear(x, fc1.weight, fc1.bias, self.dtype))
-        if drop is not None:
-            y = dropout(y, *drop)
+        if masks[0] is not None:
+            y = apply_keep(y, masks[0], rate)
         y = linear(y, fc2.weight, fc2.bias, self.dtype)
-        return y if drop is None else dropout(y, *drop)
+        return y if masks[1] is None else apply_keep(y, masks[1], rate)
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -139,23 +159,45 @@ class TransformerEncoderLayer(nn.Module):
         self.ln2 = nn.LayerNorm(embed_dims, eps=norm_eps)
         self.ffn = FFN(embed_dims, feedforward_channels, dtype)
 
+    def draw_masks(self, x: torch.Tensor, drop_rate: float,
+                   drop_path_rate: float,
+                   generator: Optional[torch.Generator]
+                   ) -> Tuple[Optional[torch.Tensor], ...]:
+        """The layer's keep masks for input ``x``, in the JAX layer's order:
+        projection dropout, the attention branch's drop path, the two FFN
+        dropouts, the FFN branch's drop path (None where a rate is 0)."""
+        b, l, c = x.shape
+        shapes = [(drop_rate, (b, l, c)), (drop_path_rate, (b, 1, 1)),
+                  (drop_rate, (b, l, self.ffn.feedforward_channels)),
+                  (drop_rate, (b, l, c)), (drop_path_rate, (b, 1, 1))]
+        return tuple(
+            dropout_mod.keep_mask(generator, 1.0 - rate, shape, x.device)
+            if rate > 0 else None for rate, shape in shapes)
+
+    def block(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor],
+              masks: Tuple[Optional[torch.Tensor], ...], drop_rate: float,
+              drop_path_rate: float) -> torch.Tensor:
+        """The layer given its drawn ``masks``: no randomness, so a
+        recomputation in the backward gives the same values."""
+        proj, attn_path, fc1, fc2, ffn_path = masks
+
+        def branch(y, mask):
+            return y if mask is None else apply_keep(y, mask, drop_path_rate)
+        x = x + branch(self.attn(layer_norm(x, self.ln1, self.dtype),
+                                 attn_bias,
+                                 None if proj is None else (drop_rate, proj)),
+                       attn_path)
+        return x + branch(self.ffn(layer_norm(x, self.ln2, self.dtype),
+                                   drop_rate, (fc1, fc2)), ffn_path)
+
     def forward(self, x: torch.Tensor,
                 attn_bias: Optional[torch.Tensor] = None,
                 drop_rate: float = 0.0, drop_path_rate: float = 0.0,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """The rates are the train forward's (0 in eval). Masks are drawn
-        in the JAX layer's order: projection dropout, the attention
-        branch's drop path, the two FFN dropouts, the FFN branch's drop
-        path."""
-        drop = (drop_rate, generator) if drop_rate > 0 else None
-
-        def branch(y):
-            if drop_path_rate > 0:
-                return drop_path(y, drop_path_rate, generator)
-            return y
-        x = x + branch(self.attn(layer_norm(x, self.ln1, self.dtype),
-                                 attn_bias, drop))
-        return x + branch(self.ffn(layer_norm(x, self.ln2, self.dtype), drop))
+        """The rates are the train forward's (0 in eval); the masks are
+        drawn from ``generator`` first (``draw_masks``)."""
+        masks = self.draw_masks(x, drop_rate, drop_path_rate, generator)
+        return self.block(x, attn_bias, masks, drop_rate, drop_path_rate)
 
 
 class PatchEmbed(nn.Module):
@@ -172,6 +214,29 @@ class PatchEmbed(nn.Module):
         y = F.conv2d(x.permute(0, 3, 1, 2).to(dtype), w.to(dtype),
                      b.to(dtype), stride=self.projection.stride)
         return y.flatten(2).transpose(1, 2)
+
+
+# the products of the ViT layer (its four linears; the plain attention's
+# einsums on the CPU) at the aten level, below autograd
+DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+           torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+
+def save_dots(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.checkpoint_dots``: keep the outputs of the
+    matrix products, recompute everything else."""
+    return CheckpointPolicy.MUST_SAVE if op in DOT_OPS else \
+        CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_kwargs(policy: str) -> dict:
+    """``checkpoint``'s keywords for ``remat_policy``: 'dots' saves the
+    products (``save_dots``); any other policy recomputes the whole layer,
+    as the JAX ViT's (vit.py:339-347)."""
+    if policy != 'dots':
+        return {}
+    return {'context_fn': functools.partial(
+        create_selective_checkpoint_contexts, save_dots)}
 
 
 def _resize_pos_embed(pos_embed: torch.Tensor, hw: Tuple[int, int],
@@ -242,6 +307,8 @@ class VisionTransformer(nn.Module):
                  with_cls_token: bool = True,
                  norm_eps: float = 1e-6,
                  scan_unroll: int = 1,
+                 remat_layers: bool = False,
+                 remat_policy: str = 'dots',
                  dtype: torch.dtype = torch.float32,
                  interpolate_mode: str = 'bilinear',
                  norm_cfg: Optional[dict] = None,
@@ -259,6 +326,8 @@ class VisionTransformer(nn.Module):
         self.drop_rate = drop_rate
         self.attn_drop_rate = attn_drop_rate    # changes no output (above)
         self.drop_path_rate = drop_path_rate
+        self.remat_layers = remat_layers
+        self.remat_policy = remat_policy
         self.patch_embed = PatchEmbed(in_channels, embed_dims, patch_size)
         if with_cls_token:
             self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dims))
@@ -313,8 +382,17 @@ class VisionTransformer(nn.Module):
 
         states = []
         h = tokens
+        remat = self.remat_layers and torch.is_grad_enabled()
         for layer in self.layers:
-            h = layer(h, layer_bias, drop_rate, drop_path_rate, generator)
+            masks = layer.draw_masks(h, drop_rate, drop_path_rate, generator)
+            if remat:
+                h = checkpoint(layer.block, h, layer_bias, masks, drop_rate,
+                               drop_path_rate, use_reentrant=False,
+                               preserve_rng_state=False,
+                               **remat_kwargs(self.remat_policy))
+            else:
+                h = layer.block(h, layer_bias, masks, drop_rate,
+                                drop_path_rate)
             states.append(h)
 
         outs, attns = [], []

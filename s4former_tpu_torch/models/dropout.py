@@ -24,12 +24,19 @@ def keep_mask(generator: Optional[torch.Generator], keep: float,
                       device=device) < keep
 
 
-def _masked(x: torch.Tensor, rate: float, shape: Sequence[int],
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+def apply_keep(x: torch.Tensor, mask: torch.Tensor,
+               rate: float) -> torch.Tensor:
+    """``x`` with a drawn ``mask`` of a dropout of ``rate`` applied: kept
+    values scaled by 1/keep, dropped ones 0."""
     keep = 1.0 - rate
-    mask = keep_mask(generator, keep, shape, x.device)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
+
+
+def _masked(x: torch.Tensor, rate: float, shape: Sequence[int],
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    return apply_keep(x, keep_mask(generator, 1.0 - rate, shape, x.device),
+                      rate)
 
 
 def dropout(x: torch.Tensor, rate: float,

@@ -12,7 +12,8 @@ packages, the same draws:
 - ClassMix: ``class_scores`` (uniform per class, per sample or per
   super-patch) -> ``classmix_with_scores``, which selects n // 2 + 1 of the
   n classes present (per super-patch with ``patchwise``);
-- PatchShuffle: ``patch_shuffle`` -> ``apply_patch_perm``;
+- PatchShuffle: ``shuffle_perms`` (in ``patch_shuffle``) ->
+  ``apply_patch_perm``;
 - ``mix_with_labeled``: no draw;
 - adaptive CutMix: ``adaptive_draws`` -> ``cutmix_label_adaptive``.
 
@@ -224,14 +225,21 @@ def patch_shuffle(generator: Optional[torch.Generator], imgs: torch.Tensor,
     int32); the decode head undoes perm on its features."""
     b, h, w, _ = imgs.shape
     s = patch_size * patchmix_n
-    gg = (h // s) * (w // s)
-    dev = imgs.device
-    gates = torch.rand((b,), generator=generator, device=dev) < patchmix_ratio
-    perms = torch.argsort(torch.rand((b, gg), generator=generator,
-                                     device=dev), dim=1)
-    identity = torch.arange(gg, device=dev).expand(b, gg)
-    perms = torch.where(gates[:, None], perms, identity).to(torch.int32)
+    perms = shuffle_perms(generator, b, (h // s) * (w // s), patchmix_ratio,
+                          imgs.device)
     return apply_patch_perm(imgs, perms, patchmix_n, patch_size), perms
+
+
+def shuffle_perms(generator: Optional[torch.Generator], b: int, gg: int,
+                  patchmix_ratio: float = 0.5, device=None) -> torch.Tensor:
+    """PatchShuffle's draw: [B, gg] int32, each row a uniform random
+    permutation with probability ``patchmix_ratio``, else the identity."""
+    gates = torch.rand((b,), generator=generator,
+                       device=device) < patchmix_ratio
+    perms = torch.argsort(torch.rand((b, gg), generator=generator,
+                                     device=device), dim=1)
+    identity = torch.arange(gg, device=device).expand(b, gg)
+    return torch.where(gates[:, None], perms, identity).to(torch.int32)
 
 
 def mix_with_labeled(imgs: torch.Tensor, labels: torch.Tensor,

@@ -18,8 +18,10 @@ unsup losses, either as one fused 2B forward (the PASA half carries the
 bias, the mixed half zeros; the default ``fuse_unsup_passes=True``) or as
 the sequential passes (PASA, with fdrop under ``attn_mask_w_fdrop``; the
 fdrop pass under ``use_fdrop``; the final pass), which fdrop and a MiT
-always take; the sum of the entries whose key contains 'loss'; autograd;
-poly LR with the head x10 multiplier, the layer-wise decay when
+always take; or, under ``unimatch`` with a mix stream in the batch, the
+UniMatch branch (``semi/unimatch.py``) ahead of both; the sum of the
+entries whose key contains 'loss'; autograd; poly LR with the head x10
+multiplier, the layer-wise decay when
 ``paramwise_cfg`` is given, and torch SGD with momentum; the annealed EMA
 momentum for the next step. ``batch`` holds NHWC device tensors under the
 JAX keys (``sup_img``, ``sup_gt``, ``unsup_teacher_img``,
@@ -28,7 +30,16 @@ replace a mix's sampled draw and gate (keys in ``apply_strong_mixes`` and
 ``sup_mixes``) or the EMA head skips (``dbg_ema_head_skip``, [n] bool in
 ``decode_head.named_parameters()`` order): parity tests and
 ``chip_smoke.py`` only; the JAX step reads only ``dbg_cutmix_mask`` and
-``dbg_patchmix_perm``.
+``dbg_patchmix_perm``. UniMatch (JAX train_step.py:331, 404-411,
+492-528) runs when ``unimatch`` is set and the batch holds
+``unsup_teacher_mix_img`` (with ``unsup_student_2_img``,
+``unsup_student_mix_img`` and ``unsup_student_2_mix_img``); without the
+mix stream ``unimatch`` takes the normal branch, as in JAX. The teacher
+then also labels the mix-source view, the strong-mix cascade is skipped,
+and the unsup passes are always sequential: head 1 (PASA with its bias, or
+fdrop), then the two mixed streams; its draws take the overrides
+``dbg_um_cutmix_mask_{1,2}`` and ``dbg_um_patchmix_perm_{1,2}``, the keys
+the JAX step reads.
 
 With a MiT backbone (JAX train_step.py:286-288, 376-390, 527-529) the PASA
 input is the raw unconfidence map ``1 - conf_mask`` lifted to image
@@ -45,9 +56,6 @@ gates and EMA skips are ``torch.where``s on the device. The student
 module, its SGD buffers and the EMA teacher (a second copy of the module)
 are updated in place; the returned state holds them with the next step
 counter.
-
-Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: UniMatch (``unimatch``).
 """
 from __future__ import annotations
 
@@ -77,6 +85,8 @@ from s4former_tpu_torch.semi.pasa import pasa_bias_from_conf_mask
 from s4former_tpu_torch.semi.pseudo import (extract_teacher_info, mask_ratio,
                                             pseudo_ce_loss,
                                             soft_pseudo_ce_loss)
+from s4former_tpu_torch.semi.unimatch import (unimatch_draws,
+                                              unimatch_unsup_losses)
 
 Tensor = torch.Tensor
 
@@ -293,11 +303,6 @@ def sup_mixes(cfg: SemiConfig, generator: Optional[torch.Generator],
     return img, gt
 
 
-def unported_flags(cfg: SemiConfig) -> List[str]:
-    """The flags of ``cfg`` this port does not run: UniMatch only."""
-    return ['unimatch'] if cfg.unimatch else []
-
-
 def make_semi_train_step(model: nn.Module,
                          semi_cfg: SemiConfig,
                          num_classes: int,
@@ -317,9 +322,6 @@ def make_semi_train_step(model: nn.Module,
     ``paramwise_cfg`` ``{num_layers, decay_rate[, decay_type]}`` turns on
     the layer-wise LR decay, composed with ``custom_keys``."""
     cfg = semi_cfg
-    missing = unported_flags(cfg)
-    if missing:
-        raise NotImplementedError(f'not ported yet: {", ".join(missing)}')
     main_loss, aux_losses = _head_loss_fns(model)
     if custom_keys is None:
         custom_keys = {'head': 10.0}
@@ -376,6 +378,7 @@ def make_semi_train_step(model: nn.Module,
                               cfg.ema_momentum, head_skips)
 
         has_unsup = 'unsup_teacher_img' in batch and cfg.unsup_weight != 0
+        has_unimatch = cfg.unimatch and 'unsup_teacher_mix_img' in batch
         # supervised mixes, before the unsup branch, whose labeled mixes
         # take the mixed images and labels (:429-434, :488)
         sup_img, sup_gt = sup_mixes(cfg, generator, batch['sup_img'],
@@ -386,7 +389,7 @@ def make_semi_train_step(model: nn.Module,
 
         # ---- 2. teacher pseudo-labels (no grad, eval mode; :516-542)
         teacher = pasa_bias = mixed_imgs = mixed_labels = perm = None
-        new_annealed = None
+        teacher_mix = new_annealed = None
         if has_unsup:
             t_model = state.ema_model if cfg.ema else model
             with torch.no_grad():
@@ -416,15 +419,25 @@ def make_semi_train_step(model: nn.Module,
                     teacher.conf_mask, attn_ps, cfg.attn_mask_weight,
                     cfg.adaptive_attn_mask)
             bu = batch['unsup_student_img'].shape[0]
-            if bu > sup_student_img.shape[0]:
-                raise ValueError(
-                    f'unsup batch ({bu}) > sup batch '
-                    f'({sup_student_img.shape[0]}): the strong mixes pair '
-                    f'each unsup sample with a labeled one')
-            mixed_imgs, mixed_labels, perm = apply_strong_mixes(
-                cfg, generator, batch['unsup_student_img'],
-                teacher.hard_label, teacher, sup_student_img[:bu],
-                sup_gt[:bu], num_classes, overrides)
+            if has_unimatch:
+                # the mix-source view's labels (UniMatch: no strong-mix
+                # cascade)
+                with torch.no_grad():
+                    t_mix_logits = t_model.forward_decode_from_img(
+                        batch['unsup_teacher_mix_img'], train=False)
+                teacher_mix = extract_teacher_info(
+                    t_mix_logits, cfg.unsup_confidence,
+                    cfg.unsup_temperature, cfg.unsup_soft)
+            else:
+                if bu > sup_student_img.shape[0]:
+                    raise ValueError(
+                        f'unsup batch ({bu}) > sup batch '
+                        f'({sup_student_img.shape[0]}): the strong mixes '
+                        f'pair each unsup sample with a labeled one')
+                mixed_imgs, mixed_labels, perm = apply_strong_mixes(
+                    cfg, generator, batch['unsup_student_img'],
+                    teacher.hard_label, teacher, sup_student_img[:bu],
+                    sup_gt[:bu], num_classes, overrides)
 
         # ---- 2b. the EMA teacher on the WEAK (unmixed) labeled images,
         # shared by supervised NCR (:447-449) and sup_ema (:477-480)
@@ -460,7 +473,22 @@ def make_semi_train_step(model: nn.Module,
                 ema_probs = resize_nearest(ema_probs, gt_hw)
             losses['loss_decode_sup_ema'] = main_loss(
                 sup_main, ema_probs.argmax(dim=-1).to(torch.int32))
-        if has_unsup:
+        if has_unsup and has_unimatch:
+            def apply_decode(img, attn_bias=None, use_fdrop=False,
+                             patchmix_perm=None, patchmix_n=0):
+                return model.forward_decode_from_img(
+                    img, train=True, attn_bias=attn_bias,
+                    pos_mode=cfg.pos_mode, use_fdrop=use_fdrop,
+                    patchmix_perm=patchmix_perm, patchmix_n=patchmix_n,
+                    generator=generator)
+            student_img = batch['unsup_student_img']
+            draws = unimatch_draws(cfg, generator, bu,
+                                   tuple(student_img.shape[1:3]),
+                                   student_img.device, overrides)
+            unsup = unimatch_unsup_losses(cfg, draws, batch, teacher,
+                                          teacher_mix, pasa_bias,
+                                          apply_decode, num_classes)
+        elif has_unsup:
             unsup: Dict[str, Tensor] = {}
             student_img = batch['unsup_student_img']
             if fused:
@@ -513,6 +541,7 @@ def make_semi_train_step(model: nn.Module,
                 unsup['loss_ncr_unsup'] = (0.5 if halved else 1.0) * \
                     ncr_loss(stu_logits, teacher.seg_logits, mixed_labels,
                              num_classes, cfg.negative_class_ranking_mode)
+        if has_unsup:
             # weighted by unsup_weight, gated by iter_unsup_start (:488-512)
             w = torch.tensor(cfg.unsup_weight, dtype=torch.float32,
                              device=state.step.device)

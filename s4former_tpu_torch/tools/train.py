@@ -13,14 +13,18 @@ the model's tensors the pretrained file overlaid. ``--profile FIRST N``
 traces steps FIRST..FIRST+N-1 into ``WORK_DIR/profile/trace.json``
 (``python -m s4former_tpu_torch.tools.profile_trace`` reads it). Runs on one
 CUDA device unless ``--device cpu`` is given; without a card it fails.
-Every flag of the S4Former step but UniMatch runs, set in the config or
-with ``--cfg-options`` (e.g. ``model.use_fdrop=True``,
-``model.backbone.drop_path_rate=0.1``); ``optimizer.paramwise_cfg``'s
+Every flag of the S4Former step runs, set in the config or with
+``--cfg-options`` (e.g. ``model.use_fdrop=True``,
+``model.backbone.drop_path_rate=0.1``,
+``model.backbone.remat_layers=True``); ``optimizer.paramwise_cfg``'s
 ``num_layers`` and ``decay_rate`` turn on the layer-wise LR decay, as in
-JAX tools/train.py:166-187. Not ported yet, and refused with
-``NotImplementedError``: ``--model-parallel`` > 1, ``--zero3``, a
-``--launcher`` other than 'none', and UniMatch (``model.unimatch`` and the
-``unsup_mix`` stream).
+JAX tools/train.py:166-187. UniMatch takes ``model.unimatch=True`` and a
+mix-source stream, ``data.train.unsup_mix`` (or ``unsup2``, as
+``UniSemiDataset`` names it), whose pipeline tags its views
+``unsup_teacher_mix``, ``unsup_student_mix`` and ``unsup_student_2_mix``
+(JAX tools/train.py:140-154). Not ported yet, and refused with
+``NotImplementedError``: ``--model-parallel`` > 1, ``--zero3`` and a
+``--launcher`` other than 'none'.
 """
 import argparse
 import os
@@ -142,24 +146,27 @@ def main(argv=None):
     train_cfg = cfg.data['train']
     sup_ds = build_dataset(train_cfg['sup']) if 'sup' in train_cfg else \
         build_dataset(train_cfg)
-    unsup_ds = None
+    unsup_ds = unsup_mix_ds = None
     if semi_cfg.ema and train_cfg.get('unsup'):
         unsup_ds = build_dataset(train_cfg['unsup'])
-        if train_cfg.get('unsup_mix') or train_cfg.get('unsup2'):
-            raise NotImplementedError(
-                'not ported yet: the UniMatch mix stream (unsup_mix)')
+        # UniSemiDataset's third source: the UniMatch mix stream
+        mix_cfg = train_cfg.get('unsup_mix') or train_cfg.get('unsup2')
+        if mix_cfg:
+            unsup_mix_ds = build_dataset(mix_cfg)
     sup_pb = cfg.get('samples_per_gpu_sup',
                      cfg.data.get('samples_per_gpu', 8) // 2
                      if unsup_ds is not None
                      else cfg.data.get('samples_per_gpu', 8))
     unsup_pb = cfg.get('samples_per_gpu_unsup', sup_pb) \
         if unsup_ds is not None else 0
-    loader = SemiLoader(sup_ds, unsup_ds, sup_per_batch=sup_pb,
-                        unsup_per_batch=unsup_pb,
+    loader = SemiLoader(sup_ds, unsup_ds, unsup_mix_ds,
+                        sup_per_batch=sup_pb, unsup_per_batch=unsup_pb,
                         num_workers=cfg.data.get('workers_per_gpu', 4) * 2,
                         seed=args.seed)
     logger.info(f'sup dataset: {len(sup_ds)} imgs' +
                 (f', unsup: {len(unsup_ds)} imgs' if unsup_ds else '') +
+                (f', unsup_mix: {len(unsup_mix_ds)} imgs' if unsup_mix_ds
+                 else '') +
                 f'; {sup_pb} + {unsup_pb} a step')
 
     # train step from the config

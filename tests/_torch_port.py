@@ -287,3 +287,49 @@ def mit_model_cfg(adaptive: bool = True, drop_path_rate: float = 0.0,
     cfg['backbone']['drop_path_rate'] = drop_path_rate
     cfg['decode_head'].update(head)
     return cfg
+
+
+# A UniMatch variant of the CLI config: UniSemiDataset with three-branch
+# unsup pipelines (the weak teacher view and two strong student views, whose
+# strong branches also take RandomGrayscale and GaussianBlur) and the
+# ``_mix``-tagged mix-source stream; PatchShuffle in the streams.
+UNIMATCH_CFG = """
+strong = [dict(type='PhotoMetricDistortion'),
+          dict(type='RandomGrayscale', prob=0.5),
+          dict(type='GaussianBlur', prob=0.5)]
+
+
+def branch(tag, strong_views):
+    return (strong if strong_views else []) + [
+        dict(type='Normalize', **img_norm_cfg),
+        dict(type='Pad', size=crop_size, pad_val=0, seg_pad_val=255),
+        dict(type='ExtraAttrs', tag=tag),
+        dict(type='Collect', keys=['img', 'gt_semantic_seg'])]
+
+
+def three_branch(suffix):
+    return geometric + [dict(type='MultiBranch', **{
+        'unsup_teacher' + suffix: branch('unsup_teacher' + suffix, False),
+        'unsup_student' + suffix: branch('unsup_student' + suffix, True),
+        'unsup_student_2' + suffix: branch('unsup_student_2' + suffix,
+                                           True)})]
+
+
+data['train'] = dict(
+    type='UniSemiDataset', sup=data['train']['sup'],
+    unsup=dict(data['train']['unsup'], pipeline=three_branch('')),
+    unsup_mix=dict(data['train']['unsup'], pipeline=three_branch('_mix')))
+model.update(unimatch=True, use_PatchShuffle=True,
+             use_PatchShuffle_w_Cutmix=False)
+"""
+
+
+def write_unimatch_config(directory, val_split: str) -> str:
+    """``write_cli_config``'s config (2 + 2 a step, 2 iterations) with the
+    UniMatch regime: the unsup and mix-source streams through three-branch
+    pipelines, and ``model.unimatch``."""
+    base = write_cli_config(directory, val_split)
+    path = directory / 'tiny_unimatch.py'
+    with open(base) as f:
+        path.write_text(f.read() + UNIMATCH_CFG)
+    return str(path)

@@ -44,8 +44,7 @@ from s4former_tpu_torch.models import dropout as tdrop
 from s4former_tpu_torch.models.losses import cross_entropy as ce
 from s4former_tpu_torch.semi import ema, mixes
 from s4former_tpu_torch.semi.config import SemiConfig
-from s4former_tpu_torch.semi.train_step import (_gate, train_state_from_jax,
-                                                unported_flags)
+from s4former_tpu_torch.semi.train_step import _gate, train_state_from_jax
 from tests._torch_port import (TRAIN_MODEL, jax_train_model, mit_model_cfg,
                                perturbed, torch_train_model)
 
@@ -667,18 +666,3 @@ def test_ema_head_skip_leaves_buffers_aux_and_backbone(jax_state):
     assert any('running_var' in n and n.startswith('decode_head.')
                for n in teacher)
 
-
-# ------------------------------------------------------------- guards
-@pytest.mark.parametrize('unimatch', [False, True])
-def test_unported_flags_is_unimatch_alone(unimatch):
-    """Every non-UniMatch flag set: nothing is unported but UniMatch."""
-    every = dict(
-        use_fdrop=True, attn_mask_w_fdrop=True, use_CutMix=True,
-        use_CutOut=True, use_ClassMix=True, use_PatchShuffle=True,
-        use_PatchShuffle_w_Classmix=True, use_PatchShuffle_w_Cutmix=True,
-        mix_with_labeled=True, use_cutmix_adaptive=True, sup_cutmix=True,
-        sup_ClassMix=True, sup_ema=True, momentum_head_dropout=0.1,
-        negative_class_ranking=True, negative_class_ranking_mode='both',
-        patchwise=True, unimatch=unimatch)
-    assert unported_flags(SemiConfig(**every)) == \
-        (['unimatch'] if unimatch else [])

@@ -382,3 +382,117 @@ def test_keep_rates_on_card(cuda, what):
     assert abs(int(kept.sum()) - units * keep) <= 5 * sigma
     nz = out != 0
     torch.testing.assert_close(out[nz], x[nz] / keep)
+
+
+# ------------------------------------------------------ remat and UniMatch
+# a tiny ViT whose heads are 64 wide, as the kernels take: embed 128, 2
+# heads, 2 layers; the SETR heads of tests/_torch_port.py:TRAIN_MODEL
+def _vit_cfg(**backbone):
+    import copy
+    from tests._torch_port import TRAIN_MODEL
+    cfg = copy.deepcopy(TRAIN_MODEL)
+    cfg['backbone'].update(embed_dims=128, num_heads=2, **backbone)
+    for head in [cfg['decode_head']] + cfg['auxiliary_head']:
+        head['in_channels'] = 128
+    return cfg
+
+
+def _vit_pair(cuda, **backbone):
+    """The tiny ViT with one set of seeded weights on the CPU and on the
+    card, f32 without TF32."""
+    from s4former_tpu_torch.models import (build_segmentor,
+                                           init_segmentor_weights)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = build_segmentor(_vit_cfg(**backbone))
+    init_segmentor_weights(cpu, torch.Generator().manual_seed(0))
+    gpu = build_segmentor(_vit_cfg(**backbone))
+    gpu.load_state_dict(cpu.state_dict())
+    return cpu, gpu.to(cuda)
+
+
+@pytest.mark.parametrize('policy', ['dots', 'full'])
+def test_remat_with_the_flash_function(cuda, policy):
+    """Remat around the flash Function on the card, dropout and drop path
+    live (CUDA generator), f32 with a PASA bias: the loss and gradients of
+    remat off within 1e-5 (the fused backward's atomic dq), the same
+    generator state, and the forward kernel launched once more a layer."""
+    from s4former_tpu_torch.models import build_segmentor
+    rates = dict(drop_rate=0.1, drop_path_rate=0.2)
+    _, ref = _vit_pair(cuda, **rates)
+    model = build_segmentor(_vit_cfg(remat_layers=True, remat_policy=policy,
+                                     **rates)).to(cuda)
+    model.load_state_dict(ref.state_dict())
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((2, 64, 64, 3), generator=g, device=cuda)
+    bias = torch.randn((2, 1, 17, 17), generator=g, device=cuda)
+    out = {}
+    for name, m in (('off', ref), (policy, model)):
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        before = (fa.launch_count, fa.fused_launch_count)
+        loss = m.forward_decode_from_img(x, train=True, attn_bias=bias,
+                                         generator=gen).square().mean()
+        params = [p for n, p in m.named_parameters()
+                  if not n.startswith('auxiliary_head')]
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        out[name] = (loss.item(), grads, gen.get_state(),
+                     (fa.launch_count - before[0],
+                      fa.fused_launch_count - before[1]))
+    (l0, g0, s0, n0), (l1, g1, s1, n1) = out['off'], out[policy]
+    assert n0 == (2, 2) and n1 == (4, 2)
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+    for a, b in zip(g1, g0):
+        assert (a - b).abs().max().item() <= 1e-5 * max(
+            b.abs().max().item(), 1e-6)
+    assert torch.equal(s1, s0)
+
+
+def test_unimatch_step_matches_cpu(cuda):
+    """One UniMatch step (EMA, PASA head 1, two PatchShuffled streams with
+    injected boxes and permutations, NCR) on the card and on the CPU from
+    the same weights: losses within 1e-4 relative, the updated parameters
+    within 1e-4 abs; 2 layers x (2 teacher + 4 student) forward and 2 x 4
+    fused backward launches."""
+    from s4former_tpu_torch.semi.config import SemiConfig
+    from s4former_tpu_torch.semi.train_step import (create_train_state,
+                                                    make_semi_train_step)
+    flags = SemiConfig(
+        ema=True, ema_momentum=0.99, unimatch=True, unsup_weight=1.0,
+        unsup_confidence=0.3, attn_mask_seperate_head=True,
+        attn_mask_weight=5.0, adaptive_attn_mask=True,
+        use_PatchShuffle=True, PatchMix_N=2, negative_class_ranking=True,
+        negative_class_ranking_mode='unsup_only')
+    rs = np.random.RandomState(1)
+    batch = {'sup_gt': rs.randint(0, 5, (2, 64, 64)).astype(np.int32)}
+    for key in ('sup_img', 'unsup_teacher_img', 'unsup_student_img',
+                'unsup_student_2_img', 'unsup_teacher_mix_img',
+                'unsup_student_mix_img', 'unsup_student_2_mix_img'):
+        batch[key] = rs.randn(2, 64, 64, 3).astype(np.float32)
+    for idx in (1, 2):
+        masks = np.ones((2, 64, 64), np.float32)
+        masks[0, 8 * idx:32 + 8 * idx, 16:48] = 0
+        batch[f'dbg_um_cutmix_mask_{idx}'] = masks
+        batch[f'dbg_um_patchmix_perm_{idx}'] = np.array(
+            [[2, 0, 3, 1], [1, 0, 3, 2]], np.int32)[::3 - 2 * idx].copy()
+    out = {}
+    for model, device in zip(_vit_pair(cuda), ('cpu', cuda)):
+        state = create_train_state(model, ema=True)
+        step = make_semi_train_step(model, flags, num_classes=5,
+                                    base_lr=0.01, max_iters=100)
+        before = (fa.launch_count, fa.fused_launch_count)
+        state, logs = step(state, {k: torch.from_numpy(v).to(device)
+                                   for k, v in batch.items()},
+                           torch.Generator(device=device).manual_seed(0))
+        launches = (fa.launch_count - before[0],
+                    fa.fused_launch_count - before[1])
+        out[str(device)] = ({k: float(v) for k, v in logs.items()},
+                            {k: v.detach().cpu() for k, v in
+                             state.model.state_dict().items()}, launches)
+    (lc, sc, nc), (lg, sg, ng) = out['cpu'], out[str(cuda)]
+    assert nc == (0, 0) and ng == (12, 8)
+    assert 0 < lc['mask_ratio'] < 1 and lc['unsup.loss_ncr_unsup_2'] > 0
+    for k, v in lc.items():
+        assert abs(lg[k] - v) <= 1e-4 * max(abs(v), 1e-3), k
+    for k, v in sc.items():
+        assert (sg[k].float() - v.float()).abs().max().item() <= 1e-4, k

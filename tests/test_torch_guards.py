@@ -32,7 +32,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = _port_files()
     assert len(files) > 15
     # the host runtime, the profiler's reader, the test CLI's modules, the
-    # SegFormer slice's and the ablation slice's are among the files read
+    # SegFormer slice's, the ablation slice's and the UniMatch slice's are
+    # among the files read
     assert {'native/__init__.py', 'native/build.py', 'core/hooks.py',
             'tools/profile_trace.py', 'utils/palette.py',
             'utils/collect_env.py', 'tools/test.py',
@@ -41,7 +42,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             'models/decode_heads/setr_up.py',
             'models/losses/cross_entropy.py', 'core/optim.py',
             'semi/ema.py', 'semi/mixes.py', 'semi/train_step.py',
-            'tools/train.py'} <= {
+            'tools/train.py', 'semi/unimatch.py',
+            'data/pipelines/extra_transforms.py',
+            'data/datasets/custom.py', 'data/loader.py'} <= {
         str(p.relative_to(REPO / 's4former_tpu_torch')) for p in files
         if REPO / 's4former_tpu_torch' in p.parents}
     bad = [(str(p.relative_to(REPO)), m) for p in files
@@ -80,19 +83,32 @@ def test_cli_fails_without_a_card(tmp_path, tool):
     assert not any(tmp_path.iterdir())       # failed before any work
 
 
-def test_unported_training_flags_raise():
-    """The one semi flag the port's train step does not run, UniMatch,
-    raises NotImplementedError when the step is made; every other flag of
-    the JAX step, the layer-wise LR decay and the models' dropout, drop
-    path, fdrop and head dropout are accepted and run."""
+def test_every_training_flag_builds_and_runs():
+    """Every semi flag of the JAX step is accepted by the port's train
+    step, UniMatch included, which runs a step on its six unsup views; the
+    layer-wise LR decay and the models' dropout, drop path, fdrop and head
+    dropout are accepted and run."""
+    import numpy as np
     import torch
     from s4former_tpu_torch.semi.config import SemiConfig
-    from s4former_tpu_torch.semi.train_step import make_semi_train_step
+    from s4former_tpu_torch.semi.train_step import (create_train_state,
+                                                    make_semi_train_step)
     from tests._torch_port import torch_train_model
     model = torch_train_model()
     kw = dict(num_classes=5, base_lr=0.01, max_iters=100)
-    with pytest.raises(NotImplementedError, match='unimatch'):
-        make_semi_train_step(model, SemiConfig(unimatch=True), **kw)
+    step = make_semi_train_step(model, SemiConfig(
+        unimatch=True, ema=True, unsup_weight=1.0), **kw)
+    rs = np.random.RandomState(0)
+    batch = {k: torch.from_numpy(rs.randn(2, 64, 64, 3).astype(np.float32))
+             for k in ('sup_img', 'unsup_teacher_img', 'unsup_student_img',
+                       'unsup_student_2_img', 'unsup_teacher_mix_img',
+                       'unsup_student_mix_img', 'unsup_student_2_mix_img')}
+    batch['sup_gt'] = torch.from_numpy(rs.randint(0, 5, (2, 64, 64)))
+    state, logs = step(create_train_state(model, ema=True), batch,
+                       torch.Generator().manual_seed(0))
+    assert int(state.step) == 1
+    assert {'unsup.loss_seg_unsup_fdrop', 'unsup.loss_seg_unsup_1',
+            'unsup.loss_seg_unsup_2'} <= set(logs)
     flags = [dict(use_fdrop=True),
              dict(attn_mask_w_fdrop=True), dict(use_ClassMix=True),
              dict(use_CutOut=True), dict(use_CutMix=True),
