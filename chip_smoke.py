@@ -70,7 +70,17 @@ on the card, then drives the port's paths through its entry points:
   step time, peak memory); ``tools.train`` on a UniMatch variant of the
   fixture config (``UniSemiDataset``, three-branch pipelines with
   RandomGrayscale and GaussianBlur), 3 steps, resumed to 6, and
-  ``tools.test`` against the in-loop mIoU.
+  ``tools.test`` against the in-loop mIoU;
+- data parallelism (``dp_*``, each phase's ranks started by
+  ``torch.distributed.run`` on this script's ``--dp-worker`` mode): 2
+  ranks on one card over gloo against one process, the f32 step of
+  ``..._MT_w_ours.py`` at 4 layers, 3 steps of 4 + 4 global (2 + 2 a
+  rank), the ranks' states bit-identical; the bf16 flagship at 4 + 4 a
+  rank (step and all-reduce time, peak a rank), and with more cards the
+  same over NCCL, one rank a card (up to 4); ``tools.train --launcher
+  env`` over NCCL with min(2, cards) ranks on the fixture config, 6 steps,
+  resumed to 8, rank 0 alone writing, and ``tools.test`` against the
+  in-loop mIoU.
 
 Every phase prints one JSON line; any failed check raises and the script
 exits nonzero without its last line. Each path runs with the kernels'
@@ -364,8 +374,10 @@ def grad_errors(got, ref):
 def phase_kernels_bwd(fa):
     """Each backward kernel vs the plain backward on the card, at the
     training paths' shapes at L = 1025 (8 + 8: B = 8 and the fused 2B
-    pass's 16 with PASA; the CLI's 4 + 4: B = 4 and 8 with PASA; no bias /
-    PASA / per-head bias), the ragged L = 130 and L = 2305 (768² crops);
+    pass's 16 with PASA; the CLI's 4 + 4: B = 4 and 8 with PASA; the 2 + 2
+    f32 steps, a data-parallel rank's among them: B = 2 and 4 with PASA;
+    no bias / PASA / per-head bias), the ragged L = 130 and L = 2305 (768²
+    crops);
     the forward that gives them o and lse is held to the plain forward at
     each. Times at the headline shapes, and the forward's at the training
     shapes. Returns the kernels line's entries, the forward's max abs
@@ -374,7 +386,8 @@ def phase_kernels_bwd(fa):
     gen = torch.Generator(device='cuda').manual_seed(1)
     shapes = [(1, 1025, None), (1, 1025, 'pasa'), (1, 1025, 'random_bh'),
               (2, 1025, None), (2, 1025, 'pasa'), (4, 1025, None),
-              (8, 1025, 'pasa'), (8, 1025, None), (16, 1025, 'pasa'),
+              (4, 1025, 'pasa'), (8, 1025, 'pasa'), (8, 1025, None),
+              (16, 1025, 'pasa'),
               (2, 130, 'random_b1'), (2, 130, None), (2, 2305, None),
               (1, 2305, 'pasa')]
     # the training steps' shapes (teacher and sup pass; fused 2B pass) at
@@ -2680,6 +2693,480 @@ def run_unimatch(fa, images, gpu_line, root):
     return paths
 
 
+# ------------------------------------------------------- data parallelism
+# 2-rank step vs the single-process step on the same global batch, f32 on
+# the card: losses relative; parameter and EMA changes over the 3 steps
+# relative to the single-process run's largest change (f32 sums split
+# over the ranks and summed, and cuBLAS picking its algorithms for batches
+# of 2 instead of 4), plus DP_ULPS f32 roundings of the largest value: the
+# EMA moves ~1e-5 of a value in 3 steps, so one rounding of the stored
+# value is already ~3e-3 of its change. BN running statistics relative to
+# their largest value: each step makes them anew from f32 moments of the
+# batch (E[x²] − mean² over ~10^6 values a channel), whose rounding scales
+# with the moments, not with the statistics' change
+TOL_DP_F32 = 1e-3
+DP_ULPS = 2
+DP_RANKS = 2
+
+
+def dp_global_batches(images, n, steps):
+    """``steps`` global batches of n + n fixture images at 512², the ignore
+    label spread unevenly over two blocks: the first block's two sup
+    labels lose a band of rows or columns to 255."""
+    out = []
+    for s in range(steps):
+        names = [images[(s * 2 * n + i) % len(images)] for i in range(2 * n)]
+        batch = train_batch(names, n, n)
+        batch['sup_gt'][0, :160] = 255
+        batch['sup_gt'][1, :, :96] = 255
+        out.append(batch)
+    return out
+
+
+def save_batches(batches, directory):
+    import numpy as np
+    paths = []
+    for i, batch in enumerate(batches):
+        paths.append(os.path.join(directory, f'batch_{i}.npz'))
+        np.savez(paths[-1], **batch)
+    return paths
+
+
+def load_batch(path, device):
+    import numpy as np
+    with np.load(path) as z:
+        return to_device({k: z[k] for k in z.files}, device)
+
+
+def state_tensors(state):
+    """The state's tensors by name, as CPU copies: student and EMA state
+    dicts (parameters and BN statistics) and the SGD buffers."""
+    out = {f'model.{k}': v.detach().cpu().clone()
+           for k, v in state.model.state_dict().items()}
+    out.update({f'ema.{k}': v.detach().cpu().clone()
+                for k, v in state.ema_model.state_dict().items()})
+    out.update({f'momentum.{k}': v.detach().cpu().clone()
+                for k, v in state.momentum.items()})
+    return out
+
+
+def identical_across_ranks(state):
+    """Every tensor of the state bit for bit rank 0's, on every rank."""
+    import torch
+    import torch.distributed as dist
+    tensors = list(state.model.state_dict().values()) + \
+        list(state.ema_model.state_dict().values()) + \
+        list(state.momentum.values())
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    ref = flat.clone()
+    dist.broadcast(ref, 0)
+    bad = (flat.view(torch.int32) != ref.view(torch.int32)).sum().reshape(1)
+    dist.all_reduce(bad)
+    return int(bad) == 0
+
+
+def dp_rank_step_f32(fa, spec, device):
+    """One rank of dp_step_f32_vs_single: the 4-layer f32 step on this
+    rank's block of each global batch."""
+    import torch
+    from s4former_tpu_torch.parallel.distributed import is_main
+    from s4former_tpu_torch.parallel.mesh import replicate_state, shard_batch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    state, step, _ = make_trainer('ours', device, 'float32', 4,
+                                  unsup_confidence=UNSUP_CONFIDENCE_F32)
+    state = replicate_state(state)
+    gen = torch.Generator(device=device).manual_seed(0)
+    logs_by_step, same = [], []
+    reset_counts(fa)                               # the main path starts
+    for path in spec['batches']:
+        state, logs = step(state, shard_batch(load_batch(path, device)), gen)
+        logs_by_step.append(floats(logs))
+        same.append(identical_across_ranks(state))
+    torch.cuda.synchronize()
+    launches = counts(fa)                          # the main path ends
+    if is_main():
+        torch.save(state_tensors(state), spec['state_out'])
+    return {'logs': logs_by_step, 'same': same, 'launches': launches}
+
+
+def dp_rank_train_bf16(fa, spec, device):
+    """One rank of dp_train_bf16: the flagship as written, this rank's
+    4 + 4 of the global batch; 2 warm-up steps, 5 timed. The gradient
+    all-reduce is timed inside each step (synchronised before and after,
+    so it includes waiting for the other rank) and alone after a barrier
+    on a bucket of the same size."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from s4former_tpu_torch.parallel import mesh
+    from s4former_tpu_torch.semi import train_step as ts
+    state, step, cfg = make_trainer('ours', device)
+    check(cfg.model.backbone.dtype == 'bfloat16', 'flagship dtype')
+    state = mesh.replicate_state(state)
+    batch = mesh.shard_batch(load_batch(spec['batches'][0], device))
+    gen = torch.Generator(device=device).manual_seed(0)
+    state, _, warm_ms = timed_steps(state, step, batch, gen, 2)
+    reduce_ms = []
+
+    def timed_reduce(grads):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mesh.all_reduce_grads(grads)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+    ts.all_reduce_grads = timed_reduce
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts(fa)                               # the main path starts
+    state, logs, ms = timed_steps(state, step, batch, gen, 5)
+    launches = counts(fa)                          # the main path ends
+    ts.all_reduce_grads = mesh.all_reduce_grads
+    peak = torch.cuda.max_memory_allocated(device)
+    same = identical_across_ranks(state)
+    n = sum(p.numel() for p in state.model.parameters())
+    bucket = torch.zeros(n, device=device)
+    dist.barrier()
+    alone = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(bucket)
+        torch.cuda.synchronize()
+        alone.append((time.perf_counter() - t0) * 1e3)
+    ms_arr = np.asarray(ms)
+    return {'warmup_step_ms': warm_ms, 'step_ms': ms,
+            'step_ms_mean': float(ms_arr.mean()),
+            'step_ms_p50': float(np.median(ms_arr)),
+            'allreduce_ms_in_step': reduce_ms,
+            'allreduce_ms_alone': alone, 'bucket_bytes': 4 * n,
+            'peak_mem_bytes': peak, 'launches': launches,
+            'logs': floats(logs), 'same': same}
+
+
+def dp_rank_cli(fa, spec, device):
+    """One rank of dp_train_cli: ``tools.train`` as ``-m`` would run it."""
+    import torch
+    from s4former_tpu_torch.tools import train as train_cli
+    reset_counts(fa)                               # the main path starts
+    state = train_cli.main(spec['argv'])
+    torch.cuda.synchronize()
+    return {'launches': counts(fa), 'step': int(state.step),
+            'peak_mem_bytes': torch.cuda.max_memory_allocated()}
+
+
+DP_RANK_PHASES = {'step_f32': dp_rank_step_f32,
+                  'train_bf16': dp_rank_train_bf16, 'cli': dp_rank_cli}
+
+
+def dp_worker(kind, spec_path):
+    """One rank of a data-parallel phase, started by ``python -m
+    torch.distributed.run ... chip_smoke.py --dp-worker KIND SPEC``. The
+    step phases join the group of SPEC's 'backend' and 'device' (gloo with
+    every rank on cuda:0, since NCCL takes one card per rank; or NCCL, one
+    rank a card); the CLI sets up its own group. Writes its result to
+    SPEC's 'out' + '.rank{RANK}.json'."""
+    import torch
+    sys.path.insert(0, REPO)
+    os.chdir(REPO)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    from s4former_tpu_torch.ops import flash_attention as fa
+    from s4former_tpu_torch.parallel.distributed import init_distributed
+    fa.load_library()                              # built by the parent
+    fa.load_bwd_library()
+    device = None
+    if kind != 'cli':
+        device = init_distributed('env', backend=spec['backend'],
+                                  device=spec['device'])
+    try:
+        result = DP_RANK_PHASES[kind](fa, spec, device)
+    finally:
+        if device is not None:
+            torch.distributed.destroy_process_group()
+    with open(f"{spec['out']}.rank{os.environ['RANK']}.json", 'w') as f:
+        json.dump(result, f)
+    return 0
+
+
+def run_ranks(kind, spec, n, directory, timeout):
+    """``n`` ranks of ``kind`` under torch.distributed.run; returns their
+    results, rank 0 first."""
+    spec = dict(spec, out=os.path.join(directory, kind))
+    spec_path = os.path.join(directory, f'{kind}.json')
+    with open(spec_path, 'w') as f:
+        json.dump(spec, f)
+    cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+           f'--nproc_per_node={n}', os.path.abspath(__file__),
+           '--dp-worker', kind, spec_path]
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=timeout)
+    if proc.returncode != 0:
+        print(proc.stdout[-6000:], file=sys.stderr)
+        print(proc.stderr[-6000:], file=sys.stderr)
+    check(proc.returncode == 0, f'{n} ranks of {kind} exited with '
+          f'{proc.returncode}')
+    results = []
+    for r in range(n):
+        with open(f"{spec['out']}.rank{r}.json") as f:
+            results.append(json.load(f))
+    return results, proc.stdout
+
+
+def sum_counts(results):
+    out = {k: 0 for k in KERNELS}
+    for r in results:
+        out = add_counts(out, r['launches'])
+    return out
+
+
+def phase_dp_step_f32(fa, images, gpu_line, root):
+    """Two ranks on cuda:0 (gloo) against one process: the 4-layer f32
+    ``..._MT_w_ours.py`` step at full width, 3 steps on global batches of
+    4 + 4 at 512² (2 + 2 a rank), threshold UNSUP_CONFIDENCE_F32, the
+    ignore label uneven over the blocks, the mixes drawn from one seeded
+    generator. Losses, the changes of parameters and EMA, and the BN
+    statistics within TOL_DP_F32; the ranks' states bit-identical after
+    every step; 12 forward + 8 fused launches a step on each rank, as on
+    one. The SGD buffers' error is printed, not held: a buffer is the
+    gradient, where a pseudo-label that flips at the threshold (a few
+    pixels of 10^6 by step 3) moves single elements most. Returns the
+    ranks' launches summed."""
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batches = save_batches(dp_global_batches(images, 4, 3), root)
+    state, step, _ = make_trainer('ours', 'cuda', 'float32', 4,
+                                  unsup_confidence=UNSUP_CONFIDENCE_F32)
+    before = state_tensors(state)
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    single_logs = []
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    for path in batches:
+        state, logs = step(state, load_batch(path, 'cuda'), gen)
+        single_logs.append(floats(logs))
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    single_counts = counts(fa)
+    single = state_tensors(state)
+    del state, step
+    torch.cuda.empty_cache()
+
+    state_out = os.path.join(root, 'dp_state.pt')
+    t0 = time.perf_counter()
+    ranks, _ = run_ranks('step_f32', {'batches': batches,
+                                      'state_out': state_out,
+                                      'backend': 'gloo', 'device': 'cuda:0'},
+                         DP_RANKS, root, 600)
+    ranks_s = time.perf_counter() - t0
+    dp = torch.load(state_out, weights_only=True)
+    loss_err = [{k: abs(r[k] - s[k]) / max(abs(s[k]), 1e-6) for k in s}
+                for r, s in zip(ranks[0]['logs'], single_logs)]
+    errs = {}
+    for group in ('model.', 'ema.', 'momentum.'):
+        for kind, keep in (('params', lambda n: 'running_' not in n),
+                           ('bn_stats', lambda n: 'running_' in n)):
+            names = [n for n in single if n.startswith(group) and keep(n)]
+            if not names:
+                continue
+            change = max((single[n] - before[n]).abs().max().item()
+                         for n in names)
+            top = max(single[n].abs().max().item() for n in names)
+            err = max((dp[n] - single[n]).abs().max().item() for n in names)
+            scale = max(change, top) if kind == 'bn_stats' else change
+            errs[group + kind] = {
+                'max_abs_err': err, 'max_abs_change_single': change,
+                'max_abs_single': top,
+                'limit': TOL_DP_F32 * scale +
+                DP_ULPS * float(np.finfo(np.float32).eps) * top}
+    emit({'phase': 'dp_step_f32_vs_single', 'config': 'ours',
+          'ranks': DP_RANKS, 'backend': 'gloo, both ranks on cuda:0',
+          'cut': 'num_layers 12 -> 4, out_indices (0, 1, 2, 3)',
+          'batch': f'3 steps of 4 + 4 at 512² global, 2 + 2 a rank, '
+                   f'unsup_confidence {UNSUP_CONFIDENCE_F32}',
+          'losses_dp': ranks[0]['logs'], 'losses_single': single_logs,
+          'loss_rel_err': loss_err, 'state_err': errs,
+          'ranks_identical_each_step': [r['same'] for r in ranks],
+          'launches_per_rank': [r['launches'] for r in ranks],
+          'launches_single': single_counts, 'tol': TOL_DP_F32,
+          'single_s': single_s, 'ranks_s': ranks_s, 'gpu': gpu_line})
+    for r in ranks:
+        check(r['same'] == [True] * 3, f'ranks differ: {r["same"]}')
+        check(r['launches'] == {'flash_attn_fwd': 36,
+                                'flash_attn_bwd_fused': 24,
+                                'flash_attn_bwd_dkv': 0,
+                                'flash_attn_bwd_dq': 0},
+              f'a rank launched {r["launches"]} in 3 steps')
+    check(single_counts == ranks[0]['launches'], 'single-process launches '
+          f'{single_counts}')
+    check(all(s['mask_ratio'] > 0 and s['unsup.loss_seg_unsup'] > 0 and
+              s['unsup.loss_ncr_unsup'] > 0 for s in single_logs),
+          'the unsup losses are not live')
+    check(all(np.isfinite(v) for r in ranks[0]['logs'] for v in r.values()),
+          'non-finite losses')
+    check(max(max(e.values()) for e in loss_err) <= TOL_DP_F32,
+          f'2-rank losses vs one process: {loss_err}')
+    for name, e in errs.items():
+        check(name.startswith('momentum.') or e['max_abs_err'] <= e['limit'],
+              f'{name}: 2 ranks vs one process {e}')
+    return sum_counts(ranks)
+
+
+def phase_dp_train_bf16(fa, images, gpu_line, root, n, on_one_card):
+    """The flagship as written (bf16, 12 layers), 4 + 4 a rank (the
+    paper's per-GPU batch) on ``n`` ranks: all on cuda:0 over gloo
+    (``on_one_card``), else one a card over NCCL. Step time, the gradient
+    all-reduce's time, peak memory and launches of each rank (those of the
+    single-process 4 + 4 step: 36 forward and 24 fused a step). Returns
+    the ranks' launches summed."""
+    import numpy as np
+    batches = save_batches(dp_global_batches(images, 4 * n, 1), root)
+    spec = {'batches': batches, 'backend': 'gloo' if on_one_card else None,
+            'device': 'cuda:0' if on_one_card else 'cuda'}
+    t0 = time.perf_counter()
+    ranks, _ = run_ranks('train_bf16', spec, n, root, 600)
+    step_s = float(np.mean([r['step_ms_mean'] for r in ranks])) / 1e3
+    emit({'phase': 'dp_train_bf16' if on_one_card else
+          'dp_train_bf16_cards',
+          'config': 'ours', 'ranks': n,
+          'backend': 'gloo, every rank on cuda:0' if on_one_card else
+          'nccl, one rank a card',
+          'batch': f'4 + 4 a rank at 512² ({4 * n} + {4 * n} global), '
+                   f'bf16, 12 layers',
+          'img_per_s_global': 8 * n / step_s,
+          'per_rank': [{k: v for k, v in r.items() if k != 'logs'}
+                       for r in ranks],
+          'logs_rank0': ranks[0]['logs'], 'run_s': time.perf_counter() - t0,
+          'gpu': gpu_line})
+    for r in ranks:
+        check(r['same'], 'the ranks\' states differ')
+        check(r['launches'] == {'flash_attn_fwd': 36 * 5,
+                                'flash_attn_bwd_fused': 24 * 5,
+                                'flash_attn_bwd_dkv': 0,
+                                'flash_attn_bwd_dq': 0},
+              f'a rank launched {r["launches"]} in 5 steps, not 36 forward '
+              f'and 24 fused a step')
+        check(all(np.isfinite(v) for v in ranks[0]['logs'].values()),
+              f'non-finite logs {ranks[0]["logs"]}')
+    return sum_counts(ranks)
+
+
+def phase_dp_train_cli(fa, gpu_line, root):
+    """``torch.distributed.run --nproc_per_node K`` of ``tools.train
+    --launcher env`` (NCCL, one card a rank; K = min(2, cards)) on
+    ``setr_fixture_voc_mini_fullflag.py`` as written, 4 + 4 a rank: 6
+    steps with eval and a checkpoint at 6, then ``--auto-resume`` to 8;
+    rank 0 alone writes logs, metrics and checkpoints; then ``tools.test``
+    (one process) on ``iter_6``, whose mIoU must be the in-loop one's.
+    Returns the launches of every rank and run, and the test's, summed."""
+    import numpy as np
+    import torch
+    from s4former_tpu_torch.tools import test as test_cli
+    k = min(DP_RANKS, torch.cuda.device_count())
+    wd = os.path.join(root, 'dp_work')
+    opts = ['--cfg-options', 'evaluation.interval=6',
+            'checkpoint_config.interval=6', 'log_config.interval=2']
+    n_val, flush = 16, 4
+    per_eval = 12 * -(-n_val // flush)
+    runs = {}
+    for name, argv, steps in (
+            ('train', ['--max-iters', '6'], 6),
+            ('resume', ['--auto-resume', '--max-iters', '8'], 2)):
+        t0 = time.perf_counter()
+        ranks, _ = run_ranks('cli', {'argv': [FULLFLAG, '--work-dir', wd,
+                                              '--launcher', 'env'] + argv +
+                                     opts}, k, root, 600)
+        runs[name] = (ranks, time.perf_counter() - t0)
+        want_step = 6 if name == 'train' else 8
+        check(all(r['step'] == want_step for r in ranks),
+              f'{name}: ranks ended at {[r["step"] for r in ranks]}')
+        total = sum_counts(ranks)
+        want = {'flash_attn_fwd': 36 * steps * k +
+                (per_eval if name == 'train' else 0),
+                'flash_attn_bwd_fused': 24 * steps * k,
+                'flash_attn_bwd_dkv': 0, 'flash_attn_bwd_dq': 0}
+        check(total == want, f'{name}: {k} ranks launched {total}, not '
+              f'{want}')
+    logs = sorted(n for n in os.listdir(wd) if n.endswith('.log'))
+    check(len(logs) == 2, f'log files {logs}: one a run, rank 0 only')
+    text = read_logs(wd)
+    resumed = f'resumed from {os.path.join(wd, "iter_6")} (iter 6)'
+    check(resumed in text, f'no "{resumed}" in the log')
+    if k > 1:
+        check(f'{k} ranks (env)' in text, f'the log names no {k} ranks')
+    records = read_jsonl(os.path.join(wd, 'metrics.jsonl'))
+    train = [r for r in records if r['prefix'] == 'train']
+    val = {r['step']: r for r in records if r['prefix'] == 'val'}
+    check([r['step'] for r in train] == [2, 4, 6, 8] and sorted(val) == [6],
+          f'logged steps {[(r["prefix"], r["step"]) for r in records]}')
+    check(sorted(n for n in os.listdir(wd) if n.startswith('iter_')) ==
+          ['iter_6', 'iter_8'], f'checkpoints {os.listdir(wd)}')
+    check(all(np.isfinite(r['loss']) for r in train), f'losses {train}')
+    reset_counts(fa)
+    results = test_cli.main([FULLFLAG, os.path.join(wd, 'iter_6')])
+    test_counts = counts(fa)
+    check(test_counts == dict({n: 0 for n in KERNELS},
+                              flash_attn_fwd=per_eval),
+          f'offline test launched {test_counts}')
+    in_loop = val[6]['mIoU']
+    gap = abs(results['mIoU'] - in_loop)
+    emit({'phase': 'dp_train_cli', 'config': os.path.basename(FULLFLAG),
+          'ranks': k, 'cards': torch.cuda.device_count(), 'backend': 'nccl',
+          'batch': f'4 + 4 a rank at 512² ({4 * k} + {4 * k} global), '
+                   f'bf16, 12 layers',
+          'losses': {r['step']: r['loss'] for r in train},
+          'step_ms_windows': [r['step_ms'] for r in train],
+          'data_wait_ms_windows': [r['data_wait_ms'] for r in train],
+          'eval_s': val[6]['eval_s'], 'in_loop_miou_iter_6': in_loop,
+          'test_miou': results['mIoU'], 'miou_gap': gap,
+          'miou_equal': results['mIoU'] == in_loop, 'tol': TOL_MIOU,
+          'run_s': {n: v[1] for n, v in runs.items()},
+          'launches_per_rank': {n: [r['launches'] for r in v[0]]
+                                for n, v in runs.items()},
+          'peak_mem_bytes_per_rank': {n: [r['peak_mem_bytes'] for r in v[0]]
+                                      for n, v in runs.items()},
+          'launches_test': test_counts, 'resumed': resumed,
+          'gpu': gpu_line})
+    check(gap <= TOL_MIOU, f'offline mIoU {results["mIoU"]} vs in-loop '
+          f'{in_loop}: {gap} > {TOL_MIOU}')
+    shutil.rmtree(wd, ignore_errors=True)
+    out = test_counts
+    for ranks, _ in runs.values():
+        out = add_counts(out, sum_counts(ranks))
+    return out
+
+
+def run_dp(fa, images, gpu_line, root):
+    """The data-parallel slice's phases; returns their launch counts by
+    path and prints their seconds."""
+    import torch
+    paths, seconds = {}, {}
+    for name, run in (
+            ('dp_step_f32', lambda: phase_dp_step_f32(fa, images, gpu_line,
+                                                      root)),
+            ('dp_train_bf16', lambda: phase_dp_train_bf16(
+                fa, images, gpu_line, root, DP_RANKS, on_one_card=True)),
+            ('dp_train_cli', lambda: phase_dp_train_cli(fa, gpu_line,
+                                                        root))):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        paths[name] = run()
+        seconds[name] = time.perf_counter() - t0
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        # the multi-card path itself: one rank a card over NCCL
+        t0 = time.perf_counter()
+        paths['dp_train_bf16_cards'] = phase_dp_train_bf16(
+            fa, images, gpu_line, root, min(4, cards), on_one_card=False)
+        seconds['dp_train_bf16_cards'] = time.perf_counter() - t0
+    else:
+        emit({'phase': 'dp_train_bf16_cards', 'skipped': f'{cards} card'})
+    emit({'phase': 'dp_seconds', **seconds, 'total': sum(seconds.values())})
+    return paths
+
+
 def phase_build(libs, seconds):
     """Per kernel function of the built libraries: registers and spills
     (ptxas), tensor-core instructions and asynchronous copies (SASS). Every
@@ -2705,6 +3192,8 @@ def phase_build(libs, seconds):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ['--dp-worker']:
+        return dp_worker(*sys.argv[2:4])
     import torch
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2822,6 +3311,8 @@ def main() -> int:
         paths.update(run_ablation(fa, images, gpu_line, root))
         # the UniMatch slice and the ViT's remat
         paths.update(run_unimatch(fa, images, gpu_line, root))
+        # data parallelism: 2 ranks
+        paths.update(run_dp(fa, images, gpu_line, root))
 
     for name in KERNELS:
         entries[name]['launches'] = sum(p[name] for p in paths.values())

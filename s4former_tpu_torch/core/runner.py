@@ -24,6 +24,12 @@ EvalHook and CheckpointHook).
   ``eval_resize_matrices`` (head resolution -> image -> original shape,
   the reference's two bilinear resizes composed), then argmax: the
   reference's whole-image inference, exactly.
+
+Under data parallelism (``parallel/``) every rank runs the loop; only rank
+0 writes logs, metrics, traces and checkpoints, all ranks wait for each
+other before a resume (which loads on every rank, onto its card) and at
+the end of the run; the eval splits the forwards over the ranks and sums
+their histograms, so its metrics are the single-process ones, bit for bit.
 """
 from __future__ import annotations
 
@@ -41,6 +47,9 @@ from s4former_tpu_torch.core import checkpoint as ckpt_lib
 from s4former_tpu_torch.core.hooks import JsonlLoggerHook, StepTrace
 from s4former_tpu_torch.core.metrics import pre_eval_to_metrics
 from s4former_tpu_torch.ops.resize import interp_matrix_np
+from s4former_tpu_torch.parallel.distributed import (barrier, is_main, rank,
+                                                     world_size)
+from s4former_tpu_torch.parallel.mesh import global_sum
 from s4former_tpu_torch.utils.logger import get_root_logger
 
 # batches copied to the card ahead of the step, and how long ``run`` waits
@@ -160,10 +169,12 @@ class IterBasedRunner:
         self.generator = torch.Generator(device=self.device)
         self.logger = logger or get_root_logger()
         self.best_miou = -1.0
+        self.is_main = is_main()
         self.metrics_hook = JsonlLoggerHook(work_dir)
-        self.profile = profile
+        self.profile = profile if self.is_main else None
 
     def resume(self, path: Optional[str] = None, auto: bool = False):
+        barrier()
         if path is None and auto:
             path = ckpt_lib.find_latest_checkpoint(self.work_dir)
         if path:
@@ -218,16 +229,20 @@ class IterBasedRunner:
             prefetcher.close()
         if it % self.checkpoint_interval != 0:  # avoid a double final save
             self._checkpoint(it)
-        # work_is_done must mean "the checkpoints on disk are complete"
-        ckpt_lib.finalize_pending_saves()
-        # completion sentinel: the reference's Slurm array wrappers cancel
-        # pending restart jobs when this file appears
-        # (run_setr_supervised.sh:10-14)
-        with open(osp.join(self.work_dir, 'work_is_done'), 'w') as f:
-            f.write(f'iter {it}\n')
+        if self.is_main:
+            # work_is_done must mean "the checkpoints on disk are complete"
+            ckpt_lib.finalize_pending_saves()
+            # completion sentinel: the reference's Slurm array wrappers
+            # cancel pending restart jobs when this file appears
+            # (run_setr_supervised.sh:10-14)
+            with open(osp.join(self.work_dir, 'work_is_done'), 'w') as f:
+                f.write(f'iter {it}\n')
+        barrier()
         return self.state
 
     def _log(self, it: int, host_logs: Dict[str, float]):
+        if not self.is_main:
+            return
         step_ms = host_logs['step_ms']
         msg = ', '.join(f'{k}: {v:.4f}' for k, v in sorted(host_logs.items())
                         if k not in ('step_ms', 'data_wait_ms'))
@@ -246,6 +261,8 @@ class IterBasedRunner:
         t0 = time.perf_counter()
         metrics = self.eval_fn(self.state)
         eval_s = time.perf_counter() - t0
+        if not self.is_main:
+            return
         miou = float(metrics.get('mIoU', np.nan))
         self.logger.info(
             f'Eval @ iter {it}: ' +
@@ -260,6 +277,8 @@ class IterBasedRunner:
                 meta={'mIoU': miou, 'iter': it}, block=False)
 
     def _checkpoint(self, it: int):
+        if not self.is_main:
+            return
         # the state is on the host when save returns; the write goes on in
         # the background, so the step loop resumes at once
         path = ckpt_lib.save_checkpoint(self.work_dir, it, self.state,
@@ -315,9 +334,13 @@ def eval_resize_matrices(vh: int, vw: int, lh: int, lw: int,
 
 def iter_predictions(model, dataset, batch_size: int = 4,
                      mode: str = 'whole', crop_size=(512, 512),
-                     stride=(341, 341)) -> Iterator[Tuple[int, np.ndarray]]:
+                     stride=(341, 341), shard: Tuple[int, int] = (0, 1)
+                     ) -> Iterator[Tuple[int, Optional[np.ndarray]]]:
     """(index, int32 label map at the label's shape) for every item of
-    ``dataset``, in flush order.
+    ``dataset``, in flush order. With ``shard=(rank, world)`` the groups
+    are numbered in flush order and group g is predicted on rank
+    g % world; the other groups' items come as (index, None), so every
+    rank knows the flush order.
 
     Items are padded to the model's own pad divisor (the patch size: the
     padding the network would add itself, so the logits are the
@@ -336,9 +359,13 @@ def iter_predictions(model, dataset, batch_size: int = 4,
     bucket = infer_pad_divisor(model)
     bsz = max(1, int(batch_size))
     matrix_cache: Dict = {}
+    n_flushed = [0]
 
     def flush(entries):
         n = len(entries)
+        n_flushed[0] += 1
+        if (n_flushed[0] - 1) % shard[1] != shard[0]:
+            return [(e[0], None) for e in entries]
         padded = entries + [entries[-1]] * (bsz - n)
         imgs = np.concatenate([e[1] for e in padded], axis=0)
         with torch.inference_mode():
@@ -390,13 +417,28 @@ def make_eval_fn(dataset, batch_size: int = 4, mode: str = 'whole',
     """``eval_fn(state) -> {'aAcc', 'mIoU', 'mAcc'}`` over ``dataset`` with
     the state's student (``state.model``), streaming
     per-image confusion histograms (the reference's pre_eval path,
-    custom.py:302 + eval_hooks.py). See ``iter_predictions``."""
+    custom.py:302 + eval_hooks.py). See ``iter_predictions``. In a process
+    group each rank predicts its share of the groups; the per-image
+    histograms are summed over the ranks (each image's on one rank, zeros
+    elsewhere: exact) and reduced in the single-process flush order."""
     def eval_fn(state):
-        pre_eval_results = []
+        shard = (rank(), world_size())
+        order, local = [], {}
         for idx, pred in iter_predictions(state.model, dataset, batch_size,
-                                          mode, crop_size, stride):
-            pre_eval_results.extend(dataset.pre_eval([pred], [idx]))
-        tables = pre_eval_to_metrics(pre_eval_results, ('mIoU',))
+                                          mode, crop_size, stride, shard):
+            order.append(idx)
+            if pred is not None:
+                local[idx] = dataset.pre_eval([pred], [idx])[0]
+        if shard[1] > 1:
+            # [image, (intersect, union, pred area, label area), class]
+            table = torch.zeros((len(dataset), 4, state.model.num_classes),
+                                device=state.step.device)
+            for idx, hists in local.items():
+                table[idx] = torch.from_numpy(np.stack(hists))
+            table = global_sum(table).cpu().numpy()
+            local = {idx: tuple(table[idx]) for idx in order}
+        tables = pre_eval_to_metrics([local[idx] for idx in order],
+                                     ('mIoU',))
         return {'aAcc': float(tables['aAcc']),
                 'mIoU': float(np.nanmean(tables['IoU'])),
                 'mAcc': float(np.nanmean(tables['Acc']))}

@@ -9,7 +9,10 @@ mmseg/datasets/samplers/semi_sampler.py:9-150, builder.py:116-309).
   numpy batch dict the train step reads (``sup_img``, ``sup_gt``,
   ``unsup_teacher_img``, ``unsup_student_img``, ...), behind a bounded
   queue so host augmentation overlaps the device's step. The runner's
-  prefetcher moves the batches to the card.
+  prefetcher moves the batches to the card. Under data parallelism
+  (``shard=(rank, world)``) every rank runs the sampler with the same seed
+  at the global counts and builds only its contiguous block of each index
+  list, so the ranks' blocks, stacked, are the single-process batch.
 """
 from __future__ import annotations
 
@@ -99,14 +102,23 @@ class SemiLoader:
     The sup and unsup datasets are indexed by a SemiBalanceSampler; items
     run through their pipelines in a thread pool; finished batches wait in
     a queue of ``QUEUE_DEPTH`` batches. ``unsup_mix_dataset`` is the UniMatch
-    third source (its batch keys are ``*_mix_img``).
+    third source (its batch keys are ``*_mix_img``). The per-batch counts are
+    global; ``shard=(rank, world)`` builds rank's block of each, and the
+    counts must divide by ``world``.
     """
 
     def __init__(self, sup_dataset, unsup_dataset=None,
                  unsup_mix_dataset=None,
                  sup_per_batch: int = 4, unsup_per_batch: int = 4,
                  num_workers: int = 8, seed: int = 0,
-                 max_iter_size: Optional[int] = None):
+                 max_iter_size: Optional[int] = None,
+                 shard: Tuple[int, int] = (0, 1)):
+        rank, world = shard
+        for n in (sup_per_batch, unsup_per_batch):
+            if n % world:
+                raise ValueError(f'a global batch of {n} does not divide '
+                                 f'over {world} ranks')
+        self.shard = shard
         self.sup = sup_dataset
         self.unsup = unsup_dataset
         self.unsup_mix = unsup_mix_dataset
@@ -126,11 +138,14 @@ class SemiLoader:
 
     def _make_batch(self, sup_idx, unsup_idx, mix_idx
                     ) -> Dict[str, np.ndarray]:
+        rank, world = self.shard
+
         def submit(dataset, indices):
             if dataset is None:
                 return []
+            per = len(indices) // world
             return [self.pool.submit(dataset.__getitem__, i)
-                    for i in indices]
+                    for i in indices[rank * per:(rank + 1) * per]]
         sup_futs = submit(self.sup, sup_idx)
         unsup_futs = submit(self.unsup, unsup_idx)
         mix_futs = submit(self.unsup_mix, mix_idx)

@@ -10,7 +10,11 @@ the reference layout (``norm``, ``up_convs.{i}.0.conv``,
 BN (eps 1e-5, statistics in f32) runs with its running statistics in eval
 mode and with the batch's in train mode, where it updates the running
 statistics as flax does: ``running = 0.9 running + 0.1 batch`` with the
-BIASED batch variance (``F.batch_norm`` would use the unbiased one).
+BIASED batch variance (``F.batch_norm`` would use the unbiased one). The
+batch is the global one: under data parallelism the sums of x and x² are
+all-reduced (SyncBN, the configs' ``norm_cfg=dict(type='SyncBN')``), so
+the moments, the running statistics and the gradients are those of the
+single-process step on the global batch.
 
 ``dropout_ratio`` > 0: element-wise dropout (flax ``nn.Dropout``, from the
 caller's ``torch.Generator``) on the last feature map in train mode. The
@@ -32,6 +36,8 @@ from s4former_tpu_torch.models.decode_heads.base import (
     transform_inputs, unshuffle_feature_map)
 from s4former_tpu_torch.models.dropout import dropout
 from s4former_tpu_torch.ops.resize import resize_bilinear
+from s4former_tpu_torch.parallel.distributed import world_size
+from s4former_tpu_torch.parallel.mesh import global_sum
 from s4former_tpu_torch.registry import HEADS
 
 
@@ -66,11 +72,15 @@ class BatchNorm(nn.Module):
             shift = self.bias - self.running_mean * scale
             return (x.float() * scale + shift).to(x.dtype)
         # flax BatchNorm: mean and E[x^2] in f32 over every axis but the
-        # last, var = E[x^2] - mean^2 (biased), clipped at 0
+        # last (and every rank), var = E[x^2] - mean^2 (biased), clipped
+        # at 0
         xf = x.float()
         dims = tuple(range(x.dim() - 1))
-        mean = xf.mean(dim=dims)
-        var = ((xf * xf).mean(dim=dims) - mean * mean).clamp(min=0.0)
+        sums = global_sum(torch.stack([xf.sum(dim=dims),
+                                       (xf * xf).sum(dim=dims)]))
+        n = xf.numel() // xf.shape[-1] * world_size()
+        mean = sums[0] / n
+        var = (sums[1] / n - mean * mean).clamp(min=0.0)
         with torch.no_grad():
             self.running_mean.mul_(self.MOMENTUM).add_(
                 mean.detach() * (1.0 - self.MOMENTUM))

@@ -5,6 +5,9 @@ drawn from the caller's ``torch.Generator`` on the tensor's device.
 
 Every mask comes from ``keep_mask``: a kept value is scaled by 1/keep and a
 dropped one is 0, as the JAX package's ``jnp.where(mask, x / keep, 0)``.
+Under data parallelism a mask is drawn at the global batch and the rank
+keeps its rows (``parallel.mesh.draw_rows``): the masks of the N-rank step
+are those of the single-process step on the global batch.
 """
 from __future__ import annotations
 
@@ -12,16 +15,18 @@ from typing import Optional, Sequence
 
 import torch
 
+from s4former_tpu_torch.parallel.mesh import draw_rows
+
 
 def keep_mask(generator: Optional[torch.Generator], keep: float,
               shape: Sequence[int], device) -> torch.Tensor:
-    """A bool mask of ``shape``, each entry True with probability ``keep``
-    (``jax.random.bernoulli(key, keep, shape)``)."""
+    """A bool mask of ``shape`` (batch axis first), each entry True with
+    probability ``keep`` (``jax.random.bernoulli(key, keep, shape)``)."""
     if generator is None:
         raise ValueError('dropout and drop path in train mode draw from a '
                          'torch.Generator; pass generator=')
-    return torch.rand(tuple(shape), generator=generator,
-                      device=device) < keep
+    return draw_rows(lambda s: torch.rand(s, generator=generator,
+                                          device=device) < keep, shape)
 
 
 def apply_keep(x: torch.Tensor, mask: torch.Tensor,

@@ -13,6 +13,11 @@ mmseg/models/losses/cross_entropy_loss.py).
   package's sigmoid path takes no class weight.
 - ``reduction`` is accepted and changes nothing: the loss is always the
   mean, as in the JAX package (which stores the value and ignores it).
+- Under data parallelism each rank's loss is its share of the global mean:
+  the local sum over the global count (``parallel.mesh.global_sum`` of the
+  valid pixels; the rank's pixels times the world size, since every rank
+  holds an equal block). The shares add up to the single-process loss,
+  ignore labels spread unevenly over the ranks included.
 """
 from __future__ import annotations
 
@@ -21,6 +26,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from s4former_tpu_torch.parallel.distributed import world_size
+from s4former_tpu_torch.parallel.mesh import global_sum
 from s4former_tpu_torch.registry import LOSSES
 
 
@@ -53,9 +60,9 @@ def cross_entropy_loss(logits: torch.Tensor,
     nll, valid = softmax_cross_entropy_with_ignore(logits, label,
                                                    ignore_index, class_weight)
     if avg_non_ignore:
-        denom = valid.sum().clamp(min=1.0)
+        denom = global_sum(valid.sum()).clamp(min=1.0)
     else:
-        denom = float(nll.numel())
+        denom = float(nll.numel() * world_size())
     return loss_weight * nll.sum() / denom
 
 
@@ -82,20 +89,21 @@ def binary_cross_entropy_loss(logits: torch.Tensor,
         torch.log1p(torch.exp(-logits.abs()))
     per = per.sum(dim=-1) * valid
     if avg_non_ignore:
-        denom = valid.sum().clamp(min=1.0)
+        denom = global_sum(valid.sum()).clamp(min=1.0)
     else:
-        denom = float(per.numel())
+        denom = float(per.numel() * world_size())
     return loss_weight * per.sum() / denom
 
 
 def accuracy(logits: torch.Tensor, label: torch.Tensor,
              ignore_index: int = 255) -> torch.Tensor:
     """Top-1 pixel accuracy in percent over non-ignored pixels
-    (losses/accuracy.py)."""
+    (losses/accuracy.py), over the global batch."""
     pred = logits.argmax(dim=-1)
     valid = label != ignore_index
     correct = (pred == label) & valid
-    return 100.0 * correct.sum().float() / valid.sum().clamp(min=1).float()
+    n = global_sum(torch.stack([correct.sum(), valid.sum()]).float())
+    return 100.0 * n[0] / n[1].clamp(min=1)
 
 
 @LOSSES.register_module()

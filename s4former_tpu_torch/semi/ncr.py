@@ -7,11 +7,15 @@ the teacher's softmax over the classes other than i are compared (pairwise
 L2 or KL), summed over pixels and divided by B*H*W. "Drop class i, then
 softmax" is a softmax with class i's logit at -1e30: the dropped entry is 0
 in both distributions, so reductions over all C entries are the same.
+Under data parallelism B is the global batch: each rank's loss is its
+share.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from s4former_tpu_torch.parallel.distributed import world_size
 
 _NEG_INF = -1e30
 MODES = ('unsup_only', 'both', 'all', 'kl', 'unsup_only_kl',
@@ -52,7 +56,7 @@ def ncr_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
     if mode in ('kl', 'unsup_only_kl', 'reweight_unsup_only_kl', 'sup'):
         kl = (tp * (torch.log(tp + eps) - torch.log(sp + eps))).sum(dim=-1)
     per_pixel = l2 if kl is None else (kl if l2 is None else kl + l2)
-    loss = (per_pixel * valid).sum() / float(label.numel())
+    loss = (per_pixel * valid).sum() / float(label.numel() * world_size())
     if mode == 'reweight_unsup_only_kl':
         loss = 0.5 * loss
     return loss

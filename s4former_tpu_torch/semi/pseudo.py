@@ -5,7 +5,9 @@ and ``compute_pseudo_loss``, mmseg/models/segmentors/encoder_decoder.py:
 
 ``pseudo_ce_loss`` takes the mean over ALL pixels, ignored ones included
 (the reference's ``reduction='none'`` CE then ``torch.mean``); it is not the
-config-driven ``CrossEntropyLoss`` and shares no reduction with it.
+config-driven ``CrossEntropyLoss`` and shares no reduction with it. Under
+data parallelism each rank's loss is its share of the global mean (the
+local sum over the global pixel count) and ``mask_ratio`` is global.
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ import torch.nn.functional as F
 from s4former_tpu_torch.models.losses.cross_entropy import \
     softmax_cross_entropy_with_ignore
 from s4former_tpu_torch.ops.resize import resize_bilinear
+from s4former_tpu_torch.parallel.distributed import world_size
+from s4former_tpu_torch.parallel.mesh import global_sum
 
 
 class TeacherInfo(NamedTuple):
@@ -58,7 +62,7 @@ def pseudo_ce_loss(student_logits: torch.Tensor,
                                          tuple(hard_label.shape[1:3]), False)
     nll, _ = softmax_cross_entropy_with_ignore(student_logits, hard_label,
                                                ignore_index=255)
-    return nll.mean()
+    return nll.sum() / (nll.numel() * world_size())
 
 
 def soft_pseudo_ce_loss(student_logits: torch.Tensor,
@@ -71,9 +75,11 @@ def soft_pseudo_ce_loss(student_logits: torch.Tensor,
     per = -(soft_label * logp).sum(dim=-1)
     if conf_mask is not None:
         per = per * conf_mask.to(per.dtype)
-    return per.mean()
+    return per.sum() / (per.numel() * world_size())
 
 
 def mask_ratio(conf_mask: torch.Tensor) -> torch.Tensor:
-    """Fraction of confident pixels (encoder_decoder.py:923-925)."""
-    return conf_mask.float().mean()
+    """Fraction of confident pixels of the global batch
+    (encoder_decoder.py:923-925)."""
+    return global_sum(conf_mask.float().sum()) / (conf_mask.numel() *
+                                                  world_size())

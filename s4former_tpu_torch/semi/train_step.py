@@ -56,6 +56,19 @@ gates and EMA skips are ``torch.where``s on the device. The student
 module, its SGD buffers and the EMA teacher (a second copy of the module)
 are updated in place; the returned state holds them with the next step
 counter.
+
+Data parallelism (``parallel/``; JAX: the same jitted step on a batch
+sharded over the ``data`` axis): in a process group each rank passes its
+contiguous block of the global batch, and the step computes the
+single-process step on the global batch. Every rank seeds its generator
+alike; draws with a batch axis are made at the global batch and the rank
+keeps its rows; the strong-mix cascade and the supervised mixes, which
+pair sample i with i+1 (CutMix, ClassMix) or with any sample (adaptive
+CutMix), run on the global batch gathered from the blocks; losses are
+each rank's share of the global loss, BN is synced, ``mask_ratio`` and
+the annealed momentum are global; the gradients are summed over the
+ranks before the clip and the update, and every log is a global value.
+``dbg_`` overrides are given at the global batch.
 """
 from __future__ import annotations
 
@@ -76,6 +89,10 @@ from s4former_tpu_torch.core.optim import (build_layer_decay_trees,
 from s4former_tpu_torch.models.losses.cross_entropy import accuracy
 from s4former_tpu_torch.models.backbones.mit import MixVisionTransformer
 from s4former_tpu_torch.ops.resize import resize_bilinear, resize_nearest
+from s4former_tpu_torch.parallel.distributed import world_size
+from s4former_tpu_torch.parallel.mesh import (all_reduce_grads, gather_rows,
+                                              global_sum, local_rows,
+                                              stacked_batches)
 from s4former_tpu_torch.registry import LOSSES
 from s4former_tpu_torch.semi import mixes
 from s4former_tpu_torch.semi.config import SemiConfig
@@ -196,8 +213,50 @@ def apply_strong_mixes(cfg: SemiConfig, generator: Optional[torch.Generator],
                        imgs: Tensor, labels: Tensor, teacher, sup_imgs: Tensor,
                        sup_gts: Tensor, num_classes: int,
                        overrides: Optional[Dict[str, Tensor]] = None):
-    """The strong-augmentation cascade on (student images, teacher labels)
-    in the JAX step's order (encoder_decoder.py:584-648):
+    """The strong-augmentation cascade on (student images, teacher labels),
+    each unsup sample i paired with labeled sample i (``sup_imgs[:B]``).
+    Under data parallelism the cascade runs on the global batch gathered
+    from the ranks' blocks, draws included, and the rank keeps its block.
+    See ``_strong_mix_cascade``. Returns (images, labels, perm or None)."""
+    if cfg.use_cutmix_adaptive:
+        # per-sample confidence mean((1 - normalised entropy) * max prob)
+        # (:608-620) and a fresh argmax (:621-630), from the logits
+        probs = torch.softmax(teacher.seg_logits, dim=-1)
+        ent = -(probs * torch.log(probs + 1e-10)).sum(dim=-1)
+        ent = ent / math.log(num_classes)
+        adaptive = (((1.0 - ent) * teacher.max_prob).mean(dim=(1, 2)),
+                    probs.argmax(dim=-1).to(teacher.hard_label.dtype),
+                    teacher.max_prob)
+    else:
+        adaptive = None
+    conf_mask = teacher.conf_mask
+    if world_size() == 1:
+        return _strong_mix_cascade(cfg, generator, imgs, labels, conf_mask,
+                                   adaptive, sup_imgs[:imgs.shape[0]],
+                                   sup_gts[:imgs.shape[0]], num_classes,
+                                   overrides)
+    imgs, labels = gather_rows(imgs), gather_rows(labels)
+    if cfg.mix_with_labeled:
+        conf_mask = gather_rows(conf_mask)
+    if adaptive is not None:
+        adaptive = tuple(gather_rows(x) for x in adaptive)
+    if cfg.mix_with_labeled or adaptive is not None:
+        sup_imgs, sup_gts = gather_rows(sup_imgs), gather_rows(sup_gts)
+    b = imgs.shape[0]
+    out = _strong_mix_cascade(cfg, generator, imgs, labels, conf_mask,
+                              adaptive, sup_imgs[:b], sup_gts[:b],
+                              num_classes, overrides)
+    return tuple(None if x is None else local_rows(x) for x in out)
+
+
+def _strong_mix_cascade(cfg: SemiConfig,
+                        generator: Optional[torch.Generator], imgs: Tensor,
+                        labels: Tensor, conf_mask: Tensor,
+                        adaptive: Optional[Tuple[Tensor, Tensor, Tensor]],
+                        sup_imgs: Tensor, sup_gts: Tensor, num_classes: int,
+                        overrides: Optional[Dict[str, Tensor]]):
+    """The strong-augmentation cascade in the JAX step's order
+    (encoder_decoder.py:584-648):
     ``mix_with_labeled``; CutMix gated by ``strong_aug_prob``; CutOut and
     ClassMix gated by 0.5 (patchwise with ``patchwise``); adaptive CutMix
     on the PRE-mix images with a fresh teacher argmax, which overwrites
@@ -210,7 +269,10 @@ def apply_strong_mixes(cfg: SemiConfig, generator: Optional[torch.Generator],
     ``ps_classmix_scores``; [B, G*G] perms ``shuffle_perm``
     (use_PatchShuffle), ``patchmix_perm`` (PatchShuffle + CutMix or
     ClassMix); adaptive CutMix's draws as ``'adaptive_' + name`` of
-    ``mixes.adaptive_draws``. Returns (images, labels, perm or None)."""
+    ``mixes.adaptive_draws``. ``conf_mask`` is the teacher's confidence
+    (``mix_with_labeled``); ``adaptive`` the adaptive CutMix's per-sample
+    confidence, fresh argmax and max probability. Returns (images, labels,
+    perm or None)."""
     overrides = overrides or {}
     b, h, w, _ = imgs.shape
     dev = imgs.device
@@ -232,8 +294,7 @@ def apply_strong_mixes(cfg: SemiConfig, generator: Optional[torch.Generator],
 
     if cfg.mix_with_labeled:
         imgs, labels = mixes.mix_with_labeled(
-            imgs, labels, sup_imgs, sup_gts, teacher.conf_mask,
-            cfg.patchsize)
+            imgs, labels, sup_imgs, sup_gts, conf_mask, cfg.patchsize)
     if cfg.use_CutMix:
         imgs, labels = _gated(overrides, 'strong_cutmix_mask', generator,
                               cfg.strong_aug_prob, masks(),
@@ -245,20 +306,15 @@ def apply_strong_mixes(cfg: SemiConfig, generator: Optional[torch.Generator],
         # the JAX step passes no patchsize here: classmix's default, 128
         imgs, labels = _gated(overrides, 'classmix_scores', generator, 0.5,
                               scores(128), classmix(128), imgs, labels)
-    if cfg.use_cutmix_adaptive:
-        # per-sample confidence mean((1 - normalised entropy) * max prob)
-        # (:608-620); the PRE-mix images with a fresh argmax (:621-630)
-        probs = torch.softmax(teacher.seg_logits, dim=-1)
-        ent = -(probs * torch.log(probs + 1e-10)).sum(dim=-1)
-        ent = ent / math.log(num_classes)
-        confidence = ((1.0 - ent) * teacher.max_prob).mean(dim=(1, 2))
-        fresh = probs.argmax(dim=-1).to(teacher.hard_label.dtype)
+    if adaptive is not None:
+        # the PRE-mix images with the fresh argmax (:621-630)
+        confidence, fresh, max_prob = adaptive
         draws = {k: overrides['adaptive_' + k] for k in
                  ('perm', 'lam_l', 'lam_u', 'cx_l', 'cy_l', 'cx_u', 'cy_u',
                   'u')} if 'adaptive_perm' in overrides else \
             mixes.adaptive_draws(generator, b, (h, w), dev)
         imgs, new_labels, new_probs = mixes.cutmix_label_adaptive(
-            draws, raw_imgs, fresh, teacher.max_prob, sup_imgs, sup_gts,
+            draws, raw_imgs, fresh, max_prob, sup_imgs, sup_gts,
             confidence)
         labels = torch.where(new_probs < cfg.unsup_confidence,
                              torch.full_like(new_labels, 255), new_labels)
@@ -286,7 +342,18 @@ def sup_mixes(cfg: SemiConfig, generator: Optional[torch.Generator],
     """The supervised mixes (encoder_decoder.py:429-434): ``sup_cutmix``
     (box, ratio 2, gated by ``strong_aug_prob``; override
     ``sup_cutmix_mask``), else ``sup_ClassMix`` (gated by 0.5; override
-    ``sup_classmix_scores``)."""
+    ``sup_classmix_scores``). Under data parallelism they run on the
+    global batch and the rank keeps its block."""
+    if not (cfg.sup_cutmix or cfg.sup_ClassMix):
+        return img, gt
+    if world_size() > 1:
+        img, gt = _sup_mixes(cfg, generator, gather_rows(img),
+                             gather_rows(gt), num_classes, overrides)
+        return local_rows(img), local_rows(gt)
+    return _sup_mixes(cfg, generator, img, gt, num_classes, overrides)
+
+
+def _sup_mixes(cfg, generator, img, gt, num_classes, overrides):
     b, h, w, _ = img.shape
     if cfg.sup_cutmix:
         return _gated(overrides, 'sup_cutmix_mask', generator,
@@ -429,15 +496,18 @@ def make_semi_train_step(model: nn.Module,
                     t_mix_logits, cfg.unsup_confidence,
                     cfg.unsup_temperature, cfg.unsup_soft)
             else:
-                if bu > sup_student_img.shape[0]:
+                # global sizes: every rank holds an equal block
+                bu_all = bu * world_size()
+                bs_all = sup_student_img.shape[0] * world_size()
+                if bu_all > bs_all:
                     raise ValueError(
-                        f'unsup batch ({bu}) > sup batch '
-                        f'({sup_student_img.shape[0]}): the strong mixes '
-                        f'pair each unsup sample with a labeled one')
+                        f'unsup batch ({bu_all}) > sup batch ({bs_all}): '
+                        f'the strong mixes pair each unsup sample with a '
+                        f'labeled one')
                 mixed_imgs, mixed_labels, perm = apply_strong_mixes(
                     cfg, generator, batch['unsup_student_img'],
-                    teacher.hard_label, teacher, sup_student_img[:bu],
-                    sup_gt[:bu], num_classes, overrides)
+                    teacher.hard_label, teacher, sup_student_img, sup_gt,
+                    num_classes, overrides)
 
         # ---- 2b. the EMA teacher on the WEAK (unmixed) labeled images,
         # shared by supervised NCR (:447-449) and sup_ema (:477-480)
@@ -482,9 +552,14 @@ def make_semi_train_step(model: nn.Module,
                     patchmix_perm=patchmix_perm, patchmix_n=patchmix_n,
                     generator=generator)
             student_img = batch['unsup_student_img']
-            draws = unimatch_draws(cfg, generator, bu,
+            # drawn at the global batch; the rank keeps its rows
+            draws = unimatch_draws(cfg, generator, bu * world_size(),
                                    tuple(student_img.shape[1:3]),
                                    student_img.device, overrides)
+            for d in draws.values():
+                d['mask'] = local_rows(d['mask'])
+                if d['perm'] is not None:
+                    d['perm'] = local_rows(d['perm'])
             unsup = unimatch_unsup_losses(cfg, draws, batch, teacher,
                                           teacher_mix, pasa_bias,
                                           apply_decode, num_classes)
@@ -503,9 +578,11 @@ def make_semi_train_step(model: nn.Module,
                         perm.shape[-1], device=perm.device,
                         dtype=perm.dtype).expand(bu, -1)
                     perm2, n2 = torch.cat([identity, perm]), cfg.PatchMix_N
-                logits2 = model.forward_decode_from_img(
-                    imgs2, train=True, attn_bias=bias2, pos_mode=cfg.pos_mode,
-                    patchmix_perm=perm2, patchmix_n=n2, generator=generator)
+                with stacked_batches(2):
+                    logits2 = model.forward_decode_from_img(
+                        imgs2, train=True, attn_bias=bias2,
+                        pos_mode=cfg.pos_mode, patchmix_perm=perm2,
+                        patchmix_n=n2, generator=generator)
                 pasa_logits, stu_logits = logits2[:bu], logits2[bu:]
             else:
                 if cfg.attn_mask_seperate_head:
@@ -555,6 +632,8 @@ def make_semi_train_step(model: nn.Module,
         params = dict(model.named_parameters())
         grads = dict(zip(params, torch.autograd.grad(total,
                                                      list(params.values()))))
+        # each rank's total is its share of the global loss
+        grads = all_reduce_grads(grads)
         if grad_clip_norm is not None:
             grads = clip_grads_by_norm(grads, grad_clip_norm)
 
@@ -565,6 +644,11 @@ def make_semi_train_step(model: nn.Module,
 
         logs.update({key: v.detach() for key, v in losses.items()})
         logs['loss'] = total.detach()
+        # the losses are shares of the global losses: their global sums in
+        # one all-reduce (the reference's _parse_losses, base.py:259-276)
+        shares = [key for key in logs if 'loss' in key]
+        logs.update(zip(shares, global_sum(torch.stack(
+            [logs[key] for key in shares])).unbind()))
         logs['lr'] = lr
         annealed = new_annealed if (cfg.ema and anneal and has_unsup) \
             else state.annealed_momentum

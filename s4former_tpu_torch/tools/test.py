@@ -82,7 +82,7 @@ def main(argv=None):
         raise NotImplementedError(
             'not ported: the eval fast mode (S4_EVAL_BUCKET); the port '
             'evaluates on the exact path')
-    from s4former_tpu_torch.tools.train import resolve_device
+    from s4former_tpu_torch.parallel.distributed import resolve_device
     device = resolve_device(args.device)
 
     import pickle

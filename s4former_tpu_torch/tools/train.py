@@ -3,7 +3,8 @@ tools/train.py:115-255):
 
     python -m s4former_tpu_torch.tools.train CONFIG [--work-dir D]
         [--load-from X.pth] [--resume-from D/iter_N] [--auto-resume]
-        [--seed N] [--max-iters N] [--no-validate] [--device cuda|cpu]
+        [--seed N] [--diff-seed] [--max-iters N] [--no-validate]
+        [--launcher none|env|slurm|mpi] [--device cuda|cpu]
         [--profile FIRST N] [--cfg-options k=v ...]
 
 config -> datasets -> ``SemiLoader`` -> ``make_semi_train_step`` ->
@@ -22,11 +23,22 @@ JAX tools/train.py:166-187. UniMatch takes ``model.unimatch=True`` and a
 mix-source stream, ``data.train.unsup_mix`` (or ``unsup2``, as
 ``UniSemiDataset`` names it), whose pipeline tags its views
 ``unsup_teacher_mix``, ``unsup_student_mix`` and ``unsup_student_2_mix``
-(JAX tools/train.py:140-154). Not ported yet, and refused with
-``NotImplementedError``: ``--model-parallel`` > 1, ``--zero3`` and a
-``--launcher`` other than 'none'.
+(JAX tools/train.py:140-154).
+
+Data parallelism: with ``--launcher env`` (``torchrun``, or
+``s4former_tpu_torch/tools/dist_train.sh CONFIG NGPUS``), ``slurm`` or
+``mpi`` one process runs on each card (``cuda:{LOCAL_RANK}``, NCCL; gloo
+with ``--device cpu``). ``samples_per_gpu`` is the batch of each rank, as
+in the reference, so the global batch is it times the number of ranks;
+the step on it is the single-process step on the global batch
+(``parallel/mesh.py``). Parameters are broadcast from rank 0;
+``--diff-seed`` adds the rank to the seed of the data order and the
+step's draws. Rank 0 alone writes logs and checkpoints. Not ported yet,
+and refused with ``NotImplementedError``: ``--model-parallel`` > 1 and
+``--zero3``.
 """
 import argparse
+import logging
 import os
 import os.path as osp
 import time
@@ -36,7 +48,7 @@ from s4former_tpu_torch.config import DictAction
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(
-        description='Train a segmentor (PyTorch port, one GPU)')
+        description='Train a segmentor (PyTorch port)')
     parser.add_argument('config', help='config file path')
     parser.add_argument('--work-dir', help='dir to save logs and ckpts')
     parser.add_argument('--load-from', help='initial weights (.pth)')
@@ -44,9 +56,8 @@ def parse_args(argv=None):
     parser.add_argument('--auto-resume', action='store_true')
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--diff-seed', action='store_true',
-                        help='fold the process index into the seed '
-                             '(reference --diff_seed); one process here, '
-                             'index 0')
+                        help='add the rank to the seed (reference '
+                             '--diff_seed)')
     parser.add_argument('--deterministic', action='store_true',
                         help='cuDNN deterministic, no autotune (reference '
                              '--deterministic)')
@@ -59,7 +70,8 @@ def parse_args(argv=None):
                         help='ZeRO-3 sharding (not ported)')
     parser.add_argument('--launcher', default='none',
                         choices=['none', 'tpu', 'slurm', 'mpi', 'env'],
-                        help="multi-process bootstrap (not ported: 'none')")
+                        help="process-group bootstrap, one process a "
+                             "card ('tpu' is refused: no TPU here)")
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (default) or 'cpu'")
     parser.add_argument('--profile', nargs=2, type=int, default=None,
@@ -72,35 +84,38 @@ def parse_args(argv=None):
 
 
 def check_unported(args):
-    if args.model_parallel > 1 or args.zero3 or args.launcher != 'none':
+    if args.model_parallel > 1 or args.zero3:
         raise NotImplementedError(
-            'not ported yet: --model-parallel > 1, --zero3 and --launcher '
-            'other than none (multi-card training)')
-
-
-def resolve_device(name: str):
-    """The torch device for ``--device``; a CUDA device without a card is
-    an error (no CPU fallback)."""
-    import torch
-    device = torch.device(name)
-    if device.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError('--device cuda, but torch finds no CUDA device; '
-                           'pass --device cpu to run on the CPU')
-    return device
+            'not ported yet: --model-parallel > 1 and --zero3 (tensor '
+            'parallelism and ZeRO-3 sharding)')
 
 
 def main(argv=None):
     """Train; returns the final ``TrainState``."""
     args = parse_args(argv)
     check_unported(args)
-    device = resolve_device(args.device)
+    # a CUDA device without a card is an error (no CPU fallback)
+    from s4former_tpu_torch.parallel.distributed import (
+        init_distributed, is_distributed)
+    device = init_distributed(args.launcher, device=args.device)
+    import torch.distributed as dist
+    try:
+        return _train(args, device)
+    finally:
+        if is_distributed():
+            dist.destroy_process_group()
 
+
+def _train(args, device):
     import torch
     import s4former_tpu_torch.data  # noqa: F401  (registers datasets)
     from s4former_tpu_torch.apis import init_segmentor
     from s4former_tpu_torch.config import Config
     from s4former_tpu_torch.core.runner import IterBasedRunner, make_eval_fn
     from s4former_tpu_torch.data import SemiLoader, build_dataset
+    from s4former_tpu_torch.parallel.distributed import (is_main, rank,
+                                                         world_size)
+    from s4former_tpu_torch.parallel.mesh import replicate_state
     from s4former_tpu_torch.semi.config import SemiConfig
     from s4former_tpu_torch.semi.train_step import (create_train_state,
                                                     make_semi_train_step)
@@ -113,17 +128,25 @@ def main(argv=None):
     if args.deterministic:
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
+    n_ranks = world_size()
+    if args.diff_seed:
+        args.seed = args.seed + rank()
 
     work_dir = args.work_dir or osp.join(
         'work_dirs', osp.splitext(osp.basename(args.config))[0])
     os.makedirs(work_dir, exist_ok=True)
-    cfg.dump(osp.join(work_dir, osp.basename(args.config)))
-    logger = get_root_logger(osp.join(
-        work_dir, time.strftime('%Y%m%d_%H%M%S') + '.log'))
+    if is_main():
+        cfg.dump(osp.join(work_dir, osp.basename(args.config)))
+        logger = get_root_logger(osp.join(
+            work_dir, time.strftime('%Y%m%d_%H%M%S') + '.log'))
+    else:
+        logger = get_root_logger()
+        logger.setLevel(logging.ERROR)
     logger.info('environment:\n' + format_env())
     logger.info(f'device: {device}' + (
         f' ({torch.cuda.get_device_name(device)})'
-        if device.type == 'cuda' else ''))
+        if device.type == 'cuda' else '') +
+        (f'; {n_ranks} ranks ({args.launcher})' if n_ranks > 1 else ''))
 
     # seeded weights, overlaid by the pretrained .pth (--load-from, else
     # the backbone's init_cfg checkpoint when that file exists)
@@ -140,7 +163,7 @@ def main(argv=None):
     model = init_segmentor(cfg, checkpoint=init_ckpt, seed=args.seed,
                            device=device).model
     semi_cfg = SemiConfig.from_model_cfg(cfg.model)
-    state = create_train_state(model, ema=semi_cfg.ema)
+    state = replicate_state(create_train_state(model, ema=semi_cfg.ema))
 
     # data
     train_cfg = cfg.data['train']
@@ -159,15 +182,19 @@ def main(argv=None):
                      else cfg.data.get('samples_per_gpu', 8))
     unsup_pb = cfg.get('samples_per_gpu_unsup', sup_pb) \
         if unsup_ds is not None else 0
+    # samples_per_gpu is a rank's batch; the sampler draws the global one
     loader = SemiLoader(sup_ds, unsup_ds, unsup_mix_ds,
-                        sup_per_batch=sup_pb, unsup_per_batch=unsup_pb,
+                        sup_per_batch=sup_pb * n_ranks,
+                        unsup_per_batch=unsup_pb * n_ranks,
                         num_workers=cfg.data.get('workers_per_gpu', 4) * 2,
-                        seed=args.seed)
+                        seed=args.seed, shard=(rank(), n_ranks))
     logger.info(f'sup dataset: {len(sup_ds)} imgs' +
                 (f', unsup: {len(unsup_ds)} imgs' if unsup_ds else '') +
                 (f', unsup_mix: {len(unsup_mix_ds)} imgs' if unsup_mix_ds
                  else '') +
-                f'; {sup_pb} + {unsup_pb} a step')
+                f'; {sup_pb} + {unsup_pb} a step' +
+                (f' a rank, {sup_pb * n_ranks} + {unsup_pb * n_ranks} '
+                 f'global' if n_ranks > 1 else ''))
 
     # train step from the config
     opt = cfg.get('optimizer', {})

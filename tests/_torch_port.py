@@ -333,3 +333,204 @@ def write_unimatch_config(directory, val_split: str) -> str:
     with open(base) as f:
         path.write_text(f.read() + UNIMATCH_CFG)
     return str(path)
+
+
+# ------------------------------------------------- data-parallel workers
+# tests/test_torch_parallel.py runs these in spawned processes joined by a
+# gloo group on the CPU; they import only the port (the JAX reference runs
+# in the test's own process) and exchange data through files.
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(fn, rank: int, world: int, port: int, args):
+    import os
+    import torch
+    os.environ.update(MASTER_ADDR='127.0.0.1', MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    torch.set_num_threads(2)
+    from s4former_tpu_torch.parallel.distributed import init_distributed
+    init_distributed('env', device='cpu')
+    try:
+        fn(rank, world, *args)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_ranks(fn, world: int, *args, timeout: float = 240.0):
+    """``fn(rank, world, *args)`` in ``world`` spawned processes of one
+    gloo group (torchrun's env launcher); every process must exit 0."""
+    import multiprocessing
+    ctx = multiprocessing.get_context('spawn')
+    port = free_port()
+    procs = [ctx.Process(target=_rank_main, args=(fn, r, world, port, args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout)
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join(10)
+    assert not alive, f'{len(alive)} ranks did not finish in {timeout} s'
+    assert [p.exitcode for p in procs] == [0] * world, \
+        [p.exitcode for p in procs]
+
+
+def identical_across_ranks(tensors) -> bool:
+    """Every tensor bit for bit the same on every rank (rank 0's broadcast
+    compared on each rank, the mismatches summed over the ranks)."""
+    import torch
+    import torch.distributed as dist
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    ref = flat.clone()
+    dist.broadcast(ref, 0)
+    bad = (flat.view(torch.int32) != ref.view(torch.int32)).sum().reshape(1)
+    dist.all_reduce(bad)
+    return int(bad) == 0
+
+
+def dp_trajectory_worker(rank: int, world: int, inp: str, out: str):
+    """The port's step at ``world`` ranks: the test's initial state dicts,
+    flags and global batches from ``inp``; each rank feeds its block
+    (``dbg_`` draws stay global). Rank 0 writes each step's logs and the
+    final state to ``out``; the ranks' states must stay identical."""
+    import torch
+    from s4former_tpu_torch.models import build_segmentor
+    from s4former_tpu_torch.parallel.mesh import shard_batch
+    from s4former_tpu_torch.semi.config import SemiConfig
+    from s4former_tpu_torch.semi.train_step import (create_train_state,
+                                                    make_semi_train_step)
+    data = torch.load(inp, weights_only=False)
+    model = build_segmentor(data['model_cfg'])
+    sds = data['state']
+    model.load_state_dict(sds['model'])
+    state = create_train_state(model, ema=sds['ema'] is not None)
+    if state.ema_model is not None:
+        state.ema_model.load_state_dict(sds['ema'])
+    for name, buf in state.momentum.items():
+        buf.copy_(sds['momentum'][name])
+    step = make_semi_train_step(model, SemiConfig(**data['flags']),
+                                **data['step_kw'])
+    gen = torch.Generator().manual_seed(0)
+    logs_by_step, same = [], []
+    for batch in data['batches']:
+        batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+        local = shard_batch({k: v for k, v in batch.items()
+                             if not k.startswith('dbg_')})
+        local.update({k: v for k, v in batch.items() if k.startswith('dbg_')})
+        state, logs = step(state, local, gen)
+        logs_by_step.append({k: float(v) for k, v in logs.items()})
+        tensors = list(state.model.state_dict().values()) + \
+            list(state.momentum.values())
+        if state.ema_model is not None:
+            tensors += list(state.ema_model.state_dict().values())
+        same.append(identical_across_ranks(tensors))
+    if rank == 0:
+        torch.save({'logs': logs_by_step, 'same': same,
+                    'step': int(state.step),
+                    'annealed': None if state.annealed_momentum is None
+                    else float(state.annealed_momentum),
+                    'model': state.model.state_dict(),
+                    'momentum': state.momentum,
+                    'ema': None if state.ema_model is None
+                    else state.ema_model.state_dict()}, out)
+
+
+def dp_collectives_worker(rank: int, world: int, out: str):
+    """The data axis's collectives at ``world`` ranks, each checked on
+    every rank against the same computation on the global batch in plain
+    torch; rank 0 writes 'ok' to ``out``."""
+    import torch
+    import torch.distributed as dist
+    from s4former_tpu_torch.models.decode_heads.setr_up import BatchNorm
+    from s4former_tpu_torch.parallel import mesh
+    rs = np.random.RandomState(3)
+    b = 3
+    x = torch.from_numpy(rs.randn(b * world, 5, 6, 4).astype(np.float32))
+    labels = torch.from_numpy(rs.randint(0, 256, (b * world, 7)).astype(
+        np.int32))
+    rows = slice(rank * b, (rank + 1) * b)
+    # gather_rows / local_rows / shard_batch: exact for f32 and int
+    assert torch.equal(mesh.gather_rows(x[rows]), x)
+    assert torch.equal(mesh.gather_rows(labels[rows]), labels)
+    assert torch.equal(mesh.gather_rows(labels[rows] > 100), labels > 100)
+    assert torch.equal(mesh.local_rows(x), x[rows])
+    assert torch.equal(mesh.shard_batch({'x': x})['x'], x[rows])
+    # a draw at the global batch, one block or two stacked batches
+    two = torch.arange(2 * b * world)
+    assert torch.equal(mesh.draw_rows(lambda s: torch.arange(s[0]), (b,)),
+                       torch.arange(b * world)[rows])
+    with mesh.stacked_batches(2):
+        got = mesh.draw_rows(lambda s: torch.arange(s[0]), (2 * b,))
+    assert torch.equal(got, torch.cat([two[rows], two[b * world:][rows]]))
+    # global_sum: forward sums, backward all-reduces the gradient
+    v = torch.full((3,), float(rank + 1), requires_grad=True)
+    s = mesh.global_sum(v)
+    assert torch.equal(s.detach(), torch.full((3,), world * (world + 1) / 2))
+    (s * (rank + 1)).sum().backward()
+    assert torch.equal(v.grad, torch.full((3,), world * (world + 1) / 2))
+    # SyncBN forward, backward and running statistics against the plain
+    # batch norm (biased variance, momentum 0.9) of the global batch
+    bn = BatchNorm(4)
+    with torch.no_grad():
+        bn.weight.copy_(torch.tensor([1.0, 2.0, 0.5, -1.0]))
+        bn.bias.copy_(torch.tensor([0.1, 0.0, -0.2, 0.3]))
+    w = torch.from_numpy(rs.randn(b * world, 5, 6, 4).astype(np.float32))
+    xl = x[rows].clone().requires_grad_(True)
+    y = bn(xl, train=True)
+    (y * w[rows]).sum().backward()
+    xg = x.clone().requires_grad_(True)
+    wt = bn.weight.detach().clone().requires_grad_(True)
+    bt = bn.bias.detach().clone().requires_grad_(True)
+    mean = xg.mean(dim=(0, 1, 2))
+    var = (xg * xg).mean(dim=(0, 1, 2)) - mean * mean
+    yg = (xg - mean) * torch.rsqrt(var + 1e-5) * wt + bt
+    (yg * w).sum().backward()
+    torch.testing.assert_close(y, yg[rows].detach(), rtol=0, atol=1e-5)
+    torch.testing.assert_close(xl.grad, xg.grad[rows], rtol=0, atol=1e-5)
+    grads = mesh.all_reduce_grads({'w': bn.weight.grad, 'b': bn.bias.grad})
+    torch.testing.assert_close(grads['w'], wt.grad, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(grads['b'], bt.grad, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(bn.running_mean, 0.1 * mean.detach(),
+                               rtol=0, atol=1e-6)
+    torch.testing.assert_close(bn.running_var,
+                               0.9 + 0.1 * var.detach(), rtol=0, atol=1e-6)
+    # replicate_state: rank 0's tensors everywhere
+    from s4former_tpu_torch.semi.train_step import create_train_state
+    torch.manual_seed(rank)
+    model = torch_train_model()
+    state = mesh.replicate_state(create_train_state(model, ema=True))
+    assert identical_across_ranks(list(model.state_dict().values()) +
+                                  list(state.ema_model.state_dict().values()))
+    dist.barrier()
+    if rank == 0:
+        with open(out, 'w') as f:
+            f.write('ok')
+
+
+def dp_eval_worker(rank: int, world: int, cfg_path: str, weights: str,
+                   out: str):
+    """``make_eval_fn`` of the config's val set at ``world`` ranks on the
+    weights in ``weights``; rank 0 writes the metrics to ``out``."""
+    import json
+    import torch
+    import s4former_tpu_torch.data  # noqa: F401
+    from s4former_tpu_torch.config import Config
+    from s4former_tpu_torch.core.runner import make_eval_fn
+    from s4former_tpu_torch.data import build_dataset
+    from s4former_tpu_torch.models import build_segmentor
+    from s4former_tpu_torch.semi.train_step import create_train_state
+    cfg = Config.fromfile(cfg_path)
+    model = build_segmentor(cfg.model)
+    model.load_state_dict(torch.load(weights, weights_only=True))
+    metrics = make_eval_fn(build_dataset(cfg.data['val']), batch_size=2)(
+        create_train_state(model))
+    if rank == 0:
+        with open(out, 'w') as f:
+            json.dump(metrics, f)

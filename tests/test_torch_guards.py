@@ -32,8 +32,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = _port_files()
     assert len(files) > 15
     # the host runtime, the profiler's reader, the test CLI's modules, the
-    # SegFormer slice's, the ablation slice's and the UniMatch slice's are
-    # among the files read
+    # SegFormer slice's, the ablation slice's, the UniMatch slice's and the
+    # data-parallel slice's are among the files read
     assert {'native/__init__.py', 'native/build.py', 'core/hooks.py',
             'tools/profile_trace.py', 'utils/palette.py',
             'utils/collect_env.py', 'tools/test.py',
@@ -44,7 +44,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             'semi/ema.py', 'semi/mixes.py', 'semi/train_step.py',
             'tools/train.py', 'semi/unimatch.py',
             'data/pipelines/extra_transforms.py',
-            'data/datasets/custom.py', 'data/loader.py'} <= {
+            'data/datasets/custom.py', 'data/loader.py',
+            'parallel/distributed.py', 'parallel/mesh.py',
+            'core/runner.py'} <= {
         str(p.relative_to(REPO / 's4former_tpu_torch')) for p in files
         if REPO / 's4former_tpu_torch' in p.parents}
     bad = [(str(p.relative_to(REPO)), m) for p in files

@@ -278,8 +278,10 @@ def test_train_then_test_cli_round_trip(tmp_path):
     assert osp.isfile(osp.join(wd, 'iter_3', 'state.pt'))
 
 
+# data parallelism is ported (tests/test_torch_parallel.py); tensor
+# parallelism and ZeRO-3 are refused, with a launcher too
 @pytest.mark.parametrize('argv', [['--model-parallel', '2'], ['--zero3'],
-                                  ['--launcher', 'slurm']])
+                                  ['--launcher', 'slurm', '--zero3']])
 def test_unported_train_flags_raise(argv):
     with pytest.raises(NotImplementedError):
         train_cli.main(['unused.py', '--device', 'cpu'] + argv)
