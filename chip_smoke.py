@@ -39,6 +39,15 @@ on the card, then drives the port's paths through its entry points:
   (six ratios and flip over the 16 fixture images) and with
   ``--format-only`` (Cityscapes label-id files); kernel #1 is held to its
   plain version at the TTA shapes in ``kernel_check``;
+- eval and tools, on the training run's checkpoints (its evals' panels
+  are checked in ``train_cli``): ``tools.test --launcher env`` over NCCL
+  with min(2, cards) ranks against one process (``--show-dir --out``:
+  metrics, PNGs and pickle equal); ``benchmark`` (``..._sup.py`` at 512²,
+  B = 1 and 8), ``get_flops`` (the card's count against the CPU's),
+  ``ensemble_test`` over ``iter_6`` + ``iter_12``, ``per_image_eval``,
+  ``measure_eval_divergence``, ``publish_model --to-pth`` and
+  ``tools.test`` on the ``.pth``, ``print_config``, ``image_demo`` and
+  ``video_demo`` over the fixture frames through a stub ``cv2``;
 - the SegFormer slice (``configs/segformer/``, MiT-B4 at full width, 19
   classes, seeded weights, frames and labels made from a seed with
   numpy), which launches none of the kernels: ``..._sup.py`` serving one
@@ -75,12 +84,19 @@ on the card, then drives the port's paths through its entry points:
   ``torch.distributed.run`` on this script's ``--dp-worker`` mode): 2
   ranks on one card over gloo against one process, the f32 step of
   ``..._MT_w_ours.py`` at 4 layers, 3 steps of 4 + 4 global (2 + 2 a
-  rank), the ranks' states bit-identical; the bf16 flagship at 4 + 4 a
+  rank), the ranks' states bit-identical and the hard pseudo-labels that
+  differ from one process's counted, then again with each rank's teacher
+  logits pinned to one process's; the bf16 flagship at 4 + 4 a
   rank (step and all-reduce time, peak a rank), and with more cards the
   same over NCCL, one rank a card (up to 4); ``tools.train --launcher
   env`` over NCCL with min(2, cards) ranks on the fixture config, 6 steps,
-  resumed to 8, rank 0 alone writing, and ``tools.test`` against the
-  in-loop mIoU.
+  resumed to 8, rank 0 alone writing (its eval panels too), and
+  ``tools.test`` against the in-loop mIoU.
+
+Kernel #1 is held to its plain version at every forward shape a path
+launched: the shapes listed up front (the TTA and whole-image eval token
+counts worked out from the fixture images), and at the end any other
+that the launches recorded, the ranks' included.
 
 Every phase prints one JSON line; any failed check raises and the script
 exits nonzero without its last line. Each path runs with the kernels'
@@ -91,6 +107,7 @@ no CPU fallback. Imports nothing of JAX or of the JAX package.
 """
 import contextlib
 import glob
+import io
 import json
 import os
 import shutil
@@ -264,6 +281,7 @@ def check_forward(fa, q, k, v, bias, o, lse, where):
     check(err_o <= tol['o'] and err_lse <= tol['lse'],
           f'forward kernel disagrees with plain: {where} err_o={err_o} '
           f'err_lse={err_lse}')
+    FWD_HELD.add(fwd_shape(q, bias))
     return err_o, err_lse
 
 
@@ -303,10 +321,85 @@ def tta_lengths(images, crop=(512, 512), patch=16):
     return sorted(out)
 
 
-def phase_kernels(fa, tta_ls):
+def eval_lengths(patch=16, buckets=(16, 256)):
+    """The token counts the whole-image evals give kernel #1 on the
+    fixture val set: each pipeline image of ``FULLFLAG``'s val set padded
+    to the patch size (tools.test, ensemble_test, measure_eval_divergence
+    at its default bucket, the demos, serving) or to a multiple of 256
+    (per_image_eval), + the cls token."""
+    import numpy as np
+    import s4former_tpu_torch.data  # noqa: F401  (registers datasets)
+    from s4former_tpu_torch.config import Config
+    from s4former_tpu_torch.data import build_dataset
+    ds = build_dataset(Config.fromfile(FULLFLAG).data['val'])
+    out = set()
+    for idx in range(len(ds)):
+        item = ds.get_item_deterministic(idx, seed=0)
+        h, w = np.asarray((item[0] if isinstance(item, list)
+                           else item)['img']).shape[:2]
+        for m in buckets:
+            out.add(-(-h // m) * -(-w // m) * (m // patch) ** 2 + 1)
+    return sorted(out)
+
+
+# kernel #1's forward shapes, each (dtype, B, L, H, bias: None, 'b1' one
+# row for all heads, 'bh' one a head): those held against the plain
+# version (``check_forward``) and those launched (``record_fwd_shapes``,
+# in the parent and in every rank)
+FWD_HELD, FWD_SEEN = set(), set()
+
+
+def fwd_shape(q, bias):
+    b, l, h, _ = q.shape
+    kind = None if bias is None else ('b1' if bias.shape[1] == 1 else 'bh')
+    return (str(q.dtype).replace('torch.', ''), b, l, h, kind)
+
+
+def record_fwd_shapes(fa):
+    """Wrap kernel #1's launcher so that every launch adds its shape to
+    FWD_SEEN; the launch and its count stay the launcher's."""
+    launch = fa._launch_fwd
+
+    def recording(q, k, v, bias):
+        FWD_SEEN.add(fwd_shape(q, bias))
+        return launch(q, k, v, bias)
+    fa._launch_fwd = recording
+
+
+def phase_kernels_seen(fa, entry):
+    """Kernel #1 against its plain version at every forward shape a path
+    launched that no earlier check held (random inputs, a random bias of
+    the path's kind), so that no shape a path brings goes unheld; adds
+    them to the kernels line's ``entry``. The shapes held here belong in
+    ``phase_kernels``' list."""
+    import torch
+    gen = torch.Generator(device='cuda').manual_seed(2)
+    late = sorted(FWD_SEEN - FWD_HELD, key=str)
+    kinds = {None: None, 'b1': 'random_b1', 'bh': 'random_bh'}
+    for name, b, l, h, kind in late:
+        q, k, v, bias = attention_inputs(b, l, h, getattr(torch, name),
+                                         kinds[kind], gen)
+        o, lse = fa.flash_attention_fwd(q, k, v, bias)
+        err_o, err_lse = check_forward(fa, q, k, v, bias, o, lse,
+                                       f'{name} B={b} L={l} bias={kind}')
+        emit({'phase': 'kernel_check', 'for': 'seen_on_a_path',
+              'dtype': name, 'B': b, 'L': l, 'H': h, 'D': 64, 'bias': kind,
+              'max_abs_err': err_o, 'lse_max_abs_err': err_lse,
+              'tol_o': TOL[name]['o'], 'tol_lse': TOL[name]['lse']})
+        if name == 'bfloat16':
+            entry['max_abs_err'] = max(entry['max_abs_err'], err_o)
+        del q, k, v, bias, o, lse
+    entry['shapes_held_late'] = late
+    emit({'phase': 'kernel_shapes', 'launched': len(FWD_SEEN),
+          'held': len(FWD_HELD), 'held_late': late})
+    check(FWD_SEEN <= FWD_HELD, 'forward shapes launched but not held: '
+          f'{sorted(FWD_SEEN - FWD_HELD, key=str)}')
+
+
+def phase_kernels(fa, tta_ls, eval_ls):
     """Kernel vs plain version on the card at the main path's shapes, plus
-    the ragged L=130 and the TTA shapes ``tta_ls`` (B = 1). Returns the
-    kernels line's entry."""
+    the ragged L=130, the TTA shapes ``tta_ls`` and the whole-image eval
+    shapes ``eval_ls`` (B = 1). Returns the kernels line's entry."""
     import torch
     gen = torch.Generator(device='cuda').manual_seed(0)
     cases = []
@@ -317,8 +410,9 @@ def phase_kernels(fa, tta_ls):
               # the fixture eval: 683x512 padded to 688x512, a 43x32 grid
               # + cls, 4 a flush
               (4, 1377, None)]
-    shapes += [(1, l, None) for l in tta_ls if l != 1025]
-    timed_ls = {1025, 1377} | set(tta_ls)
+    shapes += [(1, l, None) for l in sorted(set(tta_ls) | set(eval_ls))
+               if l != 1025]
+    timed_ls = {1025, 1377} | set(tta_ls) | set(eval_ls)
     for dtype in (torch.float32, torch.bfloat16):
         for b, l, bias_kind in shapes:
             q, k, v, bias = attention_inputs(b, l, 12, dtype, bias_kind, gen)
@@ -1107,6 +1201,38 @@ def write_deit_files(directory, seed=7):
     return paths, n_backbone
 
 
+VAL_SPLIT = os.path.join(REPO, 'data', 'fixtures', 'voc_mini', 'datasplits',
+                         'fixture', 'val.txt')
+
+
+def check_eval_panels(wd, steps):
+    """The runner's eval panels of each eval in ``steps``:
+    ``eval_vis/iter_N/000.png`` to ``003.png``, panel i image | GT |
+    prediction of val image i at its original size, (H, 3 W, 3). Returns
+    their shapes by step."""
+    import numpy as np
+    from PIL import Image
+    with open(VAL_SPLIT) as f:
+        stems = f.read().split()[:4]
+    sizes = []
+    for stem in stems:
+        with Image.open(os.path.join(os.path.dirname(IMAGES),
+                                     stem + '.jpg')) as im:
+            sizes.append(im.size)
+    out = {}
+    for it in steps:
+        d = os.path.join(wd, 'eval_vis', f'iter_{it}')
+        names = sorted(os.listdir(d)) if os.path.isdir(d) else []
+        check(names == [f'{i:03d}.png' for i in range(4)],
+              f'eval panels of iter {it}: {names}')
+        shapes = [np.asarray(Image.open(os.path.join(d, n))).shape
+                  for n in names]
+        check(shapes == [(h, 3 * w, 3) for w, h in sizes],
+              f'eval panels of iter {it}: shapes {shapes}, images {sizes}')
+        out[it] = shapes
+    return out
+
+
 def read_logs(wd):
     return ''.join(open(os.path.join(wd, n)).read()
                    for n in sorted(os.listdir(wd)) if n.endswith('.log'))
@@ -1161,6 +1287,7 @@ def phase_train_cli(fa, gpu_line, wd, deit, n_backbone):
     check([r['step'] for r in train] == [3, 6, 9, 12] and
           sorted(val) == [6, 12], f'logged steps {records}')
     check(all(np.isfinite(r['loss']) for r in train), f'losses {train}')
+    panels = check_eval_panels(wd, (6, 12))
     check(train_counts == {'flash_attn_fwd': 36 * 12 + 2 * per_eval,
                            'flash_attn_bwd_fused': 24 * 12,
                            'flash_attn_bwd_dkv': 0,
@@ -1210,6 +1337,7 @@ def phase_train_cli(fa, gpu_line, wd, deit, n_backbone):
           'data_wait_ms_windows': windows['data_wait_ms'],
           'eval_s': {s: r['eval_s'] for s, r in val.items()},
           'miou': {s: r['mIoU'] for s, r in val.items()},
+          'eval_panels': panels,
           'train_run_s': train_s, 'peak_mem_bytes': peak,
           'launches': {'train': train_counts, 'resume': resume_counts,
                        'test': test_counts},
@@ -1340,6 +1468,215 @@ def phase_test_cli(fa, gpu_line, ckpt, root):
           f'--format-only launched {fmt_counts}')
     return add_counts(aug_counts, fmt_counts)
 
+
+# ------------------------------------------- eval over ranks, tools, demos
+def read_files(directory):
+    return {n: open(os.path.join(directory, n), 'rb').read()
+            for n in sorted(os.listdir(directory))}
+
+
+def phase_test_cli_ranks(fa, gpu_line, ckpt, root):
+    """``tools.test --launcher env`` over NCCL with K = min(2, cards) ranks
+    (one a card; on one card the launcher path with K = 1) against one
+    process, the exact path with ``--show-dir --out`` on ``ckpt``: the
+    metrics equal (``==``), the painted PNGs and the ``.pkl`` byte-equal,
+    and the forward launches summed over the ranks one process's (12 a
+    flush of 4). Returns both runs' launches summed, and the single
+    process's metrics."""
+    import torch
+    from s4former_tpu_torch.tools import test as test_cli
+    k = min(DP_RANKS, torch.cuda.device_count())
+    n_val, flush = 16, 4
+    per_eval = 12 * -(-n_val // flush)
+    dirs = {name: os.path.join(root, f'test_{name}')
+            for name in ('one', 'ranks')}
+
+    def argv(d):
+        return [FULLFLAG, ckpt, '--show-dir', os.path.join(d, 'vis'),
+                '--out', os.path.join(d, 'preds.pkl')]
+    reset_counts(fa)                               # the main path starts
+    t0 = time.perf_counter()
+    single = test_cli.main(argv(dirs['one']))
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    one_counts = counts(fa)                        # the main path ends
+    t0 = time.perf_counter()
+    ranks, _ = run_ranks('test', {'argv': argv(dirs['ranks']) +
+                                  ['--launcher', 'env']}, k, root, 600)
+    ranks_s = time.perf_counter() - t0
+    rank_counts = sum_counts(ranks)
+    single = json.loads(json.dumps(single))        # as the ranks report it
+    same_metrics = [json.dumps(r['metrics'], sort_keys=True) ==
+                    json.dumps(single, sort_keys=True) for r in ranks]
+    vis = {n: read_files(os.path.join(d, 'vis')) for n, d in dirs.items()}
+    pkl = {n: open(os.path.join(d, 'preds.pkl'), 'rb').read()
+           for n, d in dirs.items()}
+    emit({'phase': 'test_cli_ranks', 'config': os.path.basename(FULLFLAG),
+          'ranks': k, 'cards': torch.cuda.device_count(), 'backend': 'nccl',
+          'miou_one': single['mIoU'],
+          'miou_ranks': [r['metrics']['mIoU'] for r in ranks],
+          'metrics_equal': same_metrics,
+          'painted_files': len(vis['ranks']),
+          'painted_equal': vis['ranks'] == vis['one'],
+          'pkl_equal': pkl['ranks'] == pkl['one'],
+          'launches_one': one_counts,
+          'launches_per_rank': [r['launches'] for r in ranks],
+          'one_s': one_s, 'ranks_s': ranks_s, 'gpu': gpu_line})
+    check(all(same_metrics), 'the ranks\' metrics are not one process\'s')
+    check(len(vis['one']) == n_val and vis['ranks'] == vis['one'],
+          'the ranks\' --show-dir files are not one process\'s')
+    check(pkl['ranks'] == pkl['one'], 'the ranks\' --out file is not one '
+          'process\'s')
+    want = dict({n: 0 for n in KERNELS}, flash_attn_fwd=per_eval)
+    check(one_counts == want and rank_counts == want,
+          f'launches: one process {one_counts}, the ranks {rank_counts}, '
+          f'not {per_eval} forward')
+    return add_counts(one_counts, rank_counts), single
+
+
+def phase_tools_cli(fa, gpu_line, wd, root, images, test_miou):
+    """The root tools and the demos at full width, each run as ``-m`` would
+    run it, its launches of kernel #1 counted on their own: ``benchmark``
+    on ``..._sup.py`` at 512², B = 1 and 8 (12 a forward); ``get_flops`` at
+    512² on the card and on the CPU (the same count); ``ensemble_test`` over
+    ``iter_6`` + ``iter_12`` (24 an image); ``per_image_eval`` (17 lines);
+    ``measure_eval_divergence`` at the default bucket (agreement >= 1 -
+    1e-3, |ΔmIoU| <= TOL_MIOU); ``publish_model --to-pth`` of ``iter_12``
+    and ``tools.test`` on the ``.pth`` (the mIoU of ``iter_12``,
+    ``test_miou``, exactly); ``print_config``; ``image_demo`` on one
+    fixture JPEG (its PNG ``show_result_pyplot(inference_segmentor(...))``);
+    ``video_demo`` over the 16 fixture frames through a stub ``cv2`` that
+    exists only in this phase (12 a frame). Returns the launches summed."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from s4former_tpu_torch.apis import (inference_segmentor, init_segmentor,
+                                         show_result_pyplot)
+    from s4former_tpu_torch.demo import image_demo, video_demo
+    from s4former_tpu_torch.tools import (benchmark, ensemble_test,
+                                          get_flops, measure_eval_divergence,
+                                          per_image_eval, print_config,
+                                          publish_model)
+    from s4former_tpu_torch.tools import test as test_cli
+    n_val = 16
+    it6, it12 = (os.path.join(wd, f'iter_{i}') for i in (6, 12))
+    seconds, launches, out = {}, {}, {}
+
+    def run(name, want_fwd, fn):
+        reset_counts(fa)                           # the main path starts
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = counts(fa)                # the main path ends
+        check(launches[name] == dict({n: 0 for n in KERNELS},
+                                     flash_attn_fwd=want_fwd),
+              f'{name} launched {launches[name]}, not {want_fwd} forward')
+        return result
+
+    bench_iters, bench_warmup = 100, 10
+    for b in (1, 8):
+        r = run(f'benchmark_b{b}', 12 * (bench_iters + bench_warmup),
+                lambda: benchmark.main([CONFIGS['sup'], '--batch', str(b),
+                                        '--iters', str(bench_iters),
+                                        '--warmup', str(bench_warmup)]))
+        out[f'benchmark_b{b}'] = {'img_per_s': r['fps'],
+                                  'ms_per_img': r['ms_per_img'],
+                                  'launches_per_iter': launches[
+                                      f'benchmark_b{b}']['flash_attn_fwd'] /
+                                  (bench_iters + bench_warmup)}
+    card = run('get_flops', 12, lambda: get_flops.main([CONFIGS['sup']]))
+    cpu = run('get_flops_cpu', 0, lambda: get_flops.main(
+        [CONFIGS['sup'], '--device', 'cpu']))
+    out['get_flops'] = {'params_M': card['params'] / 1e6,
+                        'gflops': card['flops'] / 1e9,
+                        'attention_gflops': card['attention_flops'] / 1e9,
+                        'cpu_gflops': cpu['flops'] / 1e9}
+    check(card['flops'] == cpu['flops'] and card['params'] == cpu['params'],
+          f'get_flops: card {card}, CPU {cpu}')
+    ens = run('ensemble_test', 24 * n_val,
+              lambda: ensemble_test.main([FULLFLAG, it6, it12]))
+    out['ensemble_test'] = {k: ens[k] for k in ('aAcc', 'mIoU', 'mAcc')}
+    lines = run('per_image_eval', 12 * n_val,
+                lambda: per_image_eval.main([FULLFLAG, it12]))
+    out['per_image_eval'] = {'lines': len(lines), 'aggregate': lines[-1]}
+    div = run('measure_eval_divergence', 24 * n_val,
+              lambda: measure_eval_divergence.main([FULLFLAG, it12]))
+    out['measure_eval_divergence'] = div
+    pub, pth = run('publish_model', 0, lambda: publish_model.main(
+        [it12, os.path.join(root, 'published'), '--to-pth']))
+    on_pth = run('test_on_published_pth', 12 * -(-n_val // 4),
+                 lambda: test_cli.main([FULLFLAG, pth]))
+    out['publish_model'] = {'published': os.path.basename(pub),
+                            'test_miou_pth': on_pth['mIoU'],
+                            'test_miou_iter_12': test_miou}
+    with contextlib.redirect_stdout(io.StringIO()):     # returned too
+        text = run('print_config', 0,
+                   lambda: print_config.main([FULLFLAG]))
+    demo_png = os.path.join(root, 'demo.png')
+    run('image_demo', 12, lambda: image_demo.main(
+        [images[0], FULLFLAG, it12, '--out', demo_png]))
+    seg = init_segmentor(FULLFLAG, it12)
+    demo_same = np.array_equal(
+        np.asarray(Image.open(demo_png)),
+        show_result_pyplot(seg, images[0],
+                           inference_segmentor(seg, images[0])))
+    del seg
+    from tests._stub_cv2 import StubCv2
+    stub = StubCv2([np.asarray(Image.open(p).convert('RGB'))
+                    for p in images])
+    cv2 = sys.modules.get('cv2')
+    sys.modules['cv2'] = stub                      # this phase only
+    try:
+        frames = run('video_demo', 12 * len(images), lambda: video_demo.main(
+            ['frames', FULLFLAG, it12, '--palette', 'voc',
+             '--output-file', os.path.join(root, 'out.avi')]))
+    finally:
+        if cv2 is None:
+            del sys.modules['cv2']
+        else:
+            sys.modules['cv2'] = cv2
+    out['video_demo'] = {'frames': frames, 'written': len(stub.written)}
+    emit({'phase': 'tools_cli', 'config': os.path.basename(FULLFLAG),
+          'tools': out, 'image_demo_equal': demo_same,
+          'print_config_lines': text.count('\n') + 1,
+          'seconds': seconds, 'launches': launches, 'gpu': gpu_line})
+    check(len(lines) == n_val + 1 and lines[-1]['n'] == n_val,
+          f'per_image_eval printed {len(lines)} records')
+    check(div['argmax_agreement_mean'] >= 1 - 1e-3 and
+          div['abs_dmIoU'] <= TOL_MIOU, f'eval divergence {div}')
+    check(on_pth['mIoU'] == test_miou, f'tools.test on {pth}: mIoU '
+          f'{on_pth["mIoU"]}, on iter_12 {test_miou}')
+    check(text.startswith('Config:\n'), 'print_config printed no config')
+    check(demo_same, 'image_demo\'s PNG is not show_result_pyplot of '
+          'inference_segmentor')
+    check(frames == len(images) and len(stub.written) == len(images),
+          f'video_demo: {frames} frames, {len(stub.written)} written')
+    check(all(np.isfinite(v) for v in out['ensemble_test'].values()) and
+          all(r['img_per_s'] > 0 for k, r in out.items()
+              if k.startswith('benchmark')), f'tools {out}')
+    total = {n: 0 for n in KERNELS}
+    for c in launches.values():
+        total = add_counts(total, c)
+    return total
+
+
+def run_eval_tools(fa, gpu_line, wd, root, images):
+    """The eval-and-tools slice's phases on the train_cli run's
+    checkpoints; returns their launch counts by path and prints their
+    seconds."""
+    paths, seconds = {}, {}
+    t0 = time.perf_counter()
+    paths['test_cli_ranks'], single = phase_test_cli_ranks(
+        fa, gpu_line, os.path.join(wd, 'iter_12'), root)
+    seconds['test_cli_ranks'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths['tools_cli'] = phase_tools_cli(fa, gpu_line, wd, root, images,
+                                         single['mIoU'])
+    seconds['tools_cli'] = time.perf_counter() - t0
+    emit({'phase': 'eval_tools_seconds', **seconds,
+          'total': sum(seconds.values())})
+    return paths
 
 # ------------------------------------------------- SegFormer / MiT-B4 path
 _MIT_STEM = os.path.join(REPO, 'configs', 'segformer', 'segformer_mit-b4_bs_'
@@ -2766,8 +3103,9 @@ def identical_across_ranks(state):
 
 
 def dp_rank_step_f32(fa, spec, device):
-    """One rank of dp_step_f32_vs_single: the 4-layer f32 step on this
-    rank's block of each global batch."""
+    """One rank of dp_step_f32_vs_single (and, with the single process's
+    teacher logits pinned, of dp_step_f32_pinned_teacher): the 4-layer f32
+    step on this rank's block of each global batch."""
     import torch
     from s4former_tpu_torch.parallel.distributed import is_main
     from s4former_tpu_torch.parallel.mesh import replicate_state, shard_batch
@@ -2777,7 +3115,10 @@ def dp_rank_step_f32(fa, spec, device):
                                   unsup_confidence=UNSUP_CONFIDENCE_F32)
     state = replicate_state(state)
     gen = torch.Generator(device=device).manual_seed(0)
-    logs_by_step, same = [], []
+    logs_by_step, same, teacher = [], [], []
+    unhook = teacher_hook(
+        reference=torch.load(spec['teacher'], weights_only=True),
+        pin=spec['pin'], stats=teacher)
     reset_counts(fa)                               # the main path starts
     for path in spec['batches']:
         state, logs = step(state, shard_batch(load_batch(path, device)), gen)
@@ -2785,9 +3126,11 @@ def dp_rank_step_f32(fa, spec, device):
         same.append(identical_across_ranks(state))
     torch.cuda.synchronize()
     launches = counts(fa)                          # the main path ends
+    unhook()
     if is_main():
         torch.save(state_tensors(state), spec['state_out'])
-    return {'logs': logs_by_step, 'same': same, 'launches': launches}
+    return {'logs': logs_by_step, 'same': same, 'launches': launches,
+            'teacher': teacher}
 
 
 def dp_rank_train_bf16(fa, spec, device):
@@ -2855,8 +3198,19 @@ def dp_rank_cli(fa, spec, device):
             'peak_mem_bytes': torch.cuda.max_memory_allocated()}
 
 
+def dp_rank_test(fa, spec, device):
+    """One rank of test_cli_ranks: ``tools.test`` as ``-m`` would run it."""
+    import torch
+    from s4former_tpu_torch.tools import test as test_cli
+    reset_counts(fa)                               # the main path starts
+    metrics = test_cli.main(spec['argv'])
+    torch.cuda.synchronize()
+    return {'launches': counts(fa), 'metrics': metrics}
+
+
 DP_RANK_PHASES = {'step_f32': dp_rank_step_f32,
-                  'train_bf16': dp_rank_train_bf16, 'cli': dp_rank_cli}
+                  'train_bf16': dp_rank_train_bf16, 'cli': dp_rank_cli,
+                  'test': dp_rank_test}
 
 
 def dp_worker(kind, spec_path):
@@ -2864,7 +3218,7 @@ def dp_worker(kind, spec_path):
     torch.distributed.run ... chip_smoke.py --dp-worker KIND SPEC``. The
     step phases join the group of SPEC's 'backend' and 'device' (gloo with
     every rank on cuda:0, since NCCL takes one card per rank; or NCCL, one
-    rank a card); the CLI sets up its own group. Writes its result to
+    rank a card); the CLIs set up their own group. Writes its result to
     SPEC's 'out' + '.rank{RANK}.json'."""
     import torch
     sys.path.insert(0, REPO)
@@ -2875,8 +3229,9 @@ def dp_worker(kind, spec_path):
     from s4former_tpu_torch.parallel.distributed import init_distributed
     fa.load_library()                              # built by the parent
     fa.load_bwd_library()
+    record_fwd_shapes(fa)
     device = None
-    if kind != 'cli':
+    if kind not in ('cli', 'test'):
         device = init_distributed('env', backend=spec['backend'],
                                   device=spec['device'])
     try:
@@ -2884,6 +3239,7 @@ def dp_worker(kind, spec_path):
     finally:
         if device is not None:
             torch.distributed.destroy_process_group()
+    result['fwd_shapes'] = sorted(FWD_SEEN, key=str)
     with open(f"{spec['out']}.rank{os.environ['RANK']}.json", 'w') as f:
         json.dump(result, f)
     return 0
@@ -2910,6 +3266,7 @@ def run_ranks(kind, spec, n, directory, timeout):
     for r in range(n):
         with open(f"{spec['out']}.rank{r}.json") as f:
             results.append(json.load(f))
+        FWD_SEEN.update(tuple(x) for x in results[-1]['fwd_shapes'])
     return results, proc.stdout
 
 
@@ -2920,50 +3277,98 @@ def sum_counts(results):
     return out
 
 
-def phase_dp_step_f32(fa, images, gpu_line, root):
-    """Two ranks on cuda:0 (gloo) against one process: the 4-layer f32
-    ``..._MT_w_ours.py`` step at full width, 3 steps on global batches of
-    4 + 4 at 512² (2 + 2 a rank), threshold UNSUP_CONFIDENCE_F32, the
-    ignore label uneven over the blocks, the mixes drawn from one seeded
-    generator. Losses, the changes of parameters and EMA, and the BN
-    statistics within TOL_DP_F32; the ranks' states bit-identical after
-    every step; 12 forward + 8 fused launches a step on each rank, as on
-    one. The SGD buffers' error is printed, not held: a buffer is the
-    gradient, where a pseudo-label that flips at the threshold (a few
-    pixels of 10^6 by step 3) moves single elements most. Returns the
-    ranks' launches summed."""
-    import numpy as np
+def teacher_hook(record=None, reference=None, pin=False, stats=None):
+    """Wrap ``semi.train_step.extract_teacher_info``, from whose teacher
+    logits a step makes all of its pseudo-labels, confidence mask, PASA
+    bias and NCR targets. ``record`` (a list) gets each call's logits on
+    the CPU. With ``reference`` (the single process's logits, one a call),
+    each call appends to ``stats`` how many of this rank's hard labels
+    (255 where unconfident) differ from those of the single process's rows,
+    and the largest logit difference; with ``pin`` those rows then take the
+    place of the rank's own logits. Returns a function that unwraps it."""
+    from s4former_tpu_torch.parallel.mesh import local_rows
+    from s4former_tpu_torch.semi import train_step as ts
+    original = ts.extract_teacher_info
+    calls = iter(reference or ())
+
+    def hooked(logits, *args):
+        if record is not None:
+            record.append(logits.float().cpu())
+        if reference is not None:
+            theirs = local_rows(next(calls)).to(logits.device)
+            own = original(logits, *args).hard_label
+            stats.append({
+                'hard_labels_differ': int(
+                    (own != original(theirs, *args).hard_label).sum()),
+                'pixels': own.numel(),
+                'logits_max_abs_err': (logits.float() -
+                                       theirs).abs().max().item()})
+            if pin:
+                logits = theirs.to(logits.dtype)
+        return original(logits, *args)
+    ts.extract_teacher_info = hooked
+    return lambda: setattr(ts, 'extract_teacher_info', original)
+
+
+def teacher_margins(steps, threshold):
+    """A step each, over the single process's teacher logits: the range of
+    the max softmax probability, its least distance from ``threshold``,
+    the least gap between the two largest probabilities and the pixels
+    whose gap is under 1e-6 (near-ties that another sum order can turn
+    into another hard label)."""
     import torch
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    batches = save_batches(dp_global_batches(images, 4, 3), root)
+    out = []
+    for logits in steps:
+        top = torch.softmax(logits, -1).topk(2, -1).values
+        gap = top[..., 0] - top[..., 1]
+        out.append({'max_prob': [top[..., 0].min().item(),
+                                 top[..., 0].max().item()],
+                    'nearest_to_threshold': (top[..., 0] - threshold)
+                    .abs().min().item(),
+                    'least_top2_gap': gap.min().item(),
+                    'top2_gap_under_1e-6': int((gap < 1e-6).sum())})
+    return out
+
+
+def single_step_f32(fa, batches, **hook):
+    """The 4-layer f32 ``..._MT_w_ours.py`` step in this process from a
+    fresh seeded trainer, one step a global batch of ``batches``, its
+    teacher wrapped by ``teacher_hook(**hook)``. Returns the state's
+    tensors before and after, the logs, the launches and the seconds."""
+    import torch
     state, step, _ = make_trainer('ours', 'cuda', 'float32', 4,
                                   unsup_confidence=UNSUP_CONFIDENCE_F32)
     before = state_tensors(state)
     gen = torch.Generator(device='cuda').manual_seed(0)
-    single_logs = []
+    logs = []
+    unhook = teacher_hook(**hook)
     reset_counts(fa)
     t0 = time.perf_counter()
-    for path in batches:
-        state, logs = step(state, load_batch(path, 'cuda'), gen)
-        single_logs.append(floats(logs))
-    torch.cuda.synchronize()
-    single_s = time.perf_counter() - t0
-    single_counts = counts(fa)
-    single = state_tensors(state)
+    try:
+        for path in batches:
+            state, out = step(state, load_batch(path, 'cuda'), gen)
+            logs.append(floats(out))
+        torch.cuda.synchronize()
+    finally:
+        unhook()
+    seconds = time.perf_counter() - t0
+    launches = counts(fa)
+    after = state_tensors(state)
     del state, step
     torch.cuda.empty_cache()
+    return before, after, logs, launches, seconds
 
-    state_out = os.path.join(root, 'dp_state.pt')
-    t0 = time.perf_counter()
-    ranks, _ = run_ranks('step_f32', {'batches': batches,
-                                      'state_out': state_out,
-                                      'backend': 'gloo', 'device': 'cuda:0'},
-                         DP_RANKS, root, 600)
-    ranks_s = time.perf_counter() - t0
-    dp = torch.load(state_out, weights_only=True)
+
+def dp_errors(other, other_logs, single, single_logs, before):
+    """``other`` (a state's tensors and logs) against the single run:
+    each loss's relative error a step, and per group (model, EMA, SGD
+    buffers) and kind (parameters, BN statistics) the largest abs error
+    with the single run's largest change and value and the limit of
+    TOL_DP_F32 (BN statistics against the larger of their change and
+    value) plus DP_ULPS f32 roundings of the largest value."""
+    import numpy as np
     loss_err = [{k: abs(r[k] - s[k]) / max(abs(s[k]), 1e-6) for k in s}
-                for r, s in zip(ranks[0]['logs'], single_logs)]
+                for r, s in zip(other_logs, single_logs)]
     errs = {}
     for group in ('model.', 'ema.', 'momentum.'):
         for kind, keep in (('params', lambda n: 'running_' not in n),
@@ -2974,44 +3379,111 @@ def phase_dp_step_f32(fa, images, gpu_line, root):
             change = max((single[n] - before[n]).abs().max().item()
                          for n in names)
             top = max(single[n].abs().max().item() for n in names)
-            err = max((dp[n] - single[n]).abs().max().item() for n in names)
+            err = max((other[n] - single[n]).abs().max().item()
+                      for n in names)
             scale = max(change, top) if kind == 'bn_stats' else change
             errs[group + kind] = {
                 'max_abs_err': err, 'max_abs_change_single': change,
-                'max_abs_single': top,
+                'max_abs_single': top, 'err_over_change': err / change,
                 'limit': TOL_DP_F32 * scale +
                 DP_ULPS * float(np.finfo(np.float32).eps) * top}
-    emit({'phase': 'dp_step_f32_vs_single', 'config': 'ours',
-          'ranks': DP_RANKS, 'backend': 'gloo, both ranks on cuda:0',
-          'cut': 'num_layers 12 -> 4, out_indices (0, 1, 2, 3)',
-          'batch': f'3 steps of 4 + 4 at 512² global, 2 + 2 a rank, '
-                   f'unsup_confidence {UNSUP_CONFIDENCE_F32}',
-          'losses_dp': ranks[0]['logs'], 'losses_single': single_logs,
-          'loss_rel_err': loss_err, 'state_err': errs,
-          'ranks_identical_each_step': [r['same'] for r in ranks],
-          'launches_per_rank': [r['launches'] for r in ranks],
-          'launches_single': single_counts, 'tol': TOL_DP_F32,
-          'single_s': single_s, 'ranks_s': ranks_s, 'gpu': gpu_line})
-    for r in ranks:
-        check(r['same'] == [True] * 3, f'ranks differ: {r["same"]}')
-        check(r['launches'] == {'flash_attn_fwd': 36,
-                                'flash_attn_bwd_fused': 24,
-                                'flash_attn_bwd_dkv': 0,
-                                'flash_attn_bwd_dq': 0},
-              f'a rank launched {r["launches"]} in 3 steps')
-    check(single_counts == ranks[0]['launches'], 'single-process launches '
-          f'{single_counts}')
+    return loss_err, errs
+
+
+def phase_dp_step_f32(fa, images, gpu_line, root):
+    """Two ranks on cuda:0 (gloo) against one process: the 4-layer f32
+    ``..._MT_w_ours.py`` step at full width, 3 steps on global batches of
+    4 + 4 at 512² (2 + 2 a rank), threshold UNSUP_CONFIDENCE_F32, the
+    ignore label uneven over the blocks, the mixes drawn from one seeded
+    generator. Losses, the changes of parameters and EMA, and the BN
+    statistics within TOL_DP_F32; the ranks' states bit-identical after
+    every step; 12 forward + 8 fused launches a step on each rank, as on
+    one. The SGD buffers' error is printed, not held. Prints, a step, the
+    single process's teacher margins and how many of each rank's hard
+    pseudo-labels differ from the single process's; and, as the floor of
+    these errors, one process run again on the same inputs against
+    itself (the fused backward adds dq atomically, in a run-dependent
+    order).
+
+    Then the ranks again with each rank's teacher logits replaced by the
+    single process's rows (``dp_step_f32_pinned_teacher``, ROADMAP Queue 3
+    item 1): every pseudo-label, confidence mask, PASA bias and NCR target
+    is then the single process's, and the error left comes from the
+    student's side. Held to the same limits. Returns the launches of both
+    runs' ranks summed."""
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batches = save_batches(dp_global_batches(images, 4, 3), root)
+    teacher, teacher_again = [], []
+    before, single, single_logs, single_counts, single_s = single_step_f32(
+        fa, batches, record=teacher)
+    check(len(teacher) == len(batches), f'{len(teacher)} teacher calls in '
+          f'{len(batches)} steps')
+    _, again, again_logs, _, _ = single_step_f32(
+        fa, batches, reference=teacher, stats=teacher_again)
+    again_loss, again_errs = dp_errors(again, again_logs, single,
+                                       single_logs, before)
+    rerun = {'teacher_vs_first': teacher_again,
+             'loss_rel_err': [max(e.values()) for e in again_loss],
+             'err_over_change': {k: e['err_over_change']
+                                 for k, e in again_errs.items()}}
+    teacher_out = os.path.join(root, 'dp_teacher.pt')
+    torch.save(teacher, teacher_out)
+    margins = teacher_margins(teacher, UNSUP_CONFIDENCE_F32)
+    del teacher
     check(all(s['mask_ratio'] > 0 and s['unsup.loss_seg_unsup'] > 0 and
               s['unsup.loss_ncr_unsup'] > 0 for s in single_logs),
           'the unsup losses are not live')
-    check(all(np.isfinite(v) for r in ranks[0]['logs'] for v in r.values()),
-          'non-finite losses')
-    check(max(max(e.values()) for e in loss_err) <= TOL_DP_F32,
-          f'2-rank losses vs one process: {loss_err}')
-    for name, e in errs.items():
-        check(name.startswith('momentum.') or e['max_abs_err'] <= e['limit'],
-              f'{name}: 2 ranks vs one process {e}')
-    return sum_counts(ranks)
+    launches = {n: 0 for n in KERNELS}
+    for phase, pin in (('dp_step_f32_vs_single', False),
+                       ('dp_step_f32_pinned_teacher', True)):
+        state_out = os.path.join(root, f'{phase}.pt')
+        t0 = time.perf_counter()
+        ranks, _ = run_ranks('step_f32', {
+            'batches': batches, 'state_out': state_out,
+            'teacher': teacher_out, 'pin': pin, 'backend': 'gloo',
+            'device': 'cuda:0'}, DP_RANKS, root, 600)
+        ranks_s = time.perf_counter() - t0
+        loss_err, errs = dp_errors(torch.load(state_out, weights_only=True),
+                                   ranks[0]['logs'], single, single_logs,
+                                   before)
+        emit({'phase': phase, 'config': 'ours',
+              'ranks': DP_RANKS, 'backend': 'gloo, both ranks on cuda:0',
+              'cut': 'num_layers 12 -> 4, out_indices (0, 1, 2, 3)',
+              'batch': f'3 steps of 4 + 4 at 512² global, 2 + 2 a rank, '
+                       f'unsup_confidence {UNSUP_CONFIDENCE_F32}',
+              'teacher_pinned': pin, 'teacher_margins_single': margins,
+              'teacher_vs_single_by_rank': [r['teacher'] for r in ranks],
+              'single_vs_itself': rerun,
+              'losses_dp': ranks[0]['logs'], 'losses_single': single_logs,
+              'loss_rel_err': loss_err, 'state_err': errs,
+              'ranks_identical_each_step': [r['same'] for r in ranks],
+              'launches_per_rank': [r['launches'] for r in ranks],
+              'launches_single': single_counts, 'tol': TOL_DP_F32,
+              'single_s': single_s, 'ranks_s': ranks_s, 'gpu': gpu_line})
+        for r in ranks:
+            check(r['same'] == [True] * 3, f'ranks differ: {r["same"]}')
+            check(r['launches'] == {'flash_attn_fwd': 36,
+                                    'flash_attn_bwd_fused': 24,
+                                    'flash_attn_bwd_dkv': 0,
+                                    'flash_attn_bwd_dq': 0},
+                  f'a rank launched {r["launches"]} in 3 steps')
+            check(len(r['teacher']) == len(batches), f'{phase}: '
+                  f'{len(r["teacher"])} teacher calls')
+        check(single_counts == ranks[0]['launches'], 'single-process '
+              f'launches {single_counts}')
+        check(all(np.isfinite(v) for r in ranks[0]['logs']
+                  for v in r.values()), 'non-finite losses')
+        check(max(max(e.values()) for e in loss_err) <= TOL_DP_F32,
+              f'{phase}: 2-rank losses vs one process: {loss_err}')
+        for name, e in errs.items():
+            check(name.startswith('momentum.') or
+                  e['max_abs_err'] <= e['limit'],
+                  f'{phase}: {name}: 2 ranks vs one process {e}')
+        launches = add_counts(launches, sum_counts(ranks))
+    return launches
 
 
 def phase_dp_train_bf16(fa, images, gpu_line, root, n, on_one_card):
@@ -3103,6 +3575,7 @@ def phase_dp_train_cli(fa, gpu_line, root):
           f'logged steps {[(r["prefix"], r["step"]) for r in records]}')
     check(sorted(n for n in os.listdir(wd) if n.startswith('iter_')) ==
           ['iter_6', 'iter_8'], f'checkpoints {os.listdir(wd)}')
+    panels = check_eval_panels(wd, (6,))
     check(all(np.isfinite(r['loss']) for r in train), f'losses {train}')
     reset_counts(fa)
     results = test_cli.main([FULLFLAG, os.path.join(wd, 'iter_6')])
@@ -3128,7 +3601,7 @@ def phase_dp_train_cli(fa, gpu_line, root):
           'peak_mem_bytes_per_rank': {n: [r['peak_mem_bytes'] for r in v[0]]
                                       for n, v in runs.items()},
           'launches_test': test_counts, 'resumed': resumed,
-          'gpu': gpu_line})
+          'eval_panels': panels, 'gpu': gpu_line})
     check(gap <= TOL_MIOU, f'offline mIoU {results["mIoU"]} vs in-loop '
           f'{in_loop}: {gap} > {TOL_MIOU}')
     shutil.rmtree(wd, ignore_errors=True)
@@ -3219,20 +3692,21 @@ def main() -> int:
         native_lib = native_lib.result()
     fa.load_library()
     fa.load_bwd_library()
+    record_fwd_shapes(fa)
     phase_build(libs, time.perf_counter() - t0)
 
     images = sorted(glob.glob(IMAGES))
     check(len(images) == 16, f'expected 16 fixture images, found '
           f'{len(images)}')
     phase_native(images, native_lib, gpu_line)
-    tta_ls = tta_lengths(images)
-    entries = {'flash_attn_fwd': phase_kernels(fa, tta_ls)}
+    tta_ls, eval_ls = tta_lengths(images), eval_lengths()
+    entries = {'flash_attn_fwd': phase_kernels(fa, tta_ls, eval_ls)}
     bwd_entries, fwd_err_train, fwd_train_cases = phase_kernels_bwd(fa)
     entries.update(bwd_entries)
     fwd = entries['flash_attn_fwd']     # the training shapes' forward too
     fwd['max_abs_err'] = max(fwd['max_abs_err'], fwd_err_train)
     fwd['cases'] += fwd_train_cases
-    fwd['tta_lengths'] = tta_ls
+    fwd['tta_lengths'], fwd['eval_lengths'] = tta_ls, eval_ls
     paths = {}
     p_f32 = phase_main_f32(fa, images)
     seg, paths['serve_bf16'] = phase_main_bf16(fa, images, p_f32, gpu_line)
@@ -3280,6 +3754,8 @@ def main() -> int:
             fa, gpu_line, wd, deit['bare'], n_backbone)
         paths['test_cli'] = phase_test_cli(
             fa, gpu_line, os.path.join(wd, 'iter_12'), root)
+        # the eval-and-tools slice on the same checkpoints
+        paths.update(run_eval_tools(fa, gpu_line, wd, root, images))
         shutil.rmtree(wd, ignore_errors=True)
         paths['train_cli_host'] = phase_train_cli_host(
             fa, gpu_line, root, deit['timm'], n_backbone, windows,
@@ -3314,6 +3790,8 @@ def main() -> int:
         # data parallelism: 2 ranks
         paths.update(run_dp(fa, images, gpu_line, root))
 
+    # kernel #1 at each forward shape the paths launched
+    phase_kernels_seen(fa, fwd)
     for name in KERNELS:
         entries[name]['launches'] = sum(p[name] for p in paths.values())
         entries[name]['launches_by_path'] = {k: p[name]

@@ -13,6 +13,8 @@ reference: mmseg/apis/inference.py).
   softmax averaged at the original size (``tta_probs``).
 - ``single_device_test``: a dataset's pipeline images through ``predict``,
   as per-image confusion histograms (or label maps).
+- ``show_result_pyplot``: a label map painted over its image with a
+  palette (the VOC one by default), saved or returned.
 
 Images are NHWC, normalised and padded to the crop as in the JAX package.
 The runs are eval mode under ``torch.inference_mode``.
@@ -74,12 +76,16 @@ def init_segmentor(config, checkpoint: Optional[str] = None,
     """(reference inference.py:12). ``config``: a path or a ``Config``;
     ``checkpoint``: an mmseg-layout ``.pth`` or a backbone-only DeiT file
     (bare or timm keys), whose entries overlay the seeded weights (a
-    backbone-only file keeps the seeded heads). The log says how many of
-    the model's tensors it overlaid; a file that overlays none raises
-    ValueError."""
+    backbone-only file keeps the seeded heads), or a training checkpoint
+    directory of the port's runner (``work_dir/iter_N``), whose student
+    is loaded whole. The log says how many of the model's tensors a file
+    overlaid; a file that overlays none raises ValueError."""
+    import os.path as osp
+
     import s4former_tpu_torch.models  # noqa: F401  (registers modules)
     from s4former_tpu_torch.config import Config
-    from s4former_tpu_torch.core.checkpoint import (load_reference_state_dict,
+    from s4former_tpu_torch.core.checkpoint import (load_model_state_dict,
+                                                    load_reference_state_dict,
                                                     overlay_state_dict)
     from s4former_tpu_torch.models import (build_segmentor,
                                            init_segmentor_weights)
@@ -89,7 +95,10 @@ def init_segmentor(config, checkpoint: Optional[str] = None,
         config = Config.fromfile(config)
     model = build_segmentor(config.model)
     init_segmentor_weights(model, torch.Generator().manual_seed(seed))
-    if checkpoint:
+    if checkpoint and osp.isdir(checkpoint):
+        model.load_state_dict(load_model_state_dict(checkpoint))
+        get_root_logger().info(f'loaded {checkpoint}')
+    elif checkpoint:
         bb = config.model.get('backbone', {})
         crop = tuple(config.get('crop_size', (512, 512)))
         patch = bb.get('patch_size', 16)
@@ -249,3 +258,20 @@ def single_device_test(segmentor: Segmentor, dataset,
         if logger and (idx + 1) % progress_every == 0:
             logger.info(f'{idx + 1}/{len(dataset)}')
     return results
+
+
+def show_result_pyplot(segmentor: Segmentor, img, seg: np.ndarray,
+                       palette=None, opacity: float = 0.5,
+                       out_file: Optional[str] = None) -> np.ndarray:
+    """(reference inference.py:134; JAX apis.py:218): ``seg`` painted over
+    ``img`` (a path or an HWC array) with ``palette``, the VOC palette by
+    default; saved to ``out_file`` when given. Returns the RGB uint8
+    overlay."""
+    from PIL import Image
+    from s4former_tpu_torch.data.datasets.custom import PascalVOCDataset
+    from s4former_tpu_torch.utils.palette import paint_result
+    out = paint_result(img, seg, palette or PascalVOCDataset.PALETTE,
+                       opacity)
+    if out_file:
+        Image.fromarray(out).save(out_file)
+    return out

@@ -4,8 +4,10 @@ mmseg/core/hook/wandblogger_hook.py:15).
 
 ``JsonlLoggerHook`` appends one JSON object per logging event to
 ``work_dir/metrics.jsonl``: ``step``, ``time``, ``prefix`` ('train' or
-'val') and the float metrics. The validation-image panels
-(``log_eval_images``) are still to be ported.
+'val') and the float metrics. ``log_eval_images`` writes the validation
+image | GT | prediction panels of an eval to ``work_dir/eval_vis/iter_N/``
+(JAX hooks.py:49-103). When the optional ``wandb`` package is importable and
+a run is live, both also go to it, the panels as a ``wandb.Table``.
 
 Profiling (JAX ``profile_steps``, hooks.py:105, on ``jax.profiler``):
 ``StepTrace`` records a window of steps with ``torch.profiler``, host
@@ -36,6 +38,13 @@ class JsonlLoggerHook:
     def __init__(self, work_dir: str, filename: str = 'metrics.jsonl'):
         os.makedirs(work_dir, exist_ok=True)
         self.path = osp.join(work_dir, filename)
+        self._wandb = None
+        try:
+            import wandb  # optional
+            if wandb.run is not None:
+                self._wandb = wandb
+        except Exception:
+            pass
 
     def log(self, step: int, metrics: Dict[str, float],
             prefix: str = 'train'):
@@ -43,6 +52,63 @@ class JsonlLoggerHook:
         record.update({k: float(v) for k, v in metrics.items()})
         with open(self.path, 'a') as f:
             f.write(json.dumps(record) + '\n')
+        if self._wandb is not None:
+            self._wandb.log({f'{prefix}/{k}': v for k, v in
+                             metrics.items()}, step=step)
+
+    def log_eval_images(self, step: int, images, preds, gts,
+                        palette=None, max_images: int = 8) -> str:
+        """Side-by-side image | GT overlay | prediction overlay panels of
+        the first ``max_images`` samples, as PNGs under
+        ``work_dir/eval_vis/iter_{step}/{i:03d}.png`` and, with a live wandb
+        run, a ``wandb.Table`` (reference MMSegWandbHook val table,
+        wandblogger_hook.py:199-317). A float image is stretched to uint8
+        by its min and max, and resized to the label map's shape; label
+        255 paints as class 0. Returns the directory."""
+        import numpy as np
+        from PIL import Image
+        from s4former_tpu_torch.data.pipelines.transforms import _pil_resize
+        from s4former_tpu_torch.utils.palette import paint_result
+        out_dir = osp.join(osp.dirname(self.path), 'eval_vis',
+                           f'iter_{int(step)}')
+        os.makedirs(out_dir, exist_ok=True)
+        if palette is None:
+            palette = np.random.RandomState(42).randint(
+                0, 255, (256, 3)).tolist()
+        rows = []
+        for i, (img, pred, gt) in enumerate(zip(images, preds, gts)):
+            if i >= max_images:
+                break
+            img = np.asarray(img)
+            if img.dtype != np.uint8:
+                lo, hi = float(img.min()), float(img.max())
+                img = ((img - lo) / max(hi - lo, 1e-6) * 255).astype(
+                    np.uint8)
+            pred, gt = np.asarray(pred), np.asarray(gt)
+            if img.shape[:2] != pred.shape[:2]:
+                # the captured input is at the eval pipeline's scale; the
+                # label maps at the original shape
+                img = _pil_resize(img, (pred.shape[1], pred.shape[0]))
+            pred_vis = paint_result(img, np.where(pred == 255, 0, pred),
+                                    palette)
+            gt_vis = paint_result(img, np.where(gt == 255, 0, gt), palette)
+            path = osp.join(out_dir, f'{i:03d}.png')
+            Image.fromarray(np.concatenate([img, gt_vis, pred_vis],
+                                           axis=1)).save(path)
+            rows.append((path, pred, gt))
+        if self._wandb is not None and rows:
+            wandb = self._wandb
+            table = wandb.Table(columns=['image', 'ground_truth',
+                                         'prediction'])
+            for path, pred, gt in rows:
+                table.add_data(
+                    wandb.Image(path),
+                    wandb.Image(path, masks={
+                        'ground_truth': {'mask_data': gt}}),
+                    wandb.Image(path, masks={
+                        'prediction': {'mask_data': pred}}))
+            wandb.log({'val/examples': table}, step=int(step))
+        return out_dir
 
 
 class StepTrace:

@@ -12,7 +12,8 @@ EvalHook and CheckpointHook).
   nothing but the loader. Every log writes ``data_wait_ms`` (host ms a
   step blocked on the loader) and ``step_ms`` (the window's time a step,
   eval and checkpoint time taken out) to ``metrics.jsonl``; every eval
-  its metrics and ``eval_s``, and the best mIoU a ``best/`` checkpoint.
+  its metrics and ``eval_s`` and its first images' panels
+  (``eval_vis/iter_N/``), and the best mIoU a ``best/`` checkpoint.
   With ``profile=(first, n)`` the steps first..first+n-1 (counting from
   1) run under ``core.hooks.StepTrace``, loader and prefetcher running,
   into ``work_dir/profile/trace.json``.
@@ -29,7 +30,8 @@ Under data parallelism (``parallel/``) every rank runs the loop; only rank
 0 writes logs, metrics, traces and checkpoints, all ranks wait for each
 other before a resume (which loads on every rank, onto its card) and at
 the end of the run; the eval splits the forwards over the ranks and sums
-their histograms, so its metrics are the single-process ones, bit for bit.
+their histograms, so its metrics are the single-process ones, bit for bit,
+and rank 0 paints the panels from the label maps the ranks send it.
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from s4former_tpu_torch.core import checkpoint as ckpt_lib
 from s4former_tpu_torch.core.hooks import JsonlLoggerHook, StepTrace
@@ -270,6 +273,11 @@ class IterBasedRunner:
             f' ({eval_s:.1f}s)')
         self.metrics_hook.log(it, {**metrics, 'eval_s': eval_s},
                               prefix='val')
+        samples = getattr(self.eval_fn, 'last_samples', None)
+        if samples:
+            self.metrics_hook.log_eval_images(
+                it, *zip(*samples),
+                palette=getattr(self.eval_fn, 'palette', None))
         if miou > self.best_miou:
             self.best_miou = miou
             ckpt_lib.save_checkpoint(
@@ -334,7 +342,8 @@ def eval_resize_matrices(vh: int, vw: int, lh: int, lw: int,
 
 def iter_predictions(model, dataset, batch_size: int = 4,
                      mode: str = 'whole', crop_size=(512, 512),
-                     stride=(341, 341), shard: Tuple[int, int] = (0, 1)
+                     stride=(341, 341), shard: Tuple[int, int] = (0, 1),
+                     images: Optional[Dict[int, np.ndarray]] = None
                      ) -> Iterator[Tuple[int, Optional[np.ndarray]]]:
     """(index, int32 label map at the label's shape) for every item of
     ``dataset``, in flush order. With ``shard=(rank, world)`` the groups
@@ -350,7 +359,9 @@ def iter_predictions(model, dataset, batch_size: int = 4,
     the model's device. Only the int32 prediction comes back to the host.
     The raw head logits are resized in full (whole mode); ``mode`` 'slide'
     averages windows of ``crop_size`` at ``stride`` at input resolution
-    and resizes their valid region instead."""
+    and resizes their valid region instead. ``images``: for each index
+    among its keys, the valid region of the pipeline image is stored there
+    as it is read, on every rank (the eval panels)."""
     from s4former_tpu_torch.models.segmentors.inference import \
         slide_inference
     device = next(model.parameters()).device
@@ -399,6 +410,8 @@ def iter_predictions(model, dataset, batch_size: int = 4,
             item = item[0]
         img = np.asarray(item['img'], np.float32)[None]
         img, (vh, vw) = _pad_to_bucket(img, bucket)
+        if images is not None and idx in images:
+            images[idx] = img[0, :vh, :vw]
         gt = dataset.get_gt_seg_map(idx)
         key = (img.shape[1], img.shape[2],
                -(-gt.shape[0] // bucket), -(-gt.shape[1] // bucket))
@@ -412,34 +425,76 @@ def iter_predictions(model, dataset, batch_size: int = 4,
             yield from flush(pend)
 
 
+def reduce_pre_eval(local: Dict[int, tuple], order, num_classes: int,
+                    device) -> list:
+    """Per-image confusion histograms (``dataset.pre_eval``'s tuples) in
+    the single-process order ``order``. In a process group each image's
+    histograms are on the rank that predicted it; they are summed over the
+    ranks through a zero-filled [image, (intersect, union, pred area,
+    label area), class] table on ``device`` (counts below 2^24: exact in
+    f32), so every rank gets every image's."""
+    if world_size() > 1:
+        n = max(order) + 1 if order else 0
+        table = torch.zeros((n, 4, num_classes), device=device)
+        for idx, hists in local.items():
+            table[idx] = torch.from_numpy(np.stack(hists))
+        table = global_sum(table).cpu().numpy()
+        local = {idx: tuple(table[idx]) for idx in order}
+    return [local[idx] for idx in order]
+
+
+def gather_on_main(local: Dict) -> Dict:
+    """Every rank's ``local`` dict merged on rank 0, by one
+    ``gather_object``; the other ranks get ``{}``. Without a group,
+    ``local`` itself."""
+    if world_size() == 1:
+        return local
+    parts = [None] * world_size() if is_main() else None
+    dist.gather_object(local, parts, dst=0)
+    return {k: v for part in parts for k, v in part.items()} \
+        if is_main() else {}
+
+
 def make_eval_fn(dataset, batch_size: int = 4, mode: str = 'whole',
-                 crop_size=(512, 512), stride=(341, 341)):
+                 crop_size=(512, 512), stride=(341, 341),
+                 capture_images: int = 4):
     """``eval_fn(state) -> {'aAcc', 'mIoU', 'mAcc'}`` over ``dataset`` with
     the state's student (``state.model``), streaming
     per-image confusion histograms (the reference's pre_eval path,
     custom.py:302 + eval_hooks.py). See ``iter_predictions``. In a process
     group each rank predicts its share of the groups; the per-image
-    histograms are summed over the ranks (each image's on one rank, zeros
-    elsewhere: exact) and reduced in the single-process flush order."""
+    histograms are summed over the ranks (``reduce_pre_eval``) and reduced
+    in the single-process flush order.
+
+    ``eval_fn.last_samples`` holds (pipeline image at its valid size,
+    prediction, label map) of the images of index < ``capture_images``,
+    in index order, and ``eval_fn.palette`` the dataset's palette: the
+    eval panels the runner logs (JAX runner.py:476-501), on rank 0. Every
+    rank reads every image; of a prediction made on another rank only its
+    label map comes over (``gather_on_main``)."""
     def eval_fn(state):
         shard = (rank(), world_size())
-        order, local = [], {}
+        device = next(state.model.parameters()).device
+        order, local, preds = [], {}, {}
+        images = dict.fromkeys(range(min(capture_images, len(dataset))))
         for idx, pred in iter_predictions(state.model, dataset, batch_size,
-                                          mode, crop_size, stride, shard):
+                                          mode, crop_size, stride, shard,
+                                          images):
             order.append(idx)
             if pred is not None:
                 local[idx] = dataset.pre_eval([pred], [idx])[0]
-        if shard[1] > 1:
-            # [image, (intersect, union, pred area, label area), class]
-            table = torch.zeros((len(dataset), 4, state.model.num_classes),
-                                device=state.step.device)
-            for idx, hists in local.items():
-                table[idx] = torch.from_numpy(np.stack(hists))
-            table = global_sum(table).cpu().numpy()
-            local = {idx: tuple(table[idx]) for idx in order}
-        tables = pre_eval_to_metrics([local[idx] for idx in order],
-                                     ('mIoU',))
+                if idx < capture_images:
+                    preds[idx] = pred
+        preds = gather_on_main(preds)
+        eval_fn.last_samples = [
+            (images[idx], preds[idx], dataset.get_gt_seg_map(idx))
+            for idx in sorted(preds)]
+        tables = pre_eval_to_metrics(
+            reduce_pre_eval(local, order, state.model.num_classes, device),
+            ('mIoU',))
         return {'aAcc': float(tables['aAcc']),
                 'mIoU': float(np.nanmean(tables['IoU'])),
                 'mAcc': float(np.nanmean(tables['Acc']))}
+    eval_fn.last_samples = []
+    eval_fn.palette = getattr(dataset, 'PALETTE', None)
     return eval_fn

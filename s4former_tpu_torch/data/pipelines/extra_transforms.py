@@ -131,13 +131,13 @@ class RandomRotate:
 @PIPELINES.register_module()
 class RandomMosaic:
     """(transforms.py:1378-1543) needs ``MultiImageMixDataset`` to hand it
-    three more dataset items; neither is ported yet (ROADMAP Queue 1 item
-    8), so it is refused."""
+    three more dataset items; neither is ported yet (ROADMAP Queue 1,
+    "Other datasets and wrappers"), so it is refused."""
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             'not ported yet: RandomMosaic and MultiImageMixDataset (ROADMAP '
-            'Queue 1 item 8)')
+            'Queue 1, "Other datasets and wrappers")')
 
 
 @PIPELINES.register_module()
@@ -254,12 +254,13 @@ class Rerange:
 @PIPELINES.register_module()
 class CLAHE:
     """(transforms.py:661) is ``cv2.createCLAHE``; the port does not
-    depend on OpenCV, so it is refused (ROADMAP Queue 1 item 8)."""
+    depend on OpenCV, so it is refused (ROADMAP Queue 1, "Other datasets
+    and wrappers")."""
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             'not ported: CLAHE needs OpenCV (cv2), which the port does not '
-            'depend on (ROADMAP Queue 1 item 8)')
+            'depend on (ROADMAP Queue 1, "Other datasets and wrappers")')
 
 
 @PIPELINES.register_module()

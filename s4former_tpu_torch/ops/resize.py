@@ -64,6 +64,29 @@ def interp_matrix_np(in_size: int, out_size: int,
     return m
 
 
+def resize_bilinear_np(x: np.ndarray, out_hw: Tuple[int, int],
+                       align_corners: bool = False) -> np.ndarray:
+    """Host numpy twin of ``resize_bilinear`` on [H, W, C] or [N, H, W, C]
+    (float32 out), the same 2-tap weights: the JAX package's
+    ``resize_bilinear_np`` (ops/resize.py:152), which the per-image tools
+    use to bring logits to the label's shape."""
+    squeeze = x.ndim == 3
+    if squeeze:
+        x = x[None]
+    _, h, w, _ = x.shape
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    xf = np.asarray(x, np.float32)
+    if oh != h:
+        lo, hi, wt = _linear_weights(h, oh, align_corners)
+        xf = xf[:, lo] * (1.0 - wt)[None, :, None, None] + \
+            xf[:, hi] * wt[None, :, None, None]
+    if ow != w:
+        lo, hi, wt = _linear_weights(w, ow, align_corners)
+        xf = xf[:, :, lo] * (1.0 - wt)[None, None, :, None] + \
+            xf[:, :, hi] * wt[None, None, :, None]
+    return xf[0] if squeeze else xf
+
+
 def _lerp_axis(x: torch.Tensor, axis: int, out_size: int,
                align_corners: bool) -> torch.Tensor:
     lo, hi, w = _linear_weights(x.shape[axis], out_size, align_corners)

@@ -4,8 +4,8 @@ lifted out of the model into a static dataclass consumed by the train step.
 Defaults match the reference constructor exactly.
 
 The port's own copy of ``s4former_tpu/semi/config.py`` (the port imports
-nothing of the JAX package). Which flags the port's train step runs, and
-which raise ``NotImplementedError``, is listed in ``semi/train_step.py``.
+nothing of the JAX package). The port's train step (``semi/train_step.py``)
+runs every flag; none raises.
 """
 from __future__ import annotations
 

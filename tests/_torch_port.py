@@ -346,13 +346,17 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(fn, rank: int, world: int, port: int, args):
+def _rank_main(fn, rank: int, world: int, port: int, args,
+               init: bool = True):
     import os
     import torch
     os.environ.update(MASTER_ADDR='127.0.0.1', MASTER_PORT=str(port),
                       RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank))
     torch.set_num_threads(2)
+    if not init:            # fn joins the group itself (a CLI's --launcher)
+        fn(rank, world, *args)
+        return
     from s4former_tpu_torch.parallel.distributed import init_distributed
     init_distributed('env', device='cpu')
     try:
@@ -361,13 +365,17 @@ def _rank_main(fn, rank: int, world: int, port: int, args):
         torch.distributed.destroy_process_group()
 
 
-def run_ranks(fn, world: int, *args, timeout: float = 240.0):
+def run_ranks(fn, world: int, *args, timeout: float = 240.0,
+              init: bool = True):
     """``fn(rank, world, *args)`` in ``world`` spawned processes of one
-    gloo group (torchrun's env launcher); every process must exit 0."""
+    gloo group (torchrun's env launcher); every process must exit 0. With
+    ``init=False`` the processes get the launcher's environment and ``fn``
+    joins the group itself."""
     import multiprocessing
     ctx = multiprocessing.get_context('spawn')
     port = free_port()
-    procs = [ctx.Process(target=_rank_main, args=(fn, r, world, port, args))
+    procs = [ctx.Process(target=_rank_main,
+                         args=(fn, r, world, port, args, init))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -534,3 +542,39 @@ def dp_eval_worker(rank: int, world: int, cfg_path: str, weights: str,
     if rank == 0:
         with open(out, 'w') as f:
             json.dump(metrics, f)
+
+
+def eval_vis_worker(rank: int, world: int, cfg_path: str, weights: str,
+                    work_dir: str):
+    """The runner's eval at iteration 2 (``IterBasedRunner._evaluate``:
+    metrics, the eval panels, the best checkpoint) on the weights in
+    ``weights``, at ``world`` ranks (or in this process with world 1)."""
+    import torch
+    import s4former_tpu_torch.data  # noqa: F401
+    from s4former_tpu_torch.config import Config
+    from s4former_tpu_torch.core.checkpoint import finalize_pending_saves
+    from s4former_tpu_torch.core.runner import IterBasedRunner, make_eval_fn
+    from s4former_tpu_torch.data import build_dataset
+    from s4former_tpu_torch.models import build_segmentor
+    from s4former_tpu_torch.semi.train_step import create_train_state
+    cfg = Config.fromfile(cfg_path)
+    model = build_segmentor(cfg.model)
+    model.load_state_dict(torch.load(weights, weights_only=True))
+    runner = IterBasedRunner(
+        None, create_train_state(model), None, max_iters=2,
+        work_dir=work_dir,
+        eval_fn=make_eval_fn(build_dataset(cfg.data['val']), batch_size=2))
+    runner._evaluate(2)
+    finalize_pending_saves()
+
+
+def cli_test_worker(rank: int, world: int, argv, out: str):
+    """``tools.test --launcher env --device cpu`` at ``world`` ranks; rank
+    0 writes the returned metrics (or None) to ``out`` as JSON."""
+    import json
+    from s4former_tpu_torch.tools import test as test_cli
+    results = test_cli.main(list(argv) + ['--launcher', 'env', '--device',
+                                          'cpu'])
+    if rank == 0:
+        with open(out, 'w') as f:
+            json.dump(results, f)

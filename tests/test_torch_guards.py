@@ -32,8 +32,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = _port_files()
     assert len(files) > 15
     # the host runtime, the profiler's reader, the test CLI's modules, the
-    # SegFormer slice's, the ablation slice's, the UniMatch slice's and the
-    # data-parallel slice's are among the files read
+    # SegFormer slice's, the ablation slice's, the UniMatch slice's, the
+    # data-parallel slice's and the eval-and-tools slice's (the tools and
+    # the demo package) are among the files read
     assert {'native/__init__.py', 'native/build.py', 'core/hooks.py',
             'tools/profile_trace.py', 'utils/palette.py',
             'utils/collect_env.py', 'tools/test.py',
@@ -46,7 +47,12 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             'data/pipelines/extra_transforms.py',
             'data/datasets/custom.py', 'data/loader.py',
             'parallel/distributed.py', 'parallel/mesh.py',
-            'core/runner.py'} <= {
+            'core/runner.py', 'apis.py', 'ops/resize.py',
+            'tools/print_config.py', 'tools/publish_model.py',
+            'tools/ensemble_test.py', 'tools/benchmark.py',
+            'tools/get_flops.py', 'tools/per_image_eval.py',
+            'tools/measure_eval_divergence.py', 'demo/__init__.py',
+            'demo/image_demo.py', 'demo/video_demo.py'} <= {
         str(p.relative_to(REPO / 's4former_tpu_torch')) for p in files
         if REPO / 's4former_tpu_torch' in p.parents}
     bad = [(str(p.relative_to(REPO)), m) for p in files
@@ -69,14 +75,33 @@ def test_chip_smoke_fails_without_a_card(tmp_path, where):
     assert '"ok": true' not in proc.stdout
 
 
-@pytest.mark.parametrize('tool', ['train', 'test'])
+# the arguments each entry point that runs a model is given; the device
+# check comes before any file is read
+_NO_CARD_ARGS = {
+    'tools.train': ['CFG', '--work-dir', 'WD'],
+    'tools.test': ['CFG'],
+    'tools.benchmark': ['CFG'],
+    'tools.ensemble_test': ['CFG', 'missing_a', 'missing_b'],
+    'tools.get_flops': ['CFG'],
+    'tools.per_image_eval': ['CFG', 'missing'],
+    'tools.measure_eval_divergence': ['CFG', 'missing'],
+    'demo.image_demo': ['missing.jpg', 'CFG', '--out', 'WD/out.png'],
+}
+
+
+@pytest.mark.parametrize('tool', ['train', 'test', 'benchmark',
+                                  'ensemble_test', 'get_flops',
+                                  'per_image_eval', 'measure_eval_divergence',
+                                  'image_demo'])
 def test_cli_fails_without_a_card(tmp_path, tool):
-    """``python -m s4former_tpu_torch.tools.{train,test}`` without
-    ``--device cpu`` exits nonzero where torch finds no CUDA device."""
+    """``python -m s4former_tpu_torch.{tools,demo}.<tool>`` without
+    ``--device cpu`` (or ``--cpu``) exits nonzero where torch finds no CUDA
+    device."""
     cfg = REPO / 'configs' / 'setr' / 'setr_fixture_voc_mini_tiny.py'
-    argv = [sys.executable, '-m', f's4former_tpu_torch.tools.{tool}',
-            str(cfg)] + (['--work-dir', str(tmp_path)] if tool == 'train'
-                         else [])
+    module = f'demo.{tool}' if tool == 'image_demo' else f'tools.{tool}'
+    args = [a.replace('CFG', str(cfg)).replace('WD', str(tmp_path))
+            for a in _NO_CARD_ARGS[module]]
+    argv = [sys.executable, '-m', f's4former_tpu_torch.{module}'] + args
     proc = subprocess.run(argv, cwd=REPO, capture_output=True, text=True,
                           timeout=120,
                           env={**os.environ, 'CUDA_VISIBLE_DEVICES': ''})
