@@ -91,7 +91,17 @@ on the card, then drives the port's paths through its entry points:
   same over NCCL, one rank a card (up to 4); ``tools.train --launcher
   env`` over NCCL with min(2, cards) ranks on the fixture config, 6 steps,
   resumed to 8, rank 0 alone writing (its eval panels too), and
-  ``tools.test`` against the in-loop mIoU.
+  ``tools.test`` against the in-loop mIoU;
+- sharded training (``tp_*``, ``zero3_*``; ``parallel/tp.py``): kernels
+  #1-#4 held at H = 6 and 3, the heads of a tensor-parallel rank; the f32
+  step at 4 layers split as data 1 x model 2 (2 ranks, gloo on cuda:0)
+  and data 2 x model 2 with ZeRO-3 (4 ranks; NCCL with 4 cards) against
+  one process, within the data-parallel bounds; the bf16 flagship on one
+  global 4 + 4 batch in one process, 1 x 2 and 2 x 2 with ZeRO-3 (step and
+  device ms, peak memory, the floats and heads a rank); ``tools.train
+  --model-parallel 2 --zero3`` on 4 ranks, 3 steps with eval and a
+  checkpoint (the layout of ``train_cli``'s), resumed to 4, and
+  ``tools.test`` on it against the in-loop mIoU.
 
 Kernel #1 is held to its plain version at every forward shape a path
 launched: the shapes listed up front (the TTA and whole-image eval token
@@ -587,6 +597,107 @@ def phase_kernels_bwd(fa):
             'shape': f'B={b} L={l} H=12 D=64 bfloat16, bias={bias_kind}',
             'cases': [c for c in cases if 'ms' in c]}
     return out, fwd_err_bf16, fwd_cases
+
+
+# the heads a tensor-parallel rank of DeiT-B attends over: 12 split over a
+# model axis of 2 and of 4
+TP_HEADS = (6, 3)
+
+
+def phase_kernels_tp(fa, entries):
+    """Kernels #1-#4 against their plain versions at H = 6 and 3, the heads
+    of a tensor-parallel rank (q, k, v strided views of the rank's
+    [B, L, 3 H 64] product, as the sharded ViT makes them), f32 and bf16,
+    at the tolerances above. The forward at every B the sharded paths
+    launch at L = 1025 (no bias and PASA's b1 bias) and at the eval's
+    B = 4, L = 1377, timed at B = 8 and 16 and at the eval shape; the
+    fused backward at B = 8, L = 1025; the dk/dv and dq kernels at B = 2,
+    L = 2305. Each timed row with its bound, the plain version's time and
+    the library call's. The rows go to the kernels line's entries
+    (``cases``, with their H)."""
+    import torch
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    fwd_shapes = [(b, 1025, kind) for b in (2, 4, 8, 16)
+                  for kind in (None, 'pasa')] + [(4, 1377, None)]
+    fwd_timed = {(8, 1025, None), (8, 1025, 'pasa'), (16, 1025, None),
+                 (16, 1025, 'pasa'), (4, 1377, None)}
+    bwd_shapes = [(8, 1025, None), (8, 1025, 'pasa'), (2, 2305, None)]
+    launchers = {'flash_attn_bwd_fused': fa.launch_bwd_fused,
+                 'flash_attn_bwd_dkv': fa.launch_bwd_dkv,
+                 'flash_attn_bwd_dq': fa.launch_bwd_dq}
+    fwd_entry = entries['flash_attn_fwd']
+    for h in TP_HEADS:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).replace('torch.', '')
+            for b, l, kind in fwd_shapes:
+                q, k, v, bias = attention_inputs(b, l, h, dtype, kind, gen)
+                o, lse = fa.flash_attention_fwd(q, k, v, bias)
+                err_o, err_lse = check_forward(
+                    fa, q, k, v, bias, o, lse,
+                    f'{dname} B={b} L={l} H={h} bias={kind}')
+                case = dict(dtype=dname, B=b, L=l, H=h, D=64, bias=kind,
+                            max_abs_err=err_o, lse_max_abs_err=err_lse,
+                            tol_o=TOL[dname]['o'], tol_lse=TOL[dname]['lse'])
+                if (b, l, kind) in fwd_timed:
+                    case.update(forward_times(fa, q, k, v, bias))
+                    fwd_entry['cases'].append(case)
+                if dname == 'bfloat16':
+                    fwd_entry['max_abs_err'] = max(fwd_entry['max_abs_err'],
+                                                   err_o)
+                emit({'phase': 'kernel_check', 'for': 'tensor_parallel',
+                      **case})
+                del q, k, v, bias, o, lse
+            for b, l, kind in bwd_shapes:
+                where = f'{dname} B={b} L={l} H={h} bias={kind}'
+                q, k, v, bias = attention_inputs(b, l, h, dtype, kind, gen)
+                do = torch.randn(q.shape, generator=gen,
+                                 device='cuda').to(dtype)
+                o, lse = fa.flash_attention_fwd(q, k, v, bias)
+                check_forward(fa, q, k, v, bias, o, lse, where)
+                args = (q, k, v, bias, do, lse, fa.row_delta(o, do))
+                ref = fa.flash_attention_backward_reference(
+                    q, k, v, bias, o, lse, do)
+                names = ['flash_attn_bwd_fused'] if l <= fa.FULL_Q_MAX \
+                    else ['flash_attn_bwd_dkv', 'flash_attn_bwd_dq']
+                plain_ms = cuda_time_ms(
+                    lambda: fa.flash_attention_backward_reference(
+                        q, k, v, bias, o, lse, do), iters=3, warmup=1)
+                library_ms = sdpa_backward_ms(q, k, v, bias, do)
+                for name in names:
+                    got = launchers[name](*args)
+                    if name == 'flash_attn_bwd_dkv':
+                        got = (ref[0],) + tuple(got)
+                    elif name == 'flash_attn_bwd_dq':
+                        got = (got,) + tuple(ref[1:])
+                    torch.cuda.synchronize()
+                    errs, peaks = grad_errors(got, ref)
+                    rel = max(e / p for e, p in zip(errs, peaks))
+                    products, outputs = BWD_WORK[name]
+                    bound, bound_by = bound_ms(q, bias, products,
+                                               5 + outputs)
+                    case = dict(dtype=dname, B=b, L=l, H=h, D=64, bias=kind,
+                                max_abs_err=max(errs),
+                                abs_err_dq_dk_dv=errs,
+                                max_abs_dq_dk_dv=peaks, max_rel_err=rel,
+                                tol=TOL_BWD[dname],
+                                ms=cuda_time_ms(lambda: launchers[name](
+                                    *args), iters=10, warmup=2),
+                                plain_ms=plain_ms, library_ms=library_ms,
+                                bound_ms=bound, bound_by=bound_by)
+                    entry = entries[name]
+                    entry['cases'].append(case)
+                    if dname == 'bfloat16':
+                        entry['max_abs_err'] = max(entry['max_abs_err'],
+                                                   max(errs))
+                        entry['max_rel_err'] = max(entry['max_rel_err'], rel)
+                    emit({'phase': 'kernel_check_bwd', 'kernel': name,
+                          'for': 'tensor_parallel', **case})
+                    check(all(torch.isfinite(t).all().item() for t in got),
+                          f'non-finite {name} {where}')
+                    check(rel <= TOL_BWD[dname], f'{name} disagrees with the '
+                          f'plain backward: {where} err={errs} max '
+                          f'|grad|={peaks}')
+                del q, k, v, bias, do, o, lse, args, ref
 
 
 def sdpa_backward_ms(q, k, v, bias, do):
@@ -1346,8 +1457,23 @@ def phase_train_cli(fa, gpu_line, wd, deit, n_backbone):
           'tol': TOL_MIOU, 'test_run_s': test_s, 'gpu': gpu_line})
     check(gap <= TOL_MIOU, f'offline mIoU {results["mIoU"]} vs in-loop '
           f'{in_loop}: {gap} > {TOL_MIOU}')
+    CHECKPOINT_LAYOUT.update(checkpoint_layout(os.path.join(wd, 'iter_12')))
     return (add_counts(add_counts(train_counts, resume_counts), test_counts),
             windows)
+
+
+# train_cli's checkpoint: each part's tensor names, shapes and dtypes (the
+# sharded CLI's must equal it)
+CHECKPOINT_LAYOUT = {}
+
+
+def checkpoint_layout(path):
+    import torch
+    raw = torch.load(os.path.join(path, 'state.pt'), map_location='cpu',
+                     weights_only=True)
+    return {key: {n: [list(t.shape), str(t.dtype)]
+                  for n, t in raw[key].items()}
+            for key in ('model', 'momentum', 'ema_model')}
 
 
 def phase_train_cli_host(fa, gpu_line, root, deit, n_backbone, windows,
@@ -3088,12 +3214,14 @@ def state_tensors(state):
 
 
 def identical_across_ranks(state):
-    """Every tensor of the state bit for bit rank 0's, on every rank."""
+    """Every tensor of the state bit for bit rank 0's, on every rank (of a
+    split state, every tensor each rank holds whole)."""
     import torch
     import torch.distributed as dist
-    tensors = list(state.model.state_dict().values()) + \
-        list(state.ema_model.state_dict().values()) + \
-        list(state.momentum.values())
+    split = set(state.plan.split_names()) if state.plan else set()
+    tensors = [t for sd in (state.model.state_dict(),
+                            state.ema_model.state_dict(), state.momentum)
+               for n, t in sd.items() if n not in split]
     flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
     ref = flat.clone()
     dist.broadcast(ref, 0)
@@ -3102,18 +3230,51 @@ def identical_across_ranks(state):
     return int(bad) == 0
 
 
+def whole_state_tensors(state):
+    """``state_tensors`` of a (split) state, gathered whole: every rank
+    joins the gather; None on all but rank 0."""
+    from s4former_tpu_torch.core.checkpoint import host_state
+    from s4former_tpu_torch.parallel.distributed import is_main
+    payload = host_state(state, is_main())
+    if payload is None:
+        return None
+    out = {}
+    for prefix, key in (('model.', 'model'), ('ema.', 'ema_model'),
+                        ('momentum.', 'momentum')):
+        out.update({prefix + k: v for k, v in payload[key].items()})
+    return out
+
+
+def still_split(state, full_shapes):
+    """Every split parameter (and its SGD buffer) still holds its piece,
+    not the whole tensor."""
+    if state.plan is None:
+        return False
+    params = dict(state.model.named_parameters())
+    return all(tuple(params[n].shape) != full_shapes[n] and
+               tuple(state.momentum[n].shape) == tuple(params[n].shape)
+               for n in state.plan.split_names())
+
+
 def dp_rank_step_f32(fa, spec, device):
     """One rank of dp_step_f32_vs_single (and, with the single process's
     teacher logits pinned, of dp_step_f32_pinned_teacher): the 4-layer f32
-    step on this rank's block of each global batch."""
+    step on this rank's block of each global batch. With SPEC's 'mp' > 1
+    or 'zero3', the ranks form a (data, model) grid and the state is split
+    (tp_step_f32_vs_single, zero3_step_f32_vs_single)."""
     import torch
-    from s4former_tpu_torch.parallel.distributed import is_main
-    from s4former_tpu_torch.parallel.mesh import replicate_state, shard_batch
+    from s4former_tpu_torch.parallel.mesh import (make_mesh, replicate_state,
+                                                  shard_batch)
+    from s4former_tpu_torch.parallel.tp import shard_state
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     state, step, _ = make_trainer('ours', device, 'float32', 4,
                                   unsup_confidence=UNSUP_CONFIDENCE_F32)
     state = replicate_state(state)
+    full_shapes = {n: tuple(p.shape)
+                   for n, p in state.model.named_parameters()}
+    make_mesh(spec.get('mp', 1))
+    state = shard_state(state, zero3=spec.get('zero3', False))
     gen = torch.Generator(device=device).manual_seed(0)
     logs_by_step, same, teacher = [], [], []
     unhook = teacher_hook(
@@ -3127,10 +3288,12 @@ def dp_rank_step_f32(fa, spec, device):
     torch.cuda.synchronize()
     launches = counts(fa)                          # the main path ends
     unhook()
-    if is_main():
-        torch.save(state_tensors(state), spec['state_out'])
+    tensors = whole_state_tensors(state)
+    if tensors is not None:
+        torch.save(tensors, spec['state_out'])
     return {'logs': logs_by_step, 'same': same, 'launches': launches,
-            'teacher': teacher}
+            'teacher': teacher, 'split': still_split(state, full_shapes),
+            'heads': sorted({s[3] for s in FWD_SEEN})}
 
 
 def dp_rank_train_bf16(fa, spec, device):
@@ -3152,10 +3315,10 @@ def dp_rank_train_bf16(fa, spec, device):
     state, _, warm_ms = timed_steps(state, step, batch, gen, 2)
     reduce_ms = []
 
-    def timed_reduce(grads):
+    def timed_reduce(grads, *args):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = mesh.all_reduce_grads(grads)
+        out = mesh.all_reduce_grads(grads, *args)
         torch.cuda.synchronize()
         reduce_ms.append((time.perf_counter() - t0) * 1e3)
         return out
@@ -3208,7 +3371,50 @@ def dp_rank_test(fa, spec, device):
     return {'launches': counts(fa), 'metrics': metrics}
 
 
+def tp_rank_train_bf16(fa, spec, device):
+    """One rank of tp_train_bf16: the flagship as written on SPEC's grid
+    (model axis 'mp', 'zero3'), its data index's block of one global
+    batch; 2 warm-up steps, 3 timed, one under the profiler. Reports what
+    a rank holds: its parameters' floats (the EMA and the SGD buffers hold
+    as many) against the whole model's."""
+    import numpy as np
+    import torch
+    from s4former_tpu_torch.parallel import mesh
+    from s4former_tpu_torch.parallel.tp import shard_state
+    state, step, cfg = make_trainer('ours', device)
+    check(cfg.model.backbone.dtype == 'bfloat16', 'flagship dtype')
+    state = mesh.replicate_state(state)
+    whole = sum(p.numel() for p in state.model.parameters())
+    full_shapes = {n: tuple(p.shape)
+                   for n, p in state.model.named_parameters()}
+    mesh.make_mesh(spec['mp'])
+    state = shard_state(state, zero3=spec['zero3'])
+    torch.cuda.empty_cache()
+    held = sum(p.numel() for p in state.model.parameters())
+    batch = mesh.shard_batch(load_batch(spec['batches'][0], device))
+    gen = torch.Generator(device=device).manual_seed(0)
+    state, _, warm_ms = timed_steps(state, step, batch, gen, 2)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts(fa)                               # the main path starts
+    state, logs, ms = timed_steps(state, step, batch, gen, 3)
+    launches = counts(fa)                          # the main path ends
+    peak = torch.cuda.max_memory_allocated(device)
+    (state, _), prof = device_profile(lambda: step(state, batch, gen), 8)
+    ms_arr = np.asarray(ms)
+    return {'warmup_step_ms': warm_ms, 'step_ms': ms,
+            'step_ms_mean': float(ms_arr.mean()),
+            'device_ms': prof['device_us'] / 1e3,
+            'device_busy_share': prof['device_busy_share'],
+            'top_kernels': prof['top'], 'peak_mem_bytes': peak,
+            'launches': launches, 'heads': sorted({s[3] for s in FWD_SEEN}),
+            'param_floats': held, 'param_floats_whole': whole,
+            'state_floats': 3 * held, 'split': still_split(state,
+                                                           full_shapes),
+            'same': identical_across_ranks(state), 'logs': floats(logs)}
+
+
 DP_RANK_PHASES = {'step_f32': dp_rank_step_f32,
+                  'tp_train_bf16': tp_rank_train_bf16,
                   'train_bf16': dp_rank_train_bf16, 'cli': dp_rank_cli,
                   'test': dp_rank_test}
 
@@ -3409,8 +3615,19 @@ def phase_dp_step_f32(fa, images, gpu_line, root):
     single process's rows (``dp_step_f32_pinned_teacher``, ROADMAP Queue 3
     item 1): every pseudo-label, confidence mask, PASA bias and NCR target
     is then the single process's, and the error left comes from the
-    student's side. Held to the same limits. Returns the launches of both
-    runs' ranks summed."""
+    student's side. Held to the same limits.
+
+    Then the sharded steps against the same single process, at the same
+    limits, with the rerun floor beside them: ``tp_step_f32_vs_single``,
+    2 ranks on cuda:0 over gloo as data 1 x model 2 (tensor parallelism:
+    each rank attends over 6 heads and holds its pieces of the split
+    weights, EMA and SGD buffers), and ``zero3_step_f32_vs_single``, 4 ranks
+    as data 2 x model 2 with ZeRO-3 (NCCL, one rank a card, with 4 cards;
+    else gloo on cuda:0). Each rank launches what one process does, its
+    state is still split after step 3, and the tensors it holds whole are
+    bit-identical across the ranks. Returns the launches of each
+    grid's ranks summed, by path: dp_step_f32 (both data-parallel runs),
+    tp_step_f32 and zero3_step_f32."""
     import numpy as np
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3436,24 +3653,41 @@ def phase_dp_step_f32(fa, images, gpu_line, root):
     check(all(s['mask_ratio'] > 0 and s['unsup.loss_seg_unsup'] > 0 and
               s['unsup.loss_ncr_unsup'] > 0 for s in single_logs),
           'the unsup losses are not live')
-    launches = {n: 0 for n in KERNELS}
-    for phase, pin in (('dp_step_f32_vs_single', False),
-                       ('dp_step_f32_pinned_teacher', True)):
+    launches = {}
+    # (phase, teacher pinned, ranks, model axis, ZeRO-3, backend, device):
+    # gloo puts every rank on cuda:0; NCCL one rank a card
+    nccl4 = torch.cuda.device_count() >= 4
+    grids = [('dp_step_f32_vs_single', False, DP_RANKS, 1, False, 'gloo',
+              'cuda:0'),
+             ('dp_step_f32_pinned_teacher', True, DP_RANKS, 1, False,
+              'gloo', 'cuda:0'),
+             ('tp_step_f32_vs_single', False, 2, 2, False, 'gloo',
+              'cuda:0'),
+             ('zero3_step_f32_vs_single', False, 4, 2, True,
+              'nccl' if nccl4 else 'gloo', 'cuda' if nccl4 else 'cuda:0')]
+    for phase, pin, n_ranks, mp, zero3, backend, device in grids:
         state_out = os.path.join(root, f'{phase}.pt')
         t0 = time.perf_counter()
         ranks, _ = run_ranks('step_f32', {
             'batches': batches, 'state_out': state_out,
-            'teacher': teacher_out, 'pin': pin, 'backend': 'gloo',
-            'device': 'cuda:0'}, DP_RANKS, root, 600)
+            'teacher': teacher_out, 'pin': pin, 'backend': backend,
+            'device': device, 'mp': mp, 'zero3': zero3}, n_ranks, root, 600)
         ranks_s = time.perf_counter() - t0
         loss_err, errs = dp_errors(torch.load(state_out, weights_only=True),
                                    ranks[0]['logs'], single, single_logs,
                                    before)
         emit({'phase': phase, 'config': 'ours',
-              'ranks': DP_RANKS, 'backend': 'gloo, both ranks on cuda:0',
+              'ranks': n_ranks, 'grid': f'data {n_ranks // mp} x model '
+                                        f'{mp}, zero3 {zero3}',
+              'backend': f'{backend}, ' + ('every rank on cuda:0'
+                                           if device == 'cuda:0' else
+                                           'one rank a card'),
+              'heads_per_rank': ranks[0]['heads'],
+              'split_after_last_step': [r['split'] for r in ranks],
               'cut': 'num_layers 12 -> 4, out_indices (0, 1, 2, 3)',
-              'batch': f'3 steps of 4 + 4 at 512² global, 2 + 2 a rank, '
-                       f'unsup_confidence {UNSUP_CONFIDENCE_F32}',
+              'batch': f'3 steps of 4 + 4 at 512² global, '
+                       f'{4 * mp // n_ranks} + {4 * mp // n_ranks} a data '
+                       f'index, unsup_confidence {UNSUP_CONFIDENCE_F32}',
               'teacher_pinned': pin, 'teacher_margins_single': margins,
               'teacher_vs_single_by_rank': [r['teacher'] for r in ranks],
               'single_vs_itself': rerun,
@@ -3465,6 +3699,10 @@ def phase_dp_step_f32(fa, images, gpu_line, root):
               'single_s': single_s, 'ranks_s': ranks_s, 'gpu': gpu_line})
         for r in ranks:
             check(r['same'] == [True] * 3, f'ranks differ: {r["same"]}')
+            check(r['split'] == (mp > 1 or zero3), f'{phase}: split after '
+                  f'step 3: {r["split"]}')
+            check(r['heads'] == [12 // mp], f'{phase}: a rank attended '
+                  f'over {r["heads"]} heads')
             check(r['launches'] == {'flash_attn_fwd': 36,
                                     'flash_attn_bwd_fused': 24,
                                     'flash_attn_bwd_dkv': 0,
@@ -3482,7 +3720,10 @@ def phase_dp_step_f32(fa, images, gpu_line, root):
             check(name.startswith('momentum.') or
                   e['max_abs_err'] <= e['limit'],
                   f'{phase}: {name}: 2 ranks vs one process {e}')
-        launches = add_counts(launches, sum_counts(ranks))
+        path = phase.split('_vs_')[0].replace('_pinned_teacher', '')
+        launches[path] = add_counts(launches.get(path, {n: 0 for n in
+                                                        KERNELS}),
+                                    sum_counts(ranks))
     return launches
 
 
@@ -3611,6 +3852,166 @@ def phase_dp_train_cli(fa, gpu_line, root):
     return out
 
 
+def one_process_4x4(fa, images):
+    """The one-process flagship step at 4 + 4 (what tp_train_bf16's grids
+    split): 2 warm-up steps, 3 timed, one profiled; its peak memory and
+    parameter floats."""
+    import numpy as np
+    import torch
+    state, step, _ = make_trainer('ours', 'cuda')
+    batch = to_device(train_batch(images, 4, 4), 'cuda')
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    state, _, _ = timed_steps(state, step, batch, gen, 2)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa)
+    state, logs, ms = timed_steps(state, step, batch, gen, 3)
+    launches = counts(fa)
+    peak = torch.cuda.max_memory_allocated()
+    (state, _), prof = device_profile(lambda: step(state, batch, gen), 8)
+    held = sum(p.numel() for p in state.model.parameters())
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return {'step_ms': ms, 'step_ms_mean': float(np.mean(ms)),
+            'device_ms': prof['device_us'] / 1e3,
+            'device_busy_share': prof['device_busy_share'],
+            'peak_mem_bytes': peak, 'launches': launches, 'heads': [12],
+            'param_floats': held, 'state_floats': 3 * held,
+            'logs': floats(logs)}, launches
+
+
+def phase_tp_train_bf16(fa, images, gpu_line, root):
+    """The flagship as written (bf16, DeiT-B, 12 layers) at 512² on one
+    global batch of 4 + 4, split three ways in one call: one process; 2
+    ranks as data 1 x model 2 (each attends over 6 heads); 4 ranks as data
+    2 x model 2 with ZeRO-3 (2 + 2 a data index). Step ms, device ms and
+    busy share, peak memory, launches and heads a rank, and the floats a
+    rank's state holds. Over gloo on one card this shows equality, memory
+    and launches, not speed: each block's two activation all-reduces make
+    a host round trip there. Each rank must launch one process's 36
+    forward and 24 fused backward a step, at 12/mp heads. Returns the
+    ranks' launches summed."""
+    import torch
+    single, single_counts = one_process_4x4(fa, images)
+    batches = save_batches(dp_global_batches(images, 4, 1), root)
+    nccl = torch.cuda.device_count() >= 4
+    per_step = {'flash_attn_fwd': 36, 'flash_attn_bwd_fused': 24,
+                'flash_attn_bwd_dkv': 0, 'flash_attn_bwd_dq': 0}
+    grids, total = {}, {n: 0 for n in KERNELS}
+    for name, n, mp, zero3 in (('tp_1x2', 2, 2, False),
+                               ('tp_zero3_2x2', 4, 2, True)):
+        backend, device = ('nccl', 'cuda') if nccl and n <= 4 else \
+            ('gloo', 'cuda:0')
+        t0 = time.perf_counter()
+        ranks, _ = run_ranks('tp_train_bf16', {
+            'batches': batches, 'mp': mp, 'zero3': zero3,
+            'backend': backend, 'device': device}, n, os.path.join(
+                root), 600)
+        grids[name] = {'ranks': n, 'grid': f'data {n // mp} x model {mp}',
+                       'zero3': zero3, 'backend': backend,
+                       'run_s': time.perf_counter() - t0,
+                       'per_rank': [{k: v for k, v in r.items()
+                                     if k != 'logs'} for r in ranks],
+                       'logs_rank0': ranks[0]['logs']}
+        for r in ranks:
+            check(r['launches'] == {k: 3 * v for k, v in per_step.items()},
+                  f'{name}: a rank launched {r["launches"]} in 3 steps')
+            check(r['heads'] == [12 // mp], f'{name}: heads {r["heads"]}')
+            check(r['split'] and r['same'], f'{name}: split {r["split"]}, '
+                  f'whole tensors identical {r["same"]}')
+            check(all(v == v for v in r['logs'].values()), f'{name}: NaN '
+                  f'logs {r["logs"]}')
+        total = add_counts(total, sum_counts(ranks))
+    emit({'phase': 'tp_train_bf16', 'config': 'ours',
+          'batch': '4 + 4 at 512² global, bf16, 12 layers',
+          'one_process': single, 'grids': grids,
+          'note': 'gloo on one card: activation all-reduces go through '
+                  'the host; equality, memory and launches, not speed',
+          'gpu': gpu_line})
+    check(single_counts == {k: 3 * v for k, v in per_step.items()},
+          f'one process launched {single_counts}')
+    return add_counts(total, single_counts)
+
+
+def phase_tp_train_cli(fa, gpu_line, root):
+    """``torch.distributed.run --nproc_per_node 4`` of ``tools.train
+    --launcher env --model-parallel 2 --zero3`` (data 2 x model 2; NCCL one
+    rank a card with 4 cards, else gloo with every rank on cuda:0) on
+    ``setr_fixture_voc_mini_fullflag.py``, 1 + 1 a rank (the global 4 + 4
+    of one process, 2 + 2 a data index): 3 steps with eval and a checkpoint
+    at 3, then ``--auto-resume`` to 4; the checkpoint has train_cli's
+    names, shapes and dtypes; ``tools.test`` (one process) on ``iter_3``
+    gives the in-loop mIoU within TOL_MIOU. Under ZeRO-3 every rank runs
+    every eval forward. Returns the launches of every rank and run, and
+    the test's, summed."""
+    import numpy as np
+    import torch
+    from s4former_tpu_torch.tools import test as test_cli
+    n, nccl = 4, torch.cuda.device_count() >= 4
+    grid = ['--model-parallel', '2', '--zero3'] + (
+        [] if nccl else ['--backend', 'gloo', '--device', 'cuda:0'])
+    wd = os.path.join(root, 'tp_work')
+    opts = ['--cfg-options', 'evaluation.interval=3',
+            'checkpoint_config.interval=3', 'log_config.interval=1',
+            'samples_per_gpu_sup=1', 'samples_per_gpu_unsup=1']
+    per_eval = 12 * -(-16 // 4)
+    runs = {}
+    for name, argv, steps, evals in (
+            ('train', ['--max-iters', '3'], 3, 1),
+            ('resume', ['--auto-resume', '--max-iters', '4'], 1, 0)):
+        t0 = time.perf_counter()
+        ranks, _ = run_ranks('cli', {'argv': [FULLFLAG, '--work-dir', wd,
+                                              '--launcher', 'env'] + grid +
+                                     argv + opts}, n, root, 900)
+        runs[name] = (ranks, time.perf_counter() - t0)
+        for r in ranks:
+            want = {'flash_attn_fwd': 36 * steps + per_eval * evals,
+                    'flash_attn_bwd_fused': 24 * steps,
+                    'flash_attn_bwd_dkv': 0, 'flash_attn_bwd_dq': 0}
+            check(r['launches'] == want, f'tp_train_cli {name}: a rank '
+                  f'launched {r["launches"]}, not {want}')
+    text = read_logs(wd)
+    for line in ('4 ranks (env), 2 data x 2 model',
+                 'sharded state: model axis = 2 (Megatron), zero3 = True',
+                 f'resumed from {os.path.join(wd, "iter_3")} (iter 3)'):
+        check(line in text, f'tp_train_cli: no "{line}" in the log')
+    layout = checkpoint_layout(os.path.join(wd, 'iter_3'))
+    check(layout == CHECKPOINT_LAYOUT, 'the sharded checkpoint differs from '
+          'train_cli\'s in names, shapes or dtypes')
+    records = read_jsonl(os.path.join(wd, 'metrics.jsonl'))
+    val = {r['step']: r for r in records if r['prefix'] == 'val'}
+    losses = {r['step']: r['loss'] for r in records
+              if r['prefix'] == 'train'}
+    check(sorted(val) == [3] and all(np.isfinite(v) for v in
+                                     losses.values()),
+          f'tp_train_cli records {records}')
+    reset_counts(fa)
+    results = test_cli.main([FULLFLAG, os.path.join(wd, 'iter_3')])
+    test_counts = counts(fa)
+    gap = abs(results['mIoU'] - val[3]['mIoU'])
+    emit({'phase': 'tp_train_cli', 'config': os.path.basename(FULLFLAG),
+          'ranks': n, 'grid': 'data 2 x model 2, zero3',
+          'backend': 'nccl, one rank a card' if nccl else
+          'gloo, every rank on cuda:0',
+          'batch': '1 + 1 a rank, 4 + 4 global at 512², bf16, 12 layers',
+          'losses': losses, 'in_loop_miou_iter_3': val[3]['mIoU'],
+          'eval_s': val[3]['eval_s'], 'test_miou': results['mIoU'],
+          'miou_gap': gap, 'tol': TOL_MIOU,
+          'checkpoint_equals_train_cli': True,
+          'run_s': {k: v[1] for k, v in runs.items()},
+          'launches_per_rank': {k: [r['launches'] for r in v[0]]
+                                for k, v in runs.items()},
+          'peak_mem_bytes_per_rank': {k: [r['peak_mem_bytes'] for r in v[0]]
+                                      for k, v in runs.items()},
+          'launches_test': test_counts, 'gpu': gpu_line})
+    check(gap <= TOL_MIOU, f'tp_train_cli: offline mIoU {results["mIoU"]} '
+          f'vs in-loop {val[3]["mIoU"]}')
+    shutil.rmtree(wd, ignore_errors=True)
+    out = test_counts
+    for ranks, _ in runs.values():
+        out = add_counts(out, sum_counts(ranks))
+    return out
+
+
 def run_dp(fa, images, gpu_line, root):
     """The data-parallel slice's phases; returns their launch counts by
     path and prints their seconds."""
@@ -3619,14 +4020,22 @@ def run_dp(fa, images, gpu_line, root):
     for name, run in (
             ('dp_step_f32', lambda: phase_dp_step_f32(fa, images, gpu_line,
                                                       root)),
+            ('tp_train_bf16', lambda: phase_tp_train_bf16(
+                fa, images, gpu_line, root)),
+            ('tp_train_cli', lambda: phase_tp_train_cli(fa, gpu_line,
+                                                        root)),
             ('dp_train_bf16', lambda: phase_dp_train_bf16(
                 fa, images, gpu_line, root, DP_RANKS, on_one_card=True)),
             ('dp_train_cli', lambda: phase_dp_train_cli(fa, gpu_line,
                                                         root))):
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        paths[name] = run()
+        result = run()
         seconds[name] = time.perf_counter() - t0
+        if name == 'dp_step_f32':      # by path, the sharded grids too
+            paths.update(result)
+        else:
+            paths[name] = result
     cards = torch.cuda.device_count()
     if cards > 1:
         # the multi-card path itself: one rank a card over NCCL
@@ -3706,6 +4115,7 @@ def main() -> int:
     fwd = entries['flash_attn_fwd']     # the training shapes' forward too
     fwd['max_abs_err'] = max(fwd['max_abs_err'], fwd_err_train)
     fwd['cases'] += fwd_train_cases
+    phase_kernels_tp(fa, entries)       # at a tensor-parallel rank's heads
     fwd['tta_lengths'], fwd['eval_lengths'] = tta_ls, eval_ls
     paths = {}
     p_f32 = phase_main_f32(fa, images)

@@ -32,7 +32,10 @@ keep, meta, block)`` writes ``work_dir/iter_{step}/state.pt`` (a torch
 file of the ``TrainState``: step, student, SGD buffers, EMA teacher,
 annealed momentum) and ``s4former_meta.json``; ``finalize_pending_saves``,
 ``find_all_checkpoints``, ``find_latest_checkpoint`` and
-``load_checkpoint``. Orbax directories need JAX and are not read here.
+``load_checkpoint``. Orbax directories need JAX and are not read here. A
+state split by tensor parallelism or ZeRO-3 is written whole: every rank
+joins the gather (``host_state``), then rank 0 alone copies and writes;
+``load_checkpoint`` cuts the whole tensors to the target's split.
 """
 from __future__ import annotations
 
@@ -48,6 +51,9 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from s4former_tpu_torch.parallel.tp import (shard_state_dict,
+                                            unshard_state_dict)
 
 StateDict = Dict[str, torch.Tensor]
 STATE_FILE = 'state.pt'
@@ -73,6 +79,9 @@ def _vit(p: Mapping, prefix: str) -> StateDict:
             p['patch_embed']['kernel'])
         sd[prefix + 'patch_embed.projection.bias'] = _t(
             p['patch_embed']['bias'])
+    if 'ln_final' in p:        # final_norm: mmseg's ln1
+        sd[prefix + 'ln1.weight'] = _t(p['ln_final']['scale'])
+        sd[prefix + 'ln1.bias'] = _t(p['ln_final']['bias'])
     if 'layers' in p:
         blk = p['layers']['block']
         dense = {'attn.attn.in_proj': blk['attn']['qkv'],
@@ -89,7 +98,8 @@ def _vit(p: Mapping, prefix: str) -> StateDict:
                 sep = '_' if key.endswith('in_proj') else ''
                 sd[f'{pre}{key}{sep}weight'] = _t(
                     np.asarray(leaf['kernel'][i]).T)
-                sd[f'{pre}{key}{sep}bias'] = _t(leaf['bias'][i])
+                if 'bias' in leaf:      # qkv_bias=False has none
+                    sd[f'{pre}{key}{sep}bias'] = _t(leaf['bias'][i])
     return sd
 
 
@@ -408,17 +418,28 @@ def ema_state_dict(sd: Mapping[str, torch.Tensor]) -> StateDict:
 
 
 # ------------------------------------------------------ training checkpoints
-def _host_copy(state) -> Dict[str, Any]:
+def host_state(state, main: bool = True) -> Optional[Dict[str, Any]]:
     """The TrainState's tensors copied to host memory now (a device ->
-    host copy waits for the step that wrote them)."""
-    def cpu(sd: Mapping[str, torch.Tensor]) -> StateDict:
+    host copy waits for the step that wrote them), whole: a state split by
+    tensor parallelism or ZeRO-3 (``state.plan``) is gathered first, a
+    collective every rank must join. Only ``main`` copies; the others get
+    None."""
+    plan = getattr(state, 'plan', None)
+
+    def whole(sd: Mapping[str, torch.Tensor]) -> Optional[StateDict]:
+        sd = unshard_state_dict(plan, dict(sd))
+        if not main:
+            return None
         return {k: v.detach().to('cpu', copy=True) for k, v in sd.items()}
+    model = whole(state.model.state_dict())
+    momentum = whole(state.momentum)
+    ema = None if state.ema_model is None else \
+        whole(state.ema_model.state_dict())
+    if not main:
+        return None
     annealed = state.annealed_momentum
-    return {'step': int(state.step),
-            'model': cpu(state.model.state_dict()),
-            'momentum': cpu(state.momentum),
-            'ema_model': (None if state.ema_model is None
-                          else cpu(state.ema_model.state_dict())),
+    return {'step': int(state.step), 'model': model, 'momentum': momentum,
+            'ema_model': ema,
             'annealed_momentum': (None if annealed is None else
                                   annealed.detach().to('cpu', copy=True))}
 
@@ -451,7 +472,7 @@ class _AsyncSaver:
         self.finalize()
         path = osp.abspath(osp.join(work_dir, f'iter_{step}'))
         os.makedirs(path, exist_ok=True)
-        payload = _host_copy(state)
+        payload = state if isinstance(state, dict) else host_state(state)
         errors: List[BaseException] = []
 
         def write():
@@ -489,9 +510,12 @@ _SAVER = _AsyncSaver()
 
 def save_checkpoint(work_dir: str, step: int, state, keep: int = 3,
                     meta: Optional[Dict] = None, block: bool = True) -> str:
-    """Save a ``TrainState`` under work_dir/iter_{step}. ``block=False``
-    returns once the state is on the host; the write finishes in the
-    background (finalized by the next save or ``finalize_pending_saves``)."""
+    """Save a ``TrainState`` (or its ``host_state``) under
+    work_dir/iter_{step}. ``block=False`` returns once the state is on the
+    host; the write finishes in the background (finalized by the next save
+    or ``finalize_pending_saves``). A split state must be gathered by every
+    rank first: pass ``host_state(state, is_main())`` of each rank, and
+    save on the main one."""
     return _SAVER.save(work_dir, step, state, keep, meta, block)
 
 
@@ -531,12 +555,18 @@ def load_checkpoint(path: str, target_state=None):
     """The checkpoint at ``path`` (an ``iter_N`` directory). With
     ``target_state``, its modules, SGD buffers, step and annealed momentum
     are loaded onto the state's own device and the state is returned;
-    without, the raw dict of CPU tensors."""
+    without, the raw dict of CPU tensors. The file is whole; a split
+    target (``target_state.plan``) takes this rank's pieces, whatever split
+    wrote it."""
     file = osp.join(path, STATE_FILE)
     if target_state is None:
         return torch.load(file, map_location='cpu', weights_only=True)
     device = target_state.step.device
     raw = torch.load(file, map_location=device, weights_only=True)
+    plan = getattr(target_state, 'plan', None)
+    for key in ('model', 'momentum', 'ema_model'):
+        if raw[key] is not None:
+            raw[key] = shard_state_dict(plan, raw[key])
     target_state.model.load_state_dict(raw['model'])
     if (raw['ema_model'] is None) != (target_state.ema_model is None):
         raise ValueError(f'{path}: the EMA teacher is in one of the '

@@ -20,7 +20,7 @@ DefaultOptimizerConstructor ``custom_keys``).
 from __future__ import annotations
 
 import re
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -121,11 +121,20 @@ def sgd_update(params: Tensors, grads: Tensors, momentum_buf: Tensors,
             torch._foreach_sub_(ps, torch._foreach_mul(bufs, lr * mult))
 
 
-def global_grad_norm(grads: Tensors) -> torch.Tensor:
+def global_grad_norm(grads: Tensors,
+                     sq_sum: Optional[Callable[[Tensors], torch.Tensor]]
+                     = None) -> torch.Tensor:
+    """The gradients' global L2 norm; ``sq_sum`` sums the squares of split
+    gradients over their groups (``parallel.tp.ShardPlan.grad_sq_sum``)."""
+    if sq_sum is not None:
+        return torch.sqrt(sq_sum(grads))
     return torch.sqrt(sum((g.float() ** 2).sum() for g in grads.values()))
 
 
-def clip_grads_by_norm(grads: Tensors, max_norm: float) -> Tensors:
+def clip_grads_by_norm(grads: Tensors, max_norm: float,
+                       sq_sum: Optional[Callable[[Tensors], torch.Tensor]]
+                       = None) -> Tensors:
     """mmcv OptimizerHook grad_clip: scale by min(1, max / (norm + 1e-6))."""
-    scale = torch.clamp(max_norm / (global_grad_norm(grads) + 1e-6), max=1.0)
+    scale = torch.clamp(max_norm / (global_grad_norm(grads, sq_sum) + 1e-6),
+                        max=1.0)
     return {n: g * scale for n, g in grads.items()}

@@ -32,6 +32,11 @@ other before a resume (which loads on every rank, onto its card) and at
 the end of the run; the eval splits the forwards over the ranks and sums
 their histograms, so its metrics are the single-process ones, bit for bit,
 and rank 0 paints the panels from the label maps the ranks send it.
+Under tensor parallelism and ZeRO-3 (``parallel/tp.py``) every rank
+joins the gather of a checkpoint (rank 0 writes it whole); the eval
+splits its forwards over the data indices (the model ranks of one run
+the same images), and under ZeRO-3, whose forwards gather weights over
+the data group, every rank runs every forward.
 """
 from __future__ import annotations
 
@@ -50,7 +55,8 @@ from s4former_tpu_torch.core import checkpoint as ckpt_lib
 from s4former_tpu_torch.core.hooks import JsonlLoggerHook, StepTrace
 from s4former_tpu_torch.core.metrics import pre_eval_to_metrics
 from s4former_tpu_torch.ops.resize import interp_matrix_np
-from s4former_tpu_torch.parallel.distributed import (barrier, is_main, rank,
+from s4former_tpu_torch.parallel.distributed import (barrier, data_rank,
+                                                     data_size, is_main,
                                                      world_size)
 from s4former_tpu_torch.parallel.mesh import global_sum
 from s4former_tpu_torch.utils.logger import get_root_logger
@@ -264,9 +270,10 @@ class IterBasedRunner:
         t0 = time.perf_counter()
         metrics = self.eval_fn(self.state)
         eval_s = time.perf_counter() - t0
+        miou = float(metrics.get('mIoU', np.nan))
+        self._save_best(it, miou)
         if not self.is_main:
             return
-        miou = float(metrics.get('mIoU', np.nan))
         self.logger.info(
             f'Eval @ iter {it}: ' +
             ', '.join(f'{k}: {v:.4f}' for k, v in metrics.items()) +
@@ -278,18 +285,26 @@ class IterBasedRunner:
             self.metrics_hook.log_eval_images(
                 it, *zip(*samples),
                 palette=getattr(self.eval_fn, 'palette', None))
+
+    def _save_best(self, it: int, miou: float):
+        """Every rank holds the metrics, so every rank takes the same
+        branch here (a split state is gathered by all of them)."""
         if miou > self.best_miou:
             self.best_miou = miou
-            ckpt_lib.save_checkpoint(
-                osp.join(self.work_dir, 'best'), it, self.state, keep=1,
-                meta={'mIoU': miou, 'iter': it}, block=False)
+            payload = ckpt_lib.host_state(self.state, self.is_main)
+            if self.is_main:
+                ckpt_lib.save_checkpoint(
+                    osp.join(self.work_dir, 'best'), it, payload, keep=1,
+                    meta={'mIoU': miou, 'iter': it}, block=False)
 
     def _checkpoint(self, it: int):
+        # every rank joins the gather of a split state; rank 0 writes
+        payload = ckpt_lib.host_state(self.state, self.is_main)
         if not self.is_main:
             return
         # the state is on the host when save returns; the write goes on in
         # the background, so the step loop resumes at once
-        path = ckpt_lib.save_checkpoint(self.work_dir, it, self.state,
+        path = ckpt_lib.save_checkpoint(self.work_dir, it, payload,
                                         meta={'iter': it}, block=False)
         self.logger.info(f'saving checkpoint {path} (async)')
 
@@ -426,14 +441,15 @@ def iter_predictions(model, dataset, batch_size: int = 4,
 
 
 def reduce_pre_eval(local: Dict[int, tuple], order, num_classes: int,
-                    device) -> list:
+                    device, split: bool = True) -> list:
     """Per-image confusion histograms (``dataset.pre_eval``'s tuples) in
     the single-process order ``order``. In a process group each image's
     histograms are on the rank that predicted it; they are summed over the
     ranks through a zero-filled [image, (intersect, union, pred area,
     label area), class] table on ``device`` (counts below 2^24: exact in
-    f32), so every rank gets every image's."""
-    if world_size() > 1:
+    f32), so every rank gets every image's. ``split=False``: every rank
+    predicted every image, and nothing is summed."""
+    if split and data_size() > 1:
         n = max(order) + 1 if order else 0
         table = torch.zeros((n, 4, num_classes), device=device)
         for idx, hists in local.items():
@@ -473,7 +489,12 @@ def make_eval_fn(dataset, batch_size: int = 4, mode: str = 'whole',
     rank reads every image; of a prediction made on another rank only its
     label map comes over (``gather_on_main``)."""
     def eval_fn(state):
-        shard = (rank(), world_size())
+        # the model ranks of a data index predict the same images; under
+        # ZeRO-3 every forward gathers weights over the data group, so
+        # every rank runs every forward
+        plan = getattr(state, 'plan', None)
+        n = 1 if plan is not None and plan.zero3_names() else data_size()
+        shard = (data_rank() % n, n)
         device = next(state.model.parameters()).device
         order, local, preds = [], {}, {}
         images = dict.fromkeys(range(min(capture_images, len(dataset))))
@@ -490,7 +511,8 @@ def make_eval_fn(dataset, batch_size: int = 4, mode: str = 'whole',
             (images[idx], preds[idx], dataset.get_gt_seg_map(idx))
             for idx in sorted(preds)]
         tables = pre_eval_to_metrics(
-            reduce_pre_eval(local, order, state.model.num_classes, device),
+            reduce_pre_eval(local, order, state.model.num_classes, device,
+                            n > 1),
             ('mIoU',))
         return {'aAcc': float(tables['aAcc']),
                 'mIoU': float(np.nanmean(tables['IoU'])),

@@ -31,6 +31,13 @@ mmseg/models/backbones/mit.py).
 - fdrop (``use_fdrop``, JAX mit.py:218-224): each ``out_indices`` output,
   not the map the next stage reads, gets one channelwise keep-0.5 mask
   [B, 1, 1, C] (kept channels x2), in train and eval alike, as in JAX.
+- Tensor parallelism (``parallel/tp.py``, JAX's plan on the MiT's names):
+  ``ffn.fc1`` is column-split and the depthwise conv runs on the rank's
+  hidden columns (its whole weight cut by ``model_slice``); ``ffn.fc2``
+  and ``attn.proj`` are row-split, their partial products summed over the
+  model group and the whole bias added after. ``attn.q``/``attn.kv`` match
+  no rule and stay whole: every rank computes the whole attention, whose
+  output ``model_slice`` cuts for the row-split projection.
 """
 from __future__ import annotations
 
@@ -41,10 +48,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from s4former_tpu_torch.models.backbones.vit import (_MHAProjections,
-                                                     layer_norm, linear)
+                                                     layer_norm, linear,
+                                                     row_split_linear)
 from s4former_tpu_torch.models.decode_heads.setr_up import conv_nhwc
 from s4former_tpu_torch.models.dropout import channel_dropout, drop_path
 from s4former_tpu_torch.ops.attention import dot_product_attention
+from s4former_tpu_torch.parallel.mesh import (copy_to_model, model_slice,
+                                              param)
 from s4former_tpu_torch.registry import BACKBONES
 from s4former_tpu_torch.semi.pasa import mit_stage_bias
 
@@ -54,6 +64,7 @@ Grid = Tuple[int, int]
 class EfficientAttention(nn.Module):
     """Multi-head attention with the K/V grid reduced by ``sr_ratio``
     (reference key layout ``attn.attn.*``, ``attn.sr``, ``attn.norm``)."""
+    tp = 1
 
     def __init__(self, embed_dims: int, num_heads: int, sr_ratio: int = 1,
                  qkv_bias: bool = True, dtype: torch.dtype = torch.float32):
@@ -88,15 +99,17 @@ class EfficientAttention(nn.Module):
         out, _ = dot_product_attention(
             q.reshape(b, l, h, c // h), k, v,
             attn_bias if self.sr_ratio == 1 else None)
-        proj = self.attn.out_proj
-        return linear(out.reshape(b, l, c), proj.weight, proj.bias,
-                      self.dtype)
+        out = out.reshape(b, l, c)
+        if self.tp > 1:
+            out = model_slice(out, -1)
+        return row_split_linear(out, self.attn.out_proj, self.tp, self.dtype)
 
 
 class MixFFN(nn.Module):
     """fc1 (1x1 conv) -> depthwise 3x3 conv -> exact GELU -> fc2 (1x1 conv),
     under the reference's Sequential indices ``layers.{0,1,4}`` (2 and 3
     are its activation and dropout, which hold no parameters)."""
+    tp = 1
 
     def __init__(self, embed_dims: int, feedforward_channels: int,
                  dtype: torch.dtype = torch.float32):
@@ -112,11 +125,23 @@ class MixFFN(nn.Module):
     def forward(self, x: torch.Tensor, hw: Grid) -> torch.Tensor:
         b, l, _ = x.shape
         fc1, dw, fc2 = self.layers[0], self.layers[1], self.layers[4]
-        y = linear(x, fc1.weight.flatten(1), fc1.bias, self.dtype)
+        if self.tp > 1:
+            x = copy_to_model(x)
+        y = linear(x, param(fc1, 'weight').flatten(1), fc1.bias, self.dtype)
         hidden = y.shape[-1]
-        y = conv_nhwc(y.reshape(b, hw[0], hw[1], hidden), dw, self.dtype)
+        y = y.reshape(b, hw[0], hw[1], hidden)
+        if self.tp == 1:
+            y = conv_nhwc(y, dw, self.dtype)
+        else:
+            # the whole depthwise conv's channels of this rank
+            y = F.conv2d(y.permute(0, 3, 1, 2).to(self.dtype),
+                         model_slice(dw.weight, 0).to(self.dtype),
+                         model_slice(dw.bias, 0).to(self.dtype),
+                         padding=dw.padding, groups=hidden
+                         ).permute(0, 2, 3, 1)
         y = F.gelu(y.reshape(b, l, hidden), approximate='none')
-        return linear(y, fc2.weight.flatten(1), fc2.bias, self.dtype)
+        return row_split_linear(y, fc2, self.tp, self.dtype,
+                                weight=param(fc2, 'weight').flatten(1))
 
 
 class MiTBlock(nn.Module):

@@ -40,6 +40,27 @@ mmseg/models/backbones/vit.py:187-569).
   and the generator advances as it does without remat. The default is off,
   unlike JAX's (True, set for a 16 GB TPU): remat changes no output, only
   memory and time, and the configs fit the 80 GB card without it.
+- The JAX module's options: ``qkv_bias=False`` (no ``in_proj_bias``, absent
+  from ``state_dict()`` as in mmseg's layout); ``use_flash=False`` (the
+  plain attention of ``ops/attention.py``, no kernel launched: the
+  config's choice; the default runs the kernels); ``final_norm`` (a
+  LayerNorm, mmseg's ``ln1``, on the last layer's tap); ``output_cls_token``
+  (each tap is [map, cls token]). ``attn_bias`` may be per layer,
+  [num_layers, B, 1, T, T] (PASA's ``layer_scales``): layer i takes its
+  slice.
+- Tensor parallelism (``parallel/tp.py``): with ``tp`` > 1 the attention
+  and the FFN hold their pieces only. The attention's input goes through
+  ``copy_to_model``; the rank's q, k, v are [B, L, H/tp, 64] views of its
+  [B, L, 3C/tp] product (an H stride of 64 elements, 16-byte aligned, no
+  copy) and run the flash kernels at H/tp heads; the output projection's
+  partial products, kept in f32, are summed by ``reduce_from_model``,
+  then its whole bias is added and the sum rounded to the compute dtype
+  once (``row_split_linear``), as the unsplit product rounds its f32
+  accumulator once. The FFN likewise around fc1 | fc2; its hidden
+  dropout mask is drawn whole and the rank keeps its columns, so the
+  draws match the unsharded step. A [B, H, T, T] bias is cut to the rank's
+  heads; a [B, 1, T, T] one passes. ZeRO-3 shards are gathered at each use
+  (``parallel.mesh.param``), recomputation under remat included.
 """
 from __future__ import annotations
 
@@ -58,6 +79,9 @@ from s4former_tpu_torch.models.dropout import (apply_keep, channel_dropout,
 from s4former_tpu_torch.ops.attention import (dot_product_attention,
                                               multi_head_attention)
 from s4former_tpu_torch.ops.resize import resize_bilinear
+from s4former_tpu_torch.parallel.distributed import model_rank
+from s4former_tpu_torch.parallel.mesh import (copy_to_model, param,
+                                              reduce_from_model)
 from s4former_tpu_torch.registry import BACKBONES
 
 
@@ -76,53 +100,111 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
                     None if bias is None else bias.to(dtype))
 
 
+class _F32Product(torch.autograd.Function):
+    """x @ w.T of bf16 / f16 CUDA tensors with the GEMM's f32 accumulator
+    as the output, not rounded to the inputs' dtype; the backward takes
+    the gradient in the inputs' dtype, as ``linear``'s does."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w.t(),
+                     out_dtype=torch.float32)
+        return y.view(tuple(x.shape[:-1]) + (w.shape[0],))
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        g = grad.to(x.dtype)
+        gw = g.reshape(-1, g.shape[-1]).t() @ x.reshape(-1, x.shape[-1])
+        return g @ w, gw
+
+
+def partial_product(x: torch.Tensor, w: torch.Tensor,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """A rank's share of a row-split product, in f32: summed over the
+    model group before one rounding to ``dtype``, as the unsplit product
+    rounds its f32 sum once."""
+    if dtype in (torch.bfloat16, torch.float16) and x.is_cuda:
+        return _F32Product.apply(x.to(dtype), w.to(dtype))
+    return linear(x, w, None, dtype).float()
+
+
+def row_split_linear(x: torch.Tensor, module: nn.Module, tp: int,
+                     dtype: torch.dtype, weight: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """``module``'s linear (weight [out, in]) on ``x``; with ``tp`` > 1 the
+    weight is the rank's input columns, the partial products are summed
+    in f32 over the model group, the whole bias is added once, after, and
+    the sum is rounded to ``dtype`` once."""
+    w = param(module, 'weight') if weight is None else weight
+    if tp == 1:
+        return linear(x, w, module.bias, dtype)
+    y = reduce_from_model(partial_product(x, w, dtype))
+    if module.bias is not None:
+        y = y + module.bias.to(dtype).float()
+    return y.to(dtype)
+
+
 class _MHAProjections(nn.Module):
     """Parameter holder in torch ``nn.MultiheadAttention``'s names
     (``in_proj_weight`` [3C, C], ``in_proj_bias``, ``out_proj``)."""
 
-    def __init__(self, embed_dims: int):
+    def __init__(self, embed_dims: int, qkv_bias: bool = True):
         super().__init__()
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dims,
                                                        embed_dims))
-        self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dims))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dims)) \
+            if qkv_bias else None
         self.out_proj = nn.Linear(embed_dims, embed_dims)
 
 
 class MultiheadSelfAttention(nn.Module):
-    """Fused-qkv self-attention (reference key layout ``attn.attn.*``)."""
+    """Fused-qkv self-attention (reference key layout ``attn.attn.*``).
+    ``tp`` > 1: the rank's H/tp heads (module docstring)."""
+    tp = 1
+    head_split = True       # the model split cuts at head boundaries
 
     def __init__(self, embed_dims: int, num_heads: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, qkv_bias: bool = True,
+                 use_flash: bool = True):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
-        self.attn = _MHAProjections(embed_dims)
+        self.use_flash = use_flash
+        self.attn = _MHAProjections(embed_dims, qkv_bias)
 
     def qkv(self, x: torch.Tensor, dtype: torch.dtype):
-        """q, k, v [B, L, H, D] as strided views of the fused projection."""
-        b, l, c = x.shape
-        h = self.num_heads
-        qkv = linear(x, self.attn.in_proj_weight, self.attn.in_proj_bias,
-                     dtype)
+        """q, k, v [B, L, H/tp, D] as strided views of the fused
+        projection."""
+        b, l, _ = x.shape
+        h = self.num_heads // self.tp
+        qkv = linear(x, param(self.attn, 'in_proj_weight'),
+                     self.attn.in_proj_bias, dtype)
+        c = qkv.shape[-1] // 3
         return [t.view(b, l, h, c // h) for t in qkv.split(c, dim=-1)]
 
     def forward(self, x: torch.Tensor,
                 attn_bias: Optional[torch.Tensor] = None,
                 drop: Optional[Tuple[float, torch.Tensor]] = None
                 ) -> torch.Tensor:
-        """``drop``: (rate, keep mask) of the projection's dropout."""
-        b, l, c = x.shape
+        """``drop``: (rate, keep mask) of the projection's dropout.
+        ``attn_bias`` [B, 1|H/tp, T, T]."""
+        b, l, _ = x.shape
+        if self.tp > 1:
+            x = copy_to_model(x)
         q, k, v = self.qkv(x, self.dtype)
-        out, _ = multi_head_attention(q, k, v, bias=attn_bias)
-        proj = self.attn.out_proj
-        out = linear(out.reshape(b, l, c), proj.weight, proj.bias,
-                     self.dtype)
+        out, _ = multi_head_attention(q, k, v, bias=attn_bias,
+                                      use_flash=self.use_flash)
+        out = row_split_linear(out.reshape(b, l, -1), self.attn.out_proj,
+                               self.tp, self.dtype)
         return out if drop is None else apply_keep(out, drop[1], drop[0])
 
 
 class FFN(nn.Module):
     """Linear-GELU-Linear (reference mmcv FFN key layout ``layers.0.0`` and
-    ``layers.1``)."""
+    ``layers.1``). ``tp`` > 1: the rank's hidden columns."""
+    tp = 1
 
     def __init__(self, embed_dims: int, feedforward_channels: int,
                  dtype: torch.dtype = torch.float32):
@@ -139,10 +221,15 @@ class FFN(nn.Module):
         """``masks``: the keep masks of the dropouts after each linear, or
         None."""
         fc1, fc2 = self.layers[0][0], self.layers[1]
-        y = F.gelu(linear(x, fc1.weight, fc1.bias, self.dtype))
+        if self.tp > 1:
+            x = copy_to_model(x)
+        y = F.gelu(linear(x, param(fc1, 'weight'), fc1.bias, self.dtype))
         if masks[0] is not None:
-            y = apply_keep(y, masks[0], rate)
-        y = linear(y, fc2.weight, fc2.bias, self.dtype)
+            # drawn at the whole hidden width: the rank keeps its columns
+            mask = masks[0] if self.tp == 1 else \
+                masks[0].chunk(self.tp, -1)[model_rank()]
+            y = apply_keep(y, mask, rate)
+        y = row_split_linear(y, fc2, self.tp, self.dtype)
         return y if masks[1] is None else apply_keep(y, masks[1], rate)
 
 
@@ -151,11 +238,13 @@ class TransformerEncoderLayer(nn.Module):
 
     def __init__(self, embed_dims: int, num_heads: int,
                  feedforward_channels: int, norm_eps: float = 1e-6,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, qkv_bias: bool = True,
+                 use_flash: bool = True):
         super().__init__()
         self.dtype = dtype
         self.ln1 = nn.LayerNorm(embed_dims, eps=norm_eps)
-        self.attn = MultiheadSelfAttention(embed_dims, num_heads, dtype)
+        self.attn = MultiheadSelfAttention(embed_dims, num_heads, dtype,
+                                           qkv_bias, use_flash)
         self.ln2 = nn.LayerNorm(embed_dims, eps=norm_eps)
         self.ffn = FFN(embed_dims, feedforward_channels, dtype)
 
@@ -218,8 +307,9 @@ class PatchEmbed(nn.Module):
 
 # the products of the ViT layer (its four linears; the plain attention's
 # einsums on the CPU) at the aten level, below autograd
-DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
-           torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.mm.dtype,
+           torch.ops.aten.addmm.default, torch.ops.aten.bmm.default,
+           torch.ops.aten.baddbmm.default)
 
 
 def save_dots(ctx, op, *args, **kwargs):
@@ -301,11 +391,15 @@ class VisionTransformer(nn.Module):
                  num_heads: int = 12,
                  mlp_ratio: int = 4,
                  out_indices: Sequence[int] = (4, 7, 9, 11),
+                 qkv_bias: bool = True,
                  drop_rate: float = 0.0,
                  attn_drop_rate: float = 0.0,
                  drop_path_rate: float = 0.0,
                  with_cls_token: bool = True,
+                 output_cls_token: bool = False,
+                 final_norm: bool = False,
                  norm_eps: float = 1e-6,
+                 use_flash: bool = True,
                  scan_unroll: int = 1,
                  remat_layers: bool = False,
                  remat_policy: str = 'dots',
@@ -317,11 +411,16 @@ class VisionTransformer(nn.Module):
         super().__init__()
         if isinstance(img_size, int):
             img_size = (img_size, img_size)
+        if output_cls_token and not with_cls_token:
+            # mmseg asserts it; the JAX module's pos embed cannot add
+            raise ValueError('output_cls_token needs with_cls_token')
         self.patch_size = patch_size
         self.embed_dims = embed_dims
         self.num_heads = num_heads
         self.out_indices = tuple(out_indices)
         self.with_cls_token = with_cls_token
+        self.output_cls_token = output_cls_token
+        self.final_norm = final_norm
         self.dtype = dtype
         self.drop_rate = drop_rate
         self.attn_drop_rate = attn_drop_rate    # changes no output (above)
@@ -336,8 +435,25 @@ class VisionTransformer(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, n_pos, embed_dims))
         self.layers = nn.ModuleList([
             TransformerEncoderLayer(embed_dims, num_heads,
-                                    mlp_ratio * embed_dims, norm_eps, dtype)
+                                    mlp_ratio * embed_dims, norm_eps, dtype,
+                                    qkv_bias, use_flash)
             for _ in range(num_layers)])
+        if final_norm:      # mmseg's name for the final norm
+            self.ln1 = nn.LayerNorm(embed_dims, eps=norm_eps)
+
+    def _layer_bias(self, attn_bias: Optional[torch.Tensor]
+                    ) -> Optional[torch.Tensor]:
+        """The bias in the compute dtype, cut to this rank's heads under
+        tensor parallelism (a head axis of 1 passes)."""
+        if attn_bias is None:
+            return None
+        bias = attn_bias.detach().to(self.dtype)
+        tp = self.layers[0].attn.tp if len(self.layers) else 1
+        heads = bias.shape[-3]
+        if tp > 1 and heads > 1:
+            per = heads // tp
+            bias = bias.narrow(-3, model_rank() * per, per)
+        return bias
 
     def forward(self, x: torch.Tensor, *,
                 train: bool = False,
@@ -347,15 +463,16 @@ class VisionTransformer(nn.Module):
                 return_attn: bool = False,
                 generator: Optional[torch.Generator] = None):
         """``x``: [B, H, W, 3] float. ``attn_bias``: [B, 1|heads, L+1, L+1]
-        additive logit bias (PASA), or None; it gets no gradient.
+        additive logit bias (PASA), or per layer [num_layers, B, 1|heads,
+        L+1, L+1] (``layer_scales``), or None; it gets no gradient.
         ``generator`` draws the train forward's dropout and drop path and
         the fdrop masks."""
         drop_rate = self.drop_rate if train else 0.0
         drop_path_rate = self.drop_path_rate if train else 0.0
         # flash attention takes the bias in the compute dtype: cast once
         # here for every layer (the JAX wrapper casts it in each call)
-        layer_bias = None if attn_bias is None else \
-            attn_bias.detach().to(self.dtype)
+        layer_bias = self._layer_bias(attn_bias)
+        per_layer = layer_bias is not None and layer_bias.dim() == 5
         b, ih, iw, _ = x.shape
         p = self.patch_size
         # AdaptivePadding 'corner': zero-pad bottom/right so the stride-p
@@ -383,28 +500,34 @@ class VisionTransformer(nn.Module):
         states = []
         h = tokens
         remat = self.remat_layers and torch.is_grad_enabled()
-        for layer in self.layers:
+        for i, layer in enumerate(self.layers):
             masks = layer.draw_masks(h, drop_rate, drop_path_rate, generator)
+            bias_i = layer_bias[i] if per_layer else layer_bias
             if remat:
-                h = checkpoint(layer.block, h, layer_bias, masks, drop_rate,
+                h = checkpoint(layer.block, h, bias_i, masks, drop_rate,
                                drop_path_rate, use_reentrant=False,
                                preserve_rng_state=False,
                                **remat_kwargs(self.remat_policy))
             else:
-                h = layer.block(h, layer_bias, masks, drop_rate,
-                                drop_path_rate)
+                h = layer.block(h, bias_i, masks, drop_rate, drop_path_rate)
             states.append(h)
 
         outs, attns = [], []
         for i in self.out_indices:
-            feat_tokens = states[i][:, 1:] if self.with_cls_token \
-                else states[i]
+            layer_out = states[i]
+            if self.final_norm and i == len(self.layers) - 1:
+                layer_out = layer_norm(layer_out, self.ln1, self.dtype)
+            feat_tokens = layer_out[:, 1:] if self.with_cls_token \
+                else layer_out
             out = feat_tokens.reshape(b, hw[0], hw[1], self.embed_dims)
-            outs.append(channel_dropout(out, generator) if use_fdrop
+            if use_fdrop:
+                out = channel_dropout(out, generator)
+            outs.append([out, layer_out[:, 0]] if self.output_cls_token
                         else out)
             if return_attn:
                 x_in = tokens if i == 0 else states[i - 1]
-                attns.append(self._attn_probs(i, x_in, attn_bias))
+                attns.append(self._attn_probs(
+                    i, x_in, attn_bias[i] if per_layer else attn_bias))
         if return_attn:
             return tuple(outs), (attns, hw)
         return tuple(outs)
@@ -413,7 +536,8 @@ class VisionTransformer(nn.Module):
                     attn_bias: Optional[torch.Tensor]) -> torch.Tensor:
         """Layer i's attention probabilities, recomputed in f32 from its
         input (the explicit debug path of JAX ``_attn_probs_for_layer``,
-        replacing the reference's patched-mmcv ``.self_attn`` capture)."""
+        replacing the reference's patched-mmcv ``.self_attn`` capture); under
+        tensor parallelism, those of the rank's heads."""
         layer = self.layers[i]
         y = layer_norm(x_in, layer.ln1, torch.float32)
         q, k, _ = layer.attn.qkv(y, torch.float32)

@@ -36,7 +36,7 @@ from s4former_tpu_torch.models.decode_heads.base import (
     transform_inputs, unshuffle_feature_map)
 from s4former_tpu_torch.models.dropout import dropout
 from s4former_tpu_torch.ops.resize import resize_bilinear
-from s4former_tpu_torch.parallel.distributed import world_size
+from s4former_tpu_torch.parallel.distributed import data_size
 from s4former_tpu_torch.parallel.mesh import global_sum
 from s4former_tpu_torch.registry import HEADS
 
@@ -78,7 +78,7 @@ class BatchNorm(nn.Module):
         dims = tuple(range(x.dim() - 1))
         sums = global_sum(torch.stack([xf.sum(dim=dims),
                                        (xf * xf).sum(dim=dims)]))
-        n = xf.numel() // xf.shape[-1] * world_size()
+        n = xf.numel() // xf.shape[-1] * data_size()
         mean = sums[0] / n
         var = (sums[1] / n - mean * mean).clamp(min=0.0)
         with torch.no_grad():
@@ -123,9 +123,11 @@ class SETRUPHead(nn.Module):
                  # config keys accepted for parity and consumed elsewhere
                  loss_decode: Optional[dict] = None,
                  norm_cfg: Optional[dict] = None,
-                 init_cfg: Optional[Union[dict, list]] = None):
+                 init_cfg: Optional[Union[dict, list]] = None,
+                 use_addition_up_scale: bool = False):
         super().__init__()
         self.loss_decode = loss_decode   # read by the train step
+        self.use_addition_up_scale = use_addition_up_scale
         self.dropout_ratio = dropout_ratio
         self.num_classes = num_classes
         self.num_convs = num_convs
@@ -162,13 +164,18 @@ class SETRUPHead(nn.Module):
             x = unshuffle_feature_map(x, patchmix_perm, patchmix_n)
         x = layer_norm(x, self.norm, self.dtype)
         defer_last_up = self.num_convs > 0 and self.dropout_ratio == 0
+        # use_addition_up_scale: one more x2 resize after each up conv's,
+        # the deferred last one at twice the scale (JAX setr_up.py:102-114)
+        extra = 2 if self.use_addition_up_scale else 1
         for i, (block,) in enumerate(self.up_convs):
             x = block(x, train)
             if not (defer_last_up and i == self.num_convs - 1):
                 x = self._upsample(x, self.up_scale)
+                if self.use_addition_up_scale:
+                    x = self._upsample(x, 2)
         if train and self.dropout_ratio > 0:
             x = dropout(x, self.dropout_ratio, generator)
         logits = conv_nhwc(x, self.conv_seg, self.dtype)
         if defer_last_up:
-            logits = self._upsample(logits, self.up_scale)
+            logits = self._upsample(logits, self.up_scale * extra)
         return logits

@@ -26,7 +26,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from s4former_tpu_torch.parallel.distributed import world_size
+from s4former_tpu_torch.parallel.distributed import data_size
 from s4former_tpu_torch.parallel.mesh import global_sum
 from s4former_tpu_torch.registry import LOSSES
 
@@ -62,7 +62,7 @@ def cross_entropy_loss(logits: torch.Tensor,
     if avg_non_ignore:
         denom = global_sum(valid.sum()).clamp(min=1.0)
     else:
-        denom = float(nll.numel() * world_size())
+        denom = float(nll.numel() * data_size())
     return loss_weight * nll.sum() / denom
 
 
@@ -91,7 +91,7 @@ def binary_cross_entropy_loss(logits: torch.Tensor,
     if avg_non_ignore:
         denom = global_sum(valid.sum()).clamp(min=1.0)
     else:
-        denom = float(per.numel() * world_size())
+        denom = float(per.numel() * data_size())
     return loss_weight * per.sum() / denom
 
 

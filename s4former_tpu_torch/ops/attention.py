@@ -6,8 +6,9 @@
   ``.self_attn``, mmseg/models/backbones/vit.py:550).
 - ``multi_head_attention``: the ViT's dispatch. It goes through
   ``flash_attention``, which launches the CUDA kernel for CUDA tensors and
-  takes its plain version for CPU tensors. A request for probabilities takes
-  ``dot_product_attention``, as the JAX dispatch does.
+  takes its plain version for CPU tensors. A request for probabilities, or
+  ``use_flash=False``, takes ``dot_product_attention``, as the JAX dispatch
+  does.
 
 Shapes: q, k, v are [B, L, H, D]; bias broadcasts to [B, H, Lq, Lk] (PASA
 uses [B, 1, L, L]).
@@ -48,9 +49,11 @@ def multi_head_attention(
         v: torch.Tensor,
         bias: Optional[torch.Tensor] = None,
         return_probs: bool = False,
+        use_flash: bool = True,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Flash attention (CUDA kernel on the card, its plain version on the
-    CPU), or the plain path when probabilities are asked for."""
-    if return_probs:
+    CPU), or the plain path when probabilities are asked for or the model
+    sets ``use_flash=False`` (the JAX option; no kernel runs then)."""
+    if return_probs or not use_flash:
         return dot_product_attention(q, k, v, bias, return_probs)
     return flash_attention(q, k, v, bias=bias), None

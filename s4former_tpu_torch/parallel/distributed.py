@@ -23,6 +23,12 @@ Launchers (the JAX package's names and env mapping):
 The backend is NCCL for CUDA devices and gloo for the CPU unless the
 caller names one. NCCL takes one card per rank: more ranks on a host than
 it has cards is an error, never a silent fallback to gloo.
+
+The ranks form a (data, model) grid, JAX ``make_mesh``'s layout
+(``parallel/mesh.py:make_mesh`` builds it): rank ``r`` is data index
+``r // mp`` and model index ``r % mp``. Without a grid (or with mp = 1)
+the data axis is the world. A data group's ranks feed the same rows
+(``local_batch_slice``).
 """
 from __future__ import annotations
 
@@ -31,6 +37,11 @@ from typing import Dict, Mapping, Optional
 
 import torch
 import torch.distributed as dist
+
+# the model axis's size and the two groups of this rank (None: the world),
+# set by ``parallel.mesh.make_mesh``
+_GRID = {'mp': 1, 'data': None, 'model': None}
+
 
 def _first_host(nodelist: str) -> str:
     """First hostname of a Slurm nodelist ('n[001-004]' -> 'n001')."""
@@ -141,12 +152,40 @@ def barrier() -> None:
         dist.barrier()
 
 
+def model_size() -> int:
+    """The model axis's size: the ranks that split one model (1 without a
+    grid)."""
+    return _GRID['mp']
+
+
+def model_rank() -> int:
+    return rank() % model_size()
+
+
+def data_size() -> int:
+    """The data axis's size: the ranks that feed distinct rows."""
+    return world_size() // model_size()
+
+
+def data_rank() -> int:
+    return rank() // model_size()
+
+
+def data_group():
+    """The process group of this rank's data axis (None: the world)."""
+    return _GRID['data']
+
+
+def model_group():
+    return _GRID['model']
+
+
 def local_batch_slice(global_batch: int) -> slice:
-    """This rank's contiguous block of a global batch of ``global_batch``;
-    the batch must divide by the world size."""
-    n = world_size()
+    """This data index's contiguous block of a global batch of
+    ``global_batch``; the batch must divide by the data axis's size."""
+    n = data_size()
     if global_batch % n:
         raise ValueError(f'a global batch of {global_batch} does not '
                          f'divide over {n} ranks')
     per = global_batch // n
-    return slice(rank() * per, (rank() + 1) * per)
+    return slice(data_rank() * per, (data_rank() + 1) * per)

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from s4former_tpu_torch.parallel.distributed import world_size
+from s4former_tpu_torch.parallel.distributed import data_size
 
 _NEG_INF = -1e30
 MODES = ('unsup_only', 'both', 'all', 'kl', 'unsup_only_kl',
@@ -56,7 +56,7 @@ def ncr_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
     if mode in ('kl', 'unsup_only_kl', 'reweight_unsup_only_kl', 'sup'):
         kl = (tp * (torch.log(tp + eps) - torch.log(sp + eps))).sum(dim=-1)
     per_pixel = l2 if kl is None else (kl if l2 is None else kl + l2)
-    loss = (per_pixel * valid).sum() / float(label.numel() * world_size())
+    loss = (per_pixel * valid).sum() / float(label.numel() * data_size())
     if mode == 'reweight_unsup_only_kl':
         loss = 0.5 * loss
     return loss

@@ -2,6 +2,7 @@
 ``s4former_tpu/semi/pasa.py``; reference: mmseg/models/backbones/vit.py:519-541
 and encoder_decoder.py:547-567).
 
+- ``layer_scales``: one bias a ViT layer, scaled per layer;
 - per-patch unconfidence = mean over the patch's pixels of (1 - conf_mask);
 - bias[b, q, k] = w * unconf[b, k]: attention toward unconfident patches is
   raised; the cls token has unconfidence 0;
@@ -14,6 +15,8 @@ and encoder_decoder.py:547-567).
   to that stage's token grid (reference mit.py:464-475).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -32,8 +35,15 @@ def patch_unconfidence(conf_mask: torch.Tensor,
 def build_pasa_bias(unconf: torch.Tensor,
                     attn_mask_weight: float,
                     adaptive: bool,
-                    with_cls_token: bool = True) -> torch.Tensor:
-    """unconf [B, L] in [0,1] -> additive bias [B, 1, L(+1), L(+1)]."""
+                    with_cls_token: bool = True,
+                    layer_scales: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """unconf [B, L] in [0,1] -> additive bias [B, 1, L(+1), L(+1)].
+
+    ``layer_scales`` [num_layers] (the reference's learnable per-layer sigma
+    ablation, ``w_PatchRelativeAttention``, vit.py:130-134, 540-541) gives
+    [num_layers, B, 1, T, T], the bias scaled for each layer; the ViT hands
+    layer i its slice."""
     b, n = unconf.shape
     vec = torch.cat([unconf.new_zeros((b, 1)), unconf], dim=1) \
         if with_cls_token else unconf
@@ -48,7 +58,10 @@ def build_pasa_bias(unconf: torch.Tensor,
             row_zero = torch.cat([row_zero.new_zeros((b, 1)), row_zero],
                                  dim=1)
         bias = torch.where(row_zero[:, :, None], 0.0, bias)
-    return (bias * attn_mask_weight)[:, None, :, :]
+    bias = (bias * attn_mask_weight)[:, None, :, :]
+    if layer_scales is not None:
+        return bias[None] * layer_scales[:, None, None, None, None]
+    return bias
 
 
 def pasa_bias_from_conf_mask(conf_mask: torch.Tensor, patch_size: int,

@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from s4former_tpu_torch.models.losses.cross_entropy import \
     softmax_cross_entropy_with_ignore
 from s4former_tpu_torch.ops.resize import resize_bilinear
-from s4former_tpu_torch.parallel.distributed import world_size
+from s4former_tpu_torch.parallel.distributed import data_size
 from s4former_tpu_torch.parallel.mesh import global_sum
 
 
@@ -62,7 +62,7 @@ def pseudo_ce_loss(student_logits: torch.Tensor,
                                          tuple(hard_label.shape[1:3]), False)
     nll, _ = softmax_cross_entropy_with_ignore(student_logits, hard_label,
                                                ignore_index=255)
-    return nll.sum() / (nll.numel() * world_size())
+    return nll.sum() / (nll.numel() * data_size())
 
 
 def soft_pseudo_ce_loss(student_logits: torch.Tensor,
@@ -75,11 +75,11 @@ def soft_pseudo_ce_loss(student_logits: torch.Tensor,
     per = -(soft_label * logp).sum(dim=-1)
     if conf_mask is not None:
         per = per * conf_mask.to(per.dtype)
-    return per.sum() / (per.numel() * world_size())
+    return per.sum() / (per.numel() * data_size())
 
 
 def mask_ratio(conf_mask: torch.Tensor) -> torch.Tensor:
     """Fraction of confident pixels of the global batch
     (encoder_decoder.py:923-925)."""
     return global_sum(conf_mask.float().sum()) / (conf_mask.numel() *
-                                                  world_size())
+                                                  data_size())

@@ -58,9 +58,12 @@ are updated in place; the returned state holds them with the next step
 counter.
 
 Data parallelism (``parallel/``; JAX: the same jitted step on a batch
-sharded over the ``data`` axis): in a process group each rank passes its
-contiguous block of the global batch, and the step computes the
-single-process step on the global batch. Every rank seeds its generator
+sharded over the ``data`` axis): in a process group each data index passes
+its contiguous block of the global batch, and the step computes the
+single-process step on the global batch. Under tensor parallelism
+(``state.plan``, ``parallel/tp.py``) the ranks of a model group pass the
+same block, each holding its pieces of the split weights; every data-axis
+collective below runs over the data group, so a share is counted once. Every rank seeds its generator
 alike; draws with a batch axis are made at the global batch and the rank
 keeps its rows; the strong-mix cascade and the supervised mixes, which
 pair sample i with i+1 (CutMix, ClassMix) or with any sample (adaptive
@@ -89,10 +92,12 @@ from s4former_tpu_torch.core.optim import (build_layer_decay_trees,
 from s4former_tpu_torch.models.losses.cross_entropy import accuracy
 from s4former_tpu_torch.models.backbones.mit import MixVisionTransformer
 from s4former_tpu_torch.ops.resize import resize_bilinear, resize_nearest
-from s4former_tpu_torch.parallel.distributed import world_size
-from s4former_tpu_torch.parallel.mesh import (all_reduce_grads, gather_rows,
-                                              global_sum, local_rows,
-                                              stacked_batches)
+from s4former_tpu_torch.parallel.distributed import data_size
+from s4former_tpu_torch.parallel.mesh import (all_reduce_grads,
+                                              broadcast_from_model,
+                                              gather_rows, global_sum,
+                                              local_rows, stacked_batches)
+from s4former_tpu_torch.parallel.tp import ShardPlan
 from s4former_tpu_torch.registry import LOSSES
 from s4former_tpu_torch.semi import mixes
 from s4former_tpu_torch.semi.config import SemiConfig
@@ -118,6 +123,9 @@ class TrainState:
     # mask-ratio-annealed EMA momentum (encoder_decoder.py:926-932); None
     # unless momentum_head_exp / momentum_exp is set
     annealed_momentum: Optional[Tensor] = None
+    # the tensor-parallel / ZeRO-3 split of the tensors above
+    # (parallel.tp.shard_state); None: each rank holds them whole
+    plan: Optional[ShardPlan] = None
 
 
 def create_train_state(model: nn.Module, ema: bool = False) -> TrainState:
@@ -230,7 +238,7 @@ def apply_strong_mixes(cfg: SemiConfig, generator: Optional[torch.Generator],
     else:
         adaptive = None
     conf_mask = teacher.conf_mask
-    if world_size() == 1:
+    if data_size() == 1:
         return _strong_mix_cascade(cfg, generator, imgs, labels, conf_mask,
                                    adaptive, sup_imgs[:imgs.shape[0]],
                                    sup_gts[:imgs.shape[0]], num_classes,
@@ -346,7 +354,7 @@ def sup_mixes(cfg: SemiConfig, generator: Optional[torch.Generator],
     global batch and the rank keeps its block."""
     if not (cfg.sup_cutmix or cfg.sup_ClassMix):
         return img, gt
-    if world_size() > 1:
+    if data_size() > 1:
         img, gt = _sup_mixes(cfg, generator, gather_rows(img),
                              gather_rows(gt), num_classes, overrides)
         return local_rows(img), local_rows(gt)
@@ -497,8 +505,8 @@ def make_semi_train_step(model: nn.Module,
                     cfg.unsup_temperature, cfg.unsup_soft)
             else:
                 # global sizes: every rank holds an equal block
-                bu_all = bu * world_size()
-                bs_all = sup_student_img.shape[0] * world_size()
+                bu_all = bu * data_size()
+                bs_all = sup_student_img.shape[0] * data_size()
                 if bu_all > bs_all:
                     raise ValueError(
                         f'unsup batch ({bu_all}) > sup batch ({bs_all}): '
@@ -553,7 +561,7 @@ def make_semi_train_step(model: nn.Module,
                     generator=generator)
             student_img = batch['unsup_student_img']
             # drawn at the global batch; the rank keeps its rows
-            draws = unimatch_draws(cfg, generator, bu * world_size(),
+            draws = unimatch_draws(cfg, generator, bu * data_size(),
                                    tuple(student_img.shape[1:3]),
                                    student_img.device, overrides)
             for d in draws.values():
@@ -632,10 +640,19 @@ def make_semi_train_step(model: nn.Module,
         params = dict(model.named_parameters())
         grads = dict(zip(params, torch.autograd.grad(total,
                                                      list(params.values()))))
-        # each rank's total is its share of the global loss
-        grads = all_reduce_grads(grads)
+        # each data index's total is its share of the global loss; the
+        # ZeRO-3 shards' backward has summed theirs already
+        plan = state.plan
+        grads = all_reduce_grads(grads, plan.zero3_names() if plan else ())
+        if plan is not None:
+            # the whole tensors' gradients, bit for bit alike on the model
+            # ranks (their atomic adds sum in a run-dependent order)
+            split = set(plan.split_names())
+            grads = broadcast_from_model(
+                grads, [n for n in grads if n not in split])
         if grad_clip_norm is not None:
-            grads = clip_grads_by_norm(grads, grad_clip_norm)
+            grads = clip_grads_by_norm(
+                grads, grad_clip_norm, plan.grad_sq_sum if plan else None)
 
         # ---- 4. SGD + poly LR
         lr = poly_lr(state.step, base_lr, max_iters, power, min_lr)

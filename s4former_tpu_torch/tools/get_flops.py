@@ -46,11 +46,11 @@ def count_flops(model, img):
     attention, seen = [0], [0]
     attend = vit.multi_head_attention
 
-    def counted(q, k, v, bias=None, return_probs=False):
+    def counted(q, k, v, bias=None, **kwargs):
         b, lq, h, d = q.shape
         attention[0] += 4 * b * h * lq * k.shape[1] * d
         start = counter.get_total_flops()
-        out = attend(q, k, v, bias=bias, return_probs=return_probs)
+        out = attend(q, k, v, bias=bias, **kwargs)
         seen[0] += counter.get_total_flops() - start
         return out
 

@@ -4,7 +4,8 @@ tools/train.py:115-255):
     python -m s4former_tpu_torch.tools.train CONFIG [--work-dir D]
         [--load-from X.pth] [--resume-from D/iter_N] [--auto-resume]
         [--seed N] [--diff-seed] [--max-iters N] [--no-validate]
-        [--launcher none|env|slurm|mpi] [--device cuda|cpu]
+        [--launcher none|env|slurm|mpi] [--device cuda|cuda:N|cpu]
+        [--backend nccl|gloo] [--model-parallel MP] [--zero3]
         [--profile FIRST N] [--cfg-options k=v ...]
 
 config -> datasets -> ``SemiLoader`` -> ``make_semi_train_step`` ->
@@ -32,10 +33,24 @@ with ``--device cpu``). ``samples_per_gpu`` is the batch of each rank, as
 in the reference, so the global batch is it times the number of ranks;
 the step on it is the single-process step on the global batch
 (``parallel/mesh.py``). Parameters are broadcast from rank 0;
-``--diff-seed`` adds the rank to the seed of the data order and the
-step's draws. Rank 0 alone writes logs and checkpoints. Not ported yet,
-and refused with ``NotImplementedError``: ``--model-parallel`` > 1 and
-``--zero3``.
+``--diff-seed`` adds the data index to the seed of the data order and the
+step's draws. Rank 0 alone writes logs and checkpoints.
+
+Sharded training (JAX tools/train.py:39-47, 126-131): ``--model-parallel
+MP`` lays the ranks out as a (data, model) grid (rank r: data index
+r // MP, model index r % MP) and splits the ViT's (or MiT's) attention and
+FFN weights over each model group, Megatron's column/row splits
+(``parallel/tp.py``); ``--zero3`` also splits the rule-matched kernels,
+their EMA twins and SGD buffers over the data group. As in JAX the global
+batch is ``samples_per_gpu`` times the number of ranks, so a data group
+reads a block of ``samples_per_gpu × MP``. The world must divide by MP
+and each ViT's heads by MP (ValueError otherwise); ``--zero3`` on one rank
+changes nothing. Checkpoints are whole, as an unsharded run's, and a
+resume cuts them to the run's own split.
+
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m s4former_tpu_torch.tools.train CONFIG --launcher env \
+        --model-parallel 2 [--zero3]
 """
 import argparse
 import logging
@@ -65,15 +80,25 @@ def parse_args(argv=None):
                         help='override runner.max_iters')
     parser.add_argument('--no-validate', action='store_true')
     parser.add_argument('--model-parallel', type=int, default=1,
-                        help='tensor-parallel size (not ported: 1 only)')
+                        help='tensor-parallel size: the model axis of the '
+                             '(data, model) rank grid (Megatron splits, '
+                             'parallel/tp.py); 1 = data parallelism only')
     parser.add_argument('--zero3', action='store_true',
-                        help='ZeRO-3 sharding (not ported)')
+                        help='ZeRO-3: also split the matched weights, '
+                             'their EMA twins and SGD buffers over the '
+                             'data axis')
     parser.add_argument('--launcher', default='none',
                         choices=['none', 'tpu', 'slurm', 'mpi', 'env'],
                         help="process-group bootstrap, one process a "
                              "card ('tpu' is refused: no TPU here)")
     parser.add_argument('--device', default='cuda',
-                        help="'cuda' (default) or 'cpu'")
+                        help="'cuda' (default; cuda:{LOCAL_RANK} under a "
+                             "launcher), 'cuda:N' (every rank on card N) "
+                             "or 'cpu'")
+    parser.add_argument('--backend', default=None, choices=['nccl', 'gloo'],
+                        help='process-group backend (default: NCCL on CUDA '
+                             'devices, gloo on the CPU); gloo lets several '
+                             'ranks share one card')
     parser.add_argument('--profile', nargs=2, type=int, default=None,
                         metavar=('FIRST', 'N'),
                         help='trace steps FIRST..FIRST+N-1 (from 1) into '
@@ -83,25 +108,45 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def check_unported(args):
-    if args.model_parallel > 1 or args.zero3:
-        raise NotImplementedError(
-            'not ported yet: --model-parallel > 1 and --zero3 (tensor '
-            'parallelism and ZeRO-3 sharding)')
+def check_grid(args):
+    """The refusals of a model axis, before any process joins a group:
+    the world (from the launcher's environment) must divide by it (JAX's
+    ``make_mesh`` assert), and so must a ViT config's heads (the port
+    splits the packed qkv at head boundaries)."""
+    mp = args.model_parallel
+    if mp == 1:
+        return
+    from s4former_tpu_torch.parallel.distributed import launcher_env
+    spec = launcher_env(args.launcher)
+    world = spec['world_size'] if spec else 1
+    if mp < 1 or world % mp:
+        raise ValueError(f'--model-parallel {mp}: {world} rank(s) do not '
+                         f'divide into model axes of {mp}')
+    from s4former_tpu_torch.config import Config
+    backbone = Config.fromfile(args.config).model.get('backbone', {})
+    heads = backbone.get('num_heads', 12) \
+        if backbone.get('type') == 'VisionTransformer' else None
+    if heads is not None and heads % mp:
+        raise ValueError(f'--model-parallel {mp}: the ViT has {heads} '
+                         f'heads, which do not divide over {mp} ranks')
 
 
 def main(argv=None):
     """Train; returns the final ``TrainState``."""
     args = parse_args(argv)
-    check_unported(args)
+    check_grid(args)
     # a CUDA device without a card is an error (no CPU fallback)
     from s4former_tpu_torch.parallel.distributed import (
         init_distributed, is_distributed)
-    device = init_distributed(args.launcher, device=args.device)
+    from s4former_tpu_torch.parallel.mesh import make_mesh, reset_mesh
+    device = init_distributed(args.launcher, backend=args.backend,
+                              device=args.device)
     import torch.distributed as dist
     try:
+        make_mesh(args.model_parallel)
         return _train(args, device)
     finally:
+        reset_mesh()
         if is_distributed():
             dist.destroy_process_group()
 
@@ -113,9 +158,10 @@ def _train(args, device):
     from s4former_tpu_torch.config import Config
     from s4former_tpu_torch.core.runner import IterBasedRunner, make_eval_fn
     from s4former_tpu_torch.data import SemiLoader, build_dataset
-    from s4former_tpu_torch.parallel.distributed import (is_main, rank,
-                                                         world_size)
+    from s4former_tpu_torch.parallel.distributed import (
+        data_rank, data_size, is_main, model_size, world_size)
     from s4former_tpu_torch.parallel.mesh import replicate_state
+    from s4former_tpu_torch.parallel.tp import shard_state
     from s4former_tpu_torch.semi.config import SemiConfig
     from s4former_tpu_torch.semi.train_step import (create_train_state,
                                                     make_semi_train_step)
@@ -130,7 +176,8 @@ def _train(args, device):
         torch.backends.cudnn.benchmark = False
     n_ranks = world_size()
     if args.diff_seed:
-        args.seed = args.seed + rank()
+        # a model group's ranks draw alike
+        args.seed = args.seed + data_rank()
 
     work_dir = args.work_dir or osp.join(
         'work_dirs', osp.splitext(osp.basename(args.config))[0])
@@ -146,7 +193,9 @@ def _train(args, device):
     logger.info(f'device: {device}' + (
         f' ({torch.cuda.get_device_name(device)})'
         if device.type == 'cuda' else '') +
-        (f'; {n_ranks} ranks ({args.launcher})' if n_ranks > 1 else ''))
+        (f'; {n_ranks} ranks ({args.launcher})' if n_ranks > 1 else '') +
+        (f', {data_size()} data x {model_size()} model'
+         if model_size() > 1 else ''))
 
     # seeded weights, overlaid by the pretrained .pth (--load-from, else
     # the backbone's init_cfg checkpoint when that file exists)
@@ -164,6 +213,12 @@ def _train(args, device):
                            device=device).model
     semi_cfg = SemiConfig.from_model_cfg(cfg.model)
     state = replicate_state(create_train_state(model, ema=semi_cfg.ema))
+    if args.model_parallel > 1 or args.zero3:
+        state = shard_state(state, zero3=args.zero3)
+        logger.info(f'sharded state: model axis = {args.model_parallel} '
+                    f'(Megatron), zero3 = {args.zero3}' +
+                    ('' if state.plan is None else
+                     f'; {len(state.plan.split_names())} split tensors'))
 
     # data
     train_cfg = cfg.data['train']
@@ -183,11 +238,12 @@ def _train(args, device):
     unsup_pb = cfg.get('samples_per_gpu_unsup', sup_pb) \
         if unsup_ds is not None else 0
     # samples_per_gpu is a rank's batch; the sampler draws the global one
+    # and each data index builds its block (samples_per_gpu x model axis)
     loader = SemiLoader(sup_ds, unsup_ds, unsup_mix_ds,
                         sup_per_batch=sup_pb * n_ranks,
                         unsup_per_batch=unsup_pb * n_ranks,
                         num_workers=cfg.data.get('workers_per_gpu', 4) * 2,
-                        seed=args.seed, shard=(rank(), n_ranks))
+                        seed=args.seed, shard=(data_rank(), data_size()))
     logger.info(f'sup dataset: {len(sup_ds)} imgs' +
                 (f', unsup: {len(unsup_ds)} imgs' if unsup_ds else '') +
                 (f', unsup_mix: {len(unsup_mix_ds)} imgs' if unsup_mix_ds

@@ -405,12 +405,18 @@ def identical_across_ranks(tensors) -> bool:
 
 def dp_trajectory_worker(rank: int, world: int, inp: str, out: str):
     """The port's step at ``world`` ranks: the test's initial state dicts,
-    flags and global batches from ``inp``; each rank feeds its block
-    (``dbg_`` draws stay global). Rank 0 writes each step's logs and the
-    final state to ``out``; the ranks' states must stay identical."""
+    flags and global batches from ``inp``; each data index feeds its block
+    (``dbg_`` draws stay global). With ``mp`` > 1 or ``zero3`` in ``inp``
+    the ranks form a (data, model) grid and the state is split
+    (``parallel/tp.py``). Rank 0 writes each step's logs and the final,
+    gathered state to ``out``; the tensors every rank holds whole must stay
+    identical across the ranks, and the split ones keep their pieces'
+    shapes after every step (``sharded``)."""
     import torch
     from s4former_tpu_torch.models import build_segmentor
-    from s4former_tpu_torch.parallel.mesh import shard_batch
+    from s4former_tpu_torch.parallel.mesh import (make_mesh, reset_mesh,
+                                                  shard_batch)
+    from s4former_tpu_torch.parallel.tp import shard_state, unshard_state_dict
     from s4former_tpu_torch.semi.config import SemiConfig
     from s4former_tpu_torch.semi.train_step import (create_train_state,
                                                     make_semi_train_step)
@@ -423,10 +429,15 @@ def dp_trajectory_worker(rank: int, world: int, inp: str, out: str):
         state.ema_model.load_state_dict(sds['ema'])
     for name, buf in state.momentum.items():
         buf.copy_(sds['momentum'][name])
+    make_mesh(data.get('mp', 1))
+    state = shard_state(state, zero3=data.get('zero3', False))
+    plan = state.plan
+    split = set(plan.split_names()) if plan else set()
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
     step = make_semi_train_step(model, SemiConfig(**data['flags']),
                                 **data['step_kw'])
     gen = torch.Generator().manual_seed(0)
-    logs_by_step, same = [], []
+    logs_by_step, same, sharded = [], [], []
     for batch in data['batches']:
         batch = {k: torch.from_numpy(v) for k, v in batch.items()}
         local = shard_batch({k: v for k, v in batch.items()
@@ -434,20 +445,27 @@ def dp_trajectory_worker(rank: int, world: int, inp: str, out: str):
         local.update({k: v for k, v in batch.items() if k.startswith('dbg_')})
         state, logs = step(state, local, gen)
         logs_by_step.append({k: float(v) for k, v in logs.items()})
-        tensors = list(state.model.state_dict().values()) + \
-            list(state.momentum.values())
+        whole = [(n, t) for n, t in state.model.state_dict().items()] + \
+            list(state.momentum.items())
         if state.ema_model is not None:
-            tensors += list(state.ema_model.state_dict().values())
-        same.append(identical_across_ranks(tensors))
+            whole += list(state.ema_model.state_dict().items())
+        same.append(identical_across_ranks(
+            [t for n, t in whole if n not in split]))
+        sharded.append(bool(split) and all(
+            tuple(p.shape) == shapes[n] and
+            tuple(state.momentum[n].shape) == shapes[n]
+            for n, p in state.model.named_parameters()) and all(
+            shapes[n] != tuple(sds['model'][n].shape) for n in split))
+    sd = {'model': unshard_state_dict(plan, state.model.state_dict()),
+          'momentum': unshard_state_dict(plan, dict(state.momentum)),
+          'ema': None if state.ema_model is None else
+          unshard_state_dict(plan, state.ema_model.state_dict())}
+    reset_mesh()
     if rank == 0:
-        torch.save({'logs': logs_by_step, 'same': same,
+        torch.save({'logs': logs_by_step, 'same': same, 'sharded': sharded,
                     'step': int(state.step),
                     'annealed': None if state.annealed_momentum is None
-                    else float(state.annealed_momentum),
-                    'model': state.model.state_dict(),
-                    'momentum': state.momentum,
-                    'ema': None if state.ema_model is None
-                    else state.ema_model.state_dict()}, out)
+                    else float(state.annealed_momentum), **sd}, out)
 
 
 def dp_collectives_worker(rank: int, world: int, out: str):

@@ -496,3 +496,92 @@ def test_unimatch_step_matches_cpu(cuda):
         assert abs(lg[k] - v) <= 1e-4 * max(abs(v), 1e-3), k
     for k, v in sc.items():
         assert (sg[k].float() - v.float()).abs().max().item() <= 1e-4, k
+
+
+@pytest.mark.parametrize('heads', [6, 3])
+@pytest.mark.parametrize('dtype,tol,bwd_tol', [
+    (torch.float32, 1e-4, 1e-4), (torch.bfloat16, 2e-2, 1e-2)])
+def test_kernels_at_a_tensor_parallel_rank_heads(cuda, heads, dtype, tol,
+                                                 bwd_tol):
+    """Kernel #1 and the fused backward at the heads of a tensor-parallel
+    rank of DeiT-B (12 heads over a model axis of 2 and of 4): q, k, v
+    views of the rank's [B, L, 3 H 64] product (an H stride of 64
+    elements), B = 8, L = 1025, with and without the PASA bias."""
+    from s4former_tpu_torch.semi.pasa import build_pasa_bias
+    for pasa in (False, True):
+        q, k, v, _, do = _grad_inputs(cuda, 8, 1025, heads, dtype, None)
+        assert q.stride()[1:] == (3 * heads * 64, 64, 1)
+        bias = None
+        if pasa:
+            g = torch.Generator(device=cuda).manual_seed(5)
+            bias = build_pasa_bias(torch.rand((8, 1024), generator=g,
+                                              device=cuda), 5.0,
+                                   adaptive=True).to(dtype)
+        before = (fa.launch_count, fa.fused_launch_count)
+        o, lse = fa.flash_attention_fwd(q, k, v, bias)
+        got = fa.launch_bwd_fused(q, k, v, bias, do, lse,
+                                  fa.row_delta(o, do))
+        torch.cuda.synchronize()
+        assert (fa.launch_count - before[0],
+                fa.fused_launch_count - before[1]) == (1, 1)
+        ro, rlse = fa.flash_attention_reference(q, k, v, bias)
+        assert (o.float() - ro.float()).abs().max().item() <= tol
+        assert (lse - rlse).abs().max().item() <= 1e-3
+        ref = fa.flash_attention_backward_reference(q, k, v, bias, o, lse,
+                                                    do)
+        _assert_grads_close(got, ref, bwd_tol)
+
+
+def test_use_flash_off_launches_no_kernel(cuda):
+    """``use_flash=False`` is the config's choice of the plain attention:
+    a forward launches no kernel; the default launches kernel #1 in every
+    layer."""
+    from s4former_tpu_torch.registry import BACKBONES
+    import s4former_tpu_torch.models  # noqa: F401
+    x = torch.randn((1, 64, 64, 3), device=cuda)
+    for use_flash, want in ((False, 0), (True, 2)):
+        torch.manual_seed(0)
+        model = BACKBONES.build(dict(
+            type='VisionTransformer', img_size=(64, 64), patch_size=16,
+            embed_dims=128, num_layers=2, num_heads=2, out_indices=(1,),
+            use_flash=use_flash)).to(cuda)
+        for p in model.parameters():
+            torch.nn.init.normal_(p, std=0.02)
+        before = fa.launch_count
+        with torch.no_grad():
+            out = model(x)[0]
+        torch.cuda.synchronize()
+        assert fa.launch_count - before == want
+        assert torch.isfinite(out).all()
+
+
+def test_row_split_partials_round_once(cuda):
+    """A row-split product of 2 model ranks (``partial_product`` of each
+    rank's input columns, summed, the bias added) rounds its f32 sum to
+    bf16 once, as the unsplit product does: almost every output equals the
+    unsplit one, where a sum of bf16-rounded partials moves many by an
+    ulp; the gradients are the unsplit product's."""
+    from s4former_tpu_torch.models.backbones.vit import (linear,
+                                                         partial_product)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((8, 1025, 3072), generator=g, device=cuda).to(
+        torch.bfloat16).requires_grad_()
+    w = (0.02 * torch.randn((768, 3072), generator=g,
+                            device=cuda)).requires_grad_()
+    b = 0.02 * torch.randn(768, generator=g, device=cuda)
+    bf16 = torch.bfloat16
+    whole = linear(x, w, b, bf16)
+    cols = [slice(0, 1536), slice(1536, 3072)]
+    split = (sum(partial_product(x[..., c], w[:, c], bf16) for c in cols) +
+             b.to(bf16).float()).to(bf16)
+    rounded = sum(linear(x[..., c], w[:, c], None, bf16) for c in cols) + \
+        b.to(bf16)
+    once = (split != whole).float().mean().item()
+    twice = (rounded != whole).float().mean().item()
+    print(f'row-split outputs that differ from the unsplit product: f32 '
+          f'partials {once:.6f}, bf16 partials {twice:.6f}')
+    assert once < 0.01 < twice
+    go = torch.randn(whole.shape, generator=g, device=cuda).to(bf16)
+    for a, r in zip(torch.autograd.grad(split, (x, w), go),
+                    torch.autograd.grad(whole, (x, w), go)):
+        assert torch.equal(a, r)

@@ -18,6 +18,7 @@ import copy
 import json
 import os
 import os.path as osp
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -278,13 +279,22 @@ def test_train_then_test_cli_round_trip(tmp_path):
     assert osp.isfile(osp.join(wd, 'iter_3', 'state.pt'))
 
 
-# data parallelism is ported (tests/test_torch_parallel.py); tensor
-# parallelism and ZeRO-3 are refused, with a launcher too
-@pytest.mark.parametrize('argv', [['--model-parallel', '2'], ['--zero3'],
-                                  ['--launcher', 'slurm', '--zero3']])
-def test_unported_train_flags_raise(argv):
-    with pytest.raises(NotImplementedError):
-        train_cli.main(['unused.py', '--device', 'cpu'] + argv)
+# tensor parallelism and ZeRO-3 are ported (tests/test_torch_tp.py); what
+# the model axis refuses, before any rank joins a group: a world that does
+# not divide by it (one rank; 2 ranks' environment), and a ViT whose heads
+# do not (4 heads over 3 ranks)
+@pytest.mark.parametrize('argv', [
+    (['--model-parallel', '2'], '1', '1 rank'),
+    (['--launcher', 'env', '--model-parallel', '3'], '2', '2 rank'),
+    (['--launcher', 'env', '--model-parallel', '3'], '3', '4 heads')])
+def test_unported_train_flags_raise(argv, tmp_path):
+    args, world, match = argv
+    cfg = write_cli_config(tmp_path, _split(tmp_path, 1))
+    env = {'MASTER_ADDR': '127.0.0.1', 'MASTER_PORT': '1',
+           'WORLD_SIZE': world, 'RANK': '0', 'LOCAL_RANK': '0'}
+    with mock.patch.dict(os.environ, env), \
+            pytest.raises(ValueError, match=match):
+        train_cli.main([cfg, '--device', 'cpu'] + args)
 
 
 # what tools.test still refuses: a submission format VOC does not have,
