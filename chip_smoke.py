@@ -60,6 +60,13 @@ on the card, then drives the port's paths through its entry points:
   class); ``tools.train`` on a seeded Cityscapes tree (6 steps, slide eval
   and checkpoints at 3 and 6), ``--auto-resume`` to 8, and ``tools.test``
   (``--eval mIoU`` against the in-loop mIoU, ``--format-only``);
+- the datasets (``ade_train_cli``): ``..._MT_w_ours.py`` with
+  ``ADE20KDataset`` and 150 classes on every head, on a seeded ADE20K tree
+  (16 + 16 + 16 JPEGs at ADE's sizes, labels 0-150): ``tools.train`` 6
+  steps of 4 + 4 from the seeded DeiT-B file, ``tools.test --show-dir``
+  against the in-loop mIoU, a ``ConcatDataset`` of the val halves with
+  separate and merged evaluation, and ``--eval cityscapes`` on the
+  Cityscapes tree, which must raise the missing-package ImportError;
 - the ablation flags of the step (``ablation_*``): one f32 step of
   ``..._MT_w_ours.py`` at 4 layers with every flag group whose draws can be
   handed to both devices, against the CPU; three bf16 flag sets at full
@@ -1458,6 +1465,7 @@ def phase_train_cli(fa, gpu_line, wd, deit, n_backbone):
     check(gap <= TOL_MIOU, f'offline mIoU {results["mIoU"]} vs in-loop '
           f'{in_loop}: {gap} > {TOL_MIOU}')
     CHECKPOINT_LAYOUT.update(checkpoint_layout(os.path.join(wd, 'iter_12')))
+    PEAKS['train_cli'] = peak
     return (add_counts(add_counts(train_counts, resume_counts), test_counts),
             windows)
 
@@ -1465,6 +1473,8 @@ def phase_train_cli(fa, gpu_line, wd, deit, n_backbone):
 # train_cli's checkpoint: each part's tensor names, shapes and dtypes (the
 # sharded CLI's must equal it)
 CHECKPOINT_LAYOUT = {}
+# peak device memory of the CLI training runs, by phase
+PEAKS = {}
 
 
 def checkpoint_layout(path):
@@ -2282,6 +2292,251 @@ def phase_mit_train_cli(fa, gpu_line, root, n_sup, n_unsup):
     check(all_zero(total), f'the MiT launched a kernel: {total}')
     shutil.rmtree(wd, ignore_errors=True)
     return total
+
+
+# ------------------------------------------------ the ADE20K datasets slice
+# ADE20K's image sizes (its short side is 512 in the mmseg release): two
+# landscape and one portrait in three
+ADE_SIZES = ((683, 512), (512, 683), (640, 512))
+ADE_CLASSES = 150
+
+
+def write_ade_tree(root, seed=13, n_sup=16, n_unsup=16, n_val=16):
+    """An ADE20K-layout tree of seeded JPEGs at ADE's sizes and their label
+    PNGs: ``images/{training,validation}`` and ``annotations/`` beside,
+    labels of 32-pixel blocks over 1-150 with a share of 0 ("other", which
+    ``reduce_zero_label`` turns into 255), and ``sup.txt``/``unsup.txt``
+    split files of the training stems. Returns the val stems and their
+    (w, h) sizes."""
+    import numpy as np
+    from PIL import Image
+    rs = np.random.RandomState(seed)
+    splits = {'sup': [], 'unsup': [], 'val': []}
+    val_sizes = []
+    names = ['sup'] * n_sup + ['unsup'] * n_unsup + ['val'] * n_val
+    for i, which in enumerate(names):
+        part = 'validation' if which == 'val' else 'training'
+        stem = f'ADE_{"val" if which == "val" else "train"}_{i + 1:08d}'
+        w, h = ADE_SIZES[i % len(ADE_SIZES)]
+        if which == 'val':
+            val_sizes.append((w, h))
+        blocks = rs.randint(1, ADE_CLASSES + 1, (-(-h // 32), -(-w // 32)))
+        blocks[rs.rand(*blocks.shape) < 0.1] = 0
+        label = np.kron(blocks, np.ones((32, 32), np.int64))[:h, :w]
+        img = rs.randint(0, 96, (h, w, 3)) + \
+            (label[..., None] * np.array([37, 91, 53])) % 160
+        for sub, ext, arr in (('images', '.jpg', img.astype(np.uint8)),
+                              ('annotations', '.png',
+                               label.astype(np.uint8))):
+            os.makedirs(os.path.join(root, sub, part), exist_ok=True)
+            Image.fromarray(arr).save(os.path.join(root, sub, part,
+                                                   stem + ext))
+        splits[which].append(stem)
+    for which in ('sup', 'unsup'):
+        with open(os.path.join(root, f'{which}.txt'), 'w') as f:
+            f.write('\n'.join(splits[which]) + '\n')
+    return splits['val'], val_sizes
+
+
+def ade_cli_config(root, data_root):
+    """``..._MT_w_ours.py`` on an ADE20K tree, written to ``root``: it
+    inherits the config by ``_base_`` and puts ``ADE20KDataset`` in sup,
+    unsup, val and test (the config's pipelines; the labels through
+    ``reduce_zero_label``; val and test read the whole validation folder
+    through the keep-ratio test pipeline), and 150 classes on the decode
+    head and the four aux heads (``--cfg-options`` sets no list item)."""
+    import copy
+    from s4former_tpu_torch.config import Config
+    base = Config.fromfile(CONFIGS['ours']).to_dict()
+
+    def ade(which, part, pipeline, split=None):
+        pipeline = copy.deepcopy(pipeline)
+        for t in pipeline:
+            if t['type'] == 'LoadAnnotations':
+                t['reduce_zero_label'] = True
+        out = dict(_delete_=True, type='ADE20KDataset', data_root=data_root,
+                   img_dir=f'images/{part}', ann_dir=f'annotations/{part}',
+                   pipeline=pipeline)
+        if split:
+            out['split'] = split
+        return out
+    train = base['data']['train']
+    data = dict(
+        train=dict(sup=ade('sup', 'training', train['sup']['pipeline'],
+                           'sup.txt'),
+                   unsup=ade('unsup', 'training', train['unsup']['pipeline'],
+                             'unsup.txt')),
+        val=ade('val', 'validation', base['data']['val']['pipeline']),
+        test=ade('test', 'validation', base['data']['test']['pipeline']))
+    aux = copy.deepcopy(base['model']['auxiliary_head'])
+    for head in aux:
+        head['num_classes'] = ADE_CLASSES
+    path = os.path.join(root, 'setr_deit-base_pup_512x512_ade20k_MT_w_ours.py')
+    with open(path, 'w') as f:
+        f.write(f'_base_ = [{CONFIGS["ours"]!r}]\n'
+                f'data = {data!r}\n'
+                f'model = dict(decode_head=dict(num_classes={ADE_CLASSES}), '
+                f'auxiliary_head={aux!r})\n')
+    return path
+
+
+def ade_concat_config(root, ade_cfg, data_root, val_stems):
+    """``ade_cfg`` with ``data.test`` a ``ConcatDataset`` of the two halves
+    of the val stems (split files), separate evaluation."""
+    from s4former_tpu_torch.config import Config
+    test = Config.fromfile(ade_cfg).to_dict()['data']['test']
+    halves = []
+    for i, stems in enumerate((val_stems[:len(val_stems) // 2],
+                               val_stems[len(val_stems) // 2:])):
+        split = os.path.join(root, f'ade_val_{i}.txt')
+        with open(split, 'w') as f:
+            f.write('\n'.join(stems) + '\n')
+        halves.append(dict(test, split=split))
+    path = os.path.join(root, 'ade20k_concat_test.py')
+    with open(path, 'w') as f:
+        f.write(f'_base_ = [{ade_cfg!r}]\n'
+                f'data = dict(test=dict(_delete_=True, type="ConcatDataset",'
+                f' separate_eval=True, datasets={halves!r}))\n')
+    return path
+
+
+def eval_flushes(shapes, batch=4):
+    """The exact eval's flushes over images of these shapes: one group a
+    shape, ``batch`` images a flush."""
+    from collections import Counter
+    return sum(-(-n // batch) for n in Counter(shapes).values())
+
+
+def phase_ade_train_cli(fa, gpu_line, root, deit, n_backbone):
+    """The flagship on ADE20K through the port's CLIs: ``tools.train`` on
+    ``..._MT_w_ours.py`` with ``ADE20KDataset`` and 150 classes (bf16,
+    DeiT-B at full depth from the bare-key DeiT-B file, 4 + 4 at 512² a
+    step through the real pipelines and loader) over a seeded ADE20K tree,
+    6 steps with eval and checkpoint at 6; ``tools.test --eval mIoU
+    --show-dir`` on ``iter_6`` within TOL_MIOU of the in-loop mIoU; then
+    ``tools.test`` on a ``ConcatDataset`` of the two val halves, with
+    separate evaluation (keys ``0_``, ``1_``) and merged (one histogram:
+    the whole folder's mIoU); then ``--eval cityscapes`` on the Cityscapes
+    phase's tree (``mit_train_cli``), which must raise the JAX package's
+    missing-package ImportError. Returns the runs' launch counts summed."""
+    import numpy as np
+    import torch
+    from s4former_tpu_torch.tools import test as test_cli
+    from s4former_tpu_torch.tools import train as train_cli
+    data_root = os.path.join(root, 'ade')
+    val_stems, val_sizes = write_ade_tree(data_root)
+    cfg_path = ade_cli_config(root, data_root)
+    wd = os.path.join(root, 'ade_work')
+    opts = ['--cfg-options', 'evaluation.interval=6',
+            'checkpoint_config.interval=6', 'log_config.interval=3']
+    # the keep-ratio (2048, 512) test pipeline leaves a short side of 512
+    # as it is, so each image size is one shape of the eval (L = 1377 for
+    # 683 x 512 either way round, 1281 for 640 x 512)
+    per_eval = 12 * eval_flushes(val_sizes)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa)                               # the main path starts
+    t0 = time.perf_counter()
+    state = train_cli.main([cfg_path, '--work-dir', wd, '--max-iters', '6',
+                            '--load-from', deit] + opts)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_counts = counts(fa)                      # the main path ends
+    peak = torch.cuda.max_memory_allocated()
+    check(int(state.step) == 6, f'trained to step {int(state.step)}')
+    n_classes = state.model.num_classes
+    del state
+    torch.cuda.empty_cache()
+    check(n_classes == ADE_CLASSES, f'the model has {n_classes} classes')
+    loaded = f'({n_backbone} of {n_backbone} backbone tensors)'
+    check(loaded in read_logs(wd), f'the log does not report {loaded}')
+    records = read_jsonl(os.path.join(wd, 'metrics.jsonl'))
+    train = [r for r in records if r['prefix'] == 'train']
+    val = {r['step']: r for r in records if r['prefix'] == 'val'}
+    check([r['step'] for r in train] == [3, 6] and sorted(val) == [6],
+          f'logged steps {records}')
+    check(all(np.isfinite(r['loss']) for r in train), f'losses {train}')
+    check(train_counts == {'flash_attn_fwd': 36 * 6 + per_eval,
+                           'flash_attn_bwd_fused': 24 * 6,
+                           'flash_attn_bwd_dkv': 0,
+                           'flash_attn_bwd_dq': 0},
+          f'6 steps + 1 eval launched {train_counts}, not 36 forward + 24 '
+          f'fused a step and {per_eval} forward an eval')
+
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    vis = os.path.join(root, 'ade_vis')
+    ckpt = os.path.join(wd, 'iter_6')
+    results = test_cli.main([cfg_path, ckpt, '--eval', 'mIoU',
+                             '--show-dir', vis])
+    test_s = time.perf_counter() - t0
+    concat_cfg = ade_concat_config(root, cfg_path, data_root, val_stems)
+    separate = test_cli.main([concat_cfg, ckpt])
+    merged = test_cli.main([concat_cfg, ckpt, '--cfg-options',
+                            'data.test.separate_eval=False'])
+    test_counts = counts(fa)
+    check(test_counts == {'flash_attn_fwd': 3 * per_eval,
+                          'flash_attn_bwd_fused': 0,
+                          'flash_attn_bwd_dkv': 0, 'flash_attn_bwd_dq': 0},
+          f'3 offline tests launched {test_counts}, not {per_eval} forward '
+          f'each')
+    in_loop = val[6]['mIoU']
+    gap = abs(results['mIoU'] - in_loop)
+    painted = sorted(os.listdir(vis))
+    check(painted == [f'{s}.png' for s in val_stems],
+          f'--show-dir wrote {painted}')
+    check(sorted({k.split('_', 1)[0] for k in separate}) == ['0', '1'],
+          f'separate concat eval keys {sorted(separate)}')
+    merged_gap = abs(merged['mIoU'] - results['mIoU'])
+    check(merged_gap <= TOL_MIOU, f'merged concat mIoU {merged["mIoU"]} '
+          f'vs the whole folder {results["mIoU"]}')
+
+    # the official Cityscapes evaluator on mit_train_cli's tree: the
+    # package is not installed, so the JAX package's ImportError
+    reset_counts(fa)
+    city = os.path.join(root, 'city')
+    city_opts = ['--cfg-options', 'model.backbone.dtype=bfloat16',
+                 'model.decode_head.dtype=bfloat16',
+                 f'data.test.data_root={city}',
+                 f'data.test.split={os.path.join(city, "val.txt")}']
+    try:
+        test_cli.main([MIT_CONFIGS['ours'], '--eval', 'cityscapes',
+                       '--imgfile-prefix', os.path.join(root, 'city_eval')]
+                      + city_opts)
+        error = None
+    except ImportError as e:
+        error = str(e)
+    city_counts = counts(fa)
+    check(error is not None and 'cityscapesscripts' in error,
+          f'--eval cityscapes without cityscapesscripts: {error!r}')
+    check(all_zero(city_counts), f'the MiT launched a kernel: '
+          f'{city_counts}')
+    step_ms = [r['step_ms'] for r in train]
+    emit({'phase': 'ade_train_cli', 'config': os.path.basename(cfg_path),
+          'batch': '4 + 4 at 512², bf16, 12 layers, 150 classes',
+          'data': f'{len(val_stems)} + 16 + 16 seeded JPEGs at '
+                  f'{ADE_SIZES}, labels 0-150',
+          'pretrained': f'{os.path.basename(deit)}: {loaded} loaded',
+          'losses': {r['step']: r['loss'] for r in train},
+          'mask_ratio': {r['step']: r['mask_ratio'] for r in train},
+          'step_ms_windows': step_ms,
+          'data_wait_ms_windows': [r['data_wait_ms'] for r in train],
+          'eval_s': val[6]['eval_s'], 'miou': val[6]['mIoU'],
+          'train_run_s': train_s, 'peak_mem_bytes': peak,
+          'peak_mem_bytes_21_classes': PEAKS.get('train_cli'),
+          'launches': {'train': train_counts, 'test': test_counts,
+                       'cityscapes': city_counts},
+          'test_miou': results['mIoU'], 'in_loop_miou_iter_6': in_loop,
+          'miou_gap': gap, 'tol': TOL_MIOU, 'test_run_s': test_s,
+          'show_dir_files': len(painted),
+          'concat_separate': {k: v for k, v in separate.items()
+                              if k.split('_', 1)[1] in ('aAcc', 'mIoU')},
+          'concat_merged_miou': merged['mIoU'],
+          'concat_merged_gap': merged_gap,
+          'cityscapes_metric': error, 'gpu': gpu_line})
+    check(gap <= TOL_MIOU, f'offline mIoU {results["mIoU"]} vs in-loop '
+          f'{in_loop}: {gap} > {TOL_MIOU}')
+    shutil.rmtree(wd, ignore_errors=True)
+    return add_counts(add_counts(train_counts, test_counts), city_counts)
 
 
 # ---------------------------------------------------- the ablation flags
@@ -4193,6 +4448,13 @@ def main() -> int:
             seconds[name] = time.perf_counter() - t0
         emit({'phase': 'mit_seconds', **seconds,
               'total': sum(seconds.values())})
+        # the datasets slice: the flagship on ADE20K (150 classes), a
+        # concat test set, and the Cityscapes metric on the tree above
+        t0 = time.perf_counter()
+        paths['ade_train_cli'] = phase_ade_train_cli(
+            fa, gpu_line, root, deit['bare'], n_backbone)
+        emit({'phase': 'ade_seconds', 'ade_train_cli':
+              time.perf_counter() - t0})
         # the ablation slice: the rest of the step's flags
         paths.update(run_ablation(fa, images, gpu_line, root))
         # the UniMatch slice and the ViT's remat

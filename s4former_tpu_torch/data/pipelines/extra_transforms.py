@@ -3,14 +3,15 @@
 mmseg/datasets/pipelines/transforms.py): RandErase, RandomGrayscale and
 GaussianBlur (the strong views of UniMatch configs), RandomRotate,
 RandomCropRareRemain, ResizeToMultiple, Rerange, RGB2Gray, AdjustGamma,
-SegRescale and RandomCutOut. numpy host code like ``transforms.py``, with
-the same draws from ``results['rng']`` in the same order as the JAX
-package's, so a seed gives the same output bit for bit. Refused with
-``NotImplementedError``: CLAHE (OpenCV) and RandomMosaic (it needs
-MultiImageMixDataset).
+SegRescale, RandomCutOut and RandomMosaic (with ``MultiImageMixDataset``).
+numpy host code like ``transforms.py``, with the same draws from
+``results['rng']`` in the same order as the JAX package's, so a seed gives
+the same output bit for bit. Refused with ``NotImplementedError``: CLAHE
+(OpenCV).
 """
 from __future__ import annotations
 
+import random
 from typing import Optional, Tuple
 
 import numpy as np
@@ -130,14 +131,88 @@ class RandomRotate:
 
 @PIPELINES.register_module()
 class RandomMosaic:
-    """(transforms.py:1378-1543) needs ``MultiImageMixDataset`` to hand it
-    three more dataset items; neither is ported yet (ROADMAP Queue 1,
-    "Other datasets and wrappers"), so it is refused."""
+    """(JAX extra_transforms.py:129; reference transforms.py:1378-1543):
+    the sample and 3 more dataset items (``results['mix_results']``, handed
+    in by ``MultiImageMixDataset``) pasted as a 2 x 2 mosaic of keep-ratio
+    quadrants around a random centre. Without ``mix_results`` it raises,
+    so a pipeline outside the wrapper fails instead of passing through."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            'not ported yet: RandomMosaic and MultiImageMixDataset (ROADMAP '
-            'Queue 1, "Other datasets and wrappers")')
+    QUADRANTS = ('top_left', 'top_right', 'bottom_left', 'bottom_right')
+
+    def __init__(self, prob: float, img_scale=(640, 640),
+                 center_ratio_range=(0.5, 1.5), pad_val=0, seg_pad_val=255):
+        assert 0 <= prob <= 1
+        self.prob = prob
+        self.img_scale = tuple(img_scale)   # (h, w) of one quadrant
+        self.center_ratio_range = center_ratio_range
+        self.pad_val = pad_val
+        self.seg_pad_val = seg_pad_val
+
+    def get_indexes(self, dataset):
+        """3 companion indices in [0, len(dataset)), from Python's
+        ``random`` stream, as the JAX transform draws them (the
+        reference's inclusive randint(0, len) can overrun; neither package
+        keeps that)."""
+        return [random.randint(0, len(dataset) - 1) for _ in range(3)]
+
+    def _paste_crop(self, loc, center_xy, wh):
+        """Where quadrant ``loc`` of size ``wh`` lands on the mosaic and
+        the part of it that lands (reference transforms.py:1571-1634)."""
+        cx, cy = center_xy
+        w, h = wh
+        W2, H2 = self.img_scale[1] * 2, self.img_scale[0] * 2
+        if loc == 'top_left':
+            x1, y1, x2, y2 = max(cx - w, 0), max(cy - h, 0), cx, cy
+            crop = (w - (x2 - x1), h - (y2 - y1), w, h)
+        elif loc == 'top_right':
+            x1, y1, x2, y2 = cx, max(cy - h, 0), min(cx + w, W2), cy
+            crop = (0, h - (y2 - y1), min(w, x2 - x1), h)
+        elif loc == 'bottom_left':
+            x1, y1, x2, y2 = max(cx - w, 0), cy, cx, min(H2, cy + h)
+            crop = (w - (x2 - x1), 0, w, min(y2 - y1, h))
+        else:
+            x1, y1, x2, y2 = cx, cy, min(cx + w, W2), min(H2, cy + h)
+            crop = (0, 0, min(w, x2 - x1), min(y2 - y1, h))
+        return (x1, y1, x2, y2), crop
+
+    def _mosaic(self, arrays, sizes, center, fill, nearest):
+        hq, wq = self.img_scale
+        out = np.full((hq * 2, wq * 2) + arrays[0].shape[2:], fill,
+                      dtype=arrays[0].dtype)
+        for arr, size, loc in zip(arrays, sizes, self.QUADRANTS):
+            arr = _pil_resize(arr, size, nearest=nearest)
+            (x1, y1, x2, y2), (xc1, yc1, xc2, yc2) = self._paste_crop(
+                loc, center, size)
+            out[y1:y2, x1:x2] = arr[yc1:yc2, xc1:xc2]
+        return out
+
+    def __call__(self, results):
+        rng = _rng(results)
+        if float(rng.uniform()) >= self.prob:
+            return results
+        if 'mix_results' not in results:
+            raise KeyError(
+                'RandomMosaic needs results["mix_results"]: wrap the '
+                'dataset in MultiImageMixDataset (reference '
+                'dataset_wrappers.py:195)')
+        hq, wq = self.img_scale
+        center = (int(rng.uniform(*self.center_ratio_range) * wq),
+                  int(rng.uniform(*self.center_ratio_range) * hq))
+        patches = [results] + list(results['mix_results'])
+        sizes = []
+        for patch in patches:
+            h_i, w_i = patch['img'].shape[:2]
+            s = min(hq / h_i, wq / w_i)   # keep-ratio fit into a quadrant
+            sizes.append((int(w_i * s), int(h_i * s)))
+        img = self._mosaic([p['img'] for p in patches], sizes, center,
+                           self.pad_val, False)
+        results['img'] = img
+        results['img_shape'] = img.shape
+        results['ori_shape'] = img.shape
+        for key in results.get('seg_fields', []):
+            results[key] = self._mosaic([p[key] for p in patches], sizes,
+                                        center, self.seg_pad_val, True)
+        return results
 
 
 @PIPELINES.register_module()
@@ -254,13 +329,13 @@ class Rerange:
 @PIPELINES.register_module()
 class CLAHE:
     """(transforms.py:661) is ``cv2.createCLAHE``; the port does not
-    depend on OpenCV, so it is refused (ROADMAP Queue 1, "Other datasets
-    and wrappers")."""
+    depend on OpenCV, so it is refused (ROADMAP Queue 1, "CLAHE without
+    OpenCV")."""
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             'not ported: CLAHE needs OpenCV (cv2), which the port does not '
-            'depend on (ROADMAP Queue 1, "Other datasets and wrappers")')
+            'depend on (ROADMAP Queue 1, "CLAHE without OpenCV")')
 
 
 @PIPELINES.register_module()

@@ -22,9 +22,10 @@ def parse_args(argv=None):
     parser.add_argument('config')
     parser.add_argument('checkpoint', nargs='?', default=None)
     parser.add_argument('--palette', default='cityscapes',
-                        help='palette name (cityscapes/voc), used when the '
-                             'config has none; the reference defaults to '
-                             'cityscapes too')
+                        help='palette name (any name core.class_names '
+                             'knows: cityscapes, voc, ade20k, cocostuff, '
+                             '...), used when the config has none; the '
+                             'reference defaults to cityscapes too')
     parser.add_argument('--show', action='store_true')
     parser.add_argument('--show-wait-time', default=1, type=int)
     parser.add_argument('--output-file', default=None, type=str)

@@ -16,7 +16,12 @@ the mIoU is the runner's; with ``--aug-test`` each image goes through
 averaged at the original size). ``--show-dir`` writes each prediction
 painted over its image (``utils.palette``), ``--format-only`` the
 dataset's submission files (``dataset.format_results``; of the ported
-datasets only ``CityscapesDataset`` has one) and skips the evaluation.
+datasets only ``CityscapesDataset`` and the two built on it have one) and
+skips the evaluation. ``--eval cityscapes`` writes those files into
+``--imgfile-prefix`` too and scores them with the official
+``cityscapesscripts`` evaluator, which must be installed (an
+``ImportError`` otherwise, as in the JAX package); other metrics beside
+it come from the histograms.
 Runs on a CUDA device unless ``--device cpu`` is given; without a card it
 fails.
 
@@ -41,6 +46,7 @@ eager eval has none to bound.
 import argparse
 import os
 import os.path as osp
+import re
 
 import numpy as np
 
@@ -156,6 +162,8 @@ def _test(args, device):
                            device=device).model
 
     dataset = build_dataset(cfg.data['test'])
+    # the official Cityscapes evaluator reads submission files
+    cityscapes = 'cityscapes' in args.eval and not args.format_only
     order, local, preds = [], {}, {}
     for idx, pred in _predictions(args, cfg, model, dataset, shard):
         order.append(idx)
@@ -171,12 +179,12 @@ def _test(args, device):
             Image.fromarray(painted).save(osp.join(
                 args.show_dir, osp.basename(info['ori_filename'])
                 .replace('.jpg', '.png')))
-        if args.format_only:
+        if args.format_only or cityscapes:
             # one image at a time: the predictions never sit in memory
             # together (the reference collects them first)
             dataset.format_results([pred], args.imgfile_prefix,
                                    indices=[idx])
-        else:
+        if not args.format_only:
             local[idx] = dataset.pre_eval([pred], [idx])[0]
         if len(order) % 50 == 0:
             logger.info(f'{len(order)}/{len(dataset)} images')
@@ -195,13 +203,20 @@ def _test(args, device):
         logger.info(f'wrote submission files to {args.imgfile_prefix}')
         return None
 
+    kwargs = {}
+    if cityscapes:
+        barrier()            # every rank's files are written
+        kwargs['imgfile_prefix'] = args.imgfile_prefix
     results = dataset.evaluate(
         reduce_pre_eval(local, order, len(dataset.CLASSES), device),
-        metric=args.eval)
+        metric=args.eval, **kwargs)
     barrier()
     for k, v in results.items():
-        if not k.startswith(('IoU.', 'Acc.', 'Dice.', 'Fscore.')):
-            logger.info(f'{k}: {v:.4f}')
+        # per-class entries stay out of the log, a concat source's too
+        if not re.sub(r'^\d+_', '', k).startswith(
+                ('IoU.', 'Acc.', 'Dice.', 'Fscore.')):
+            logger.info(f'{k}: {v:.4f}' if isinstance(v, float)
+                        else f'{k}: {v}')
     if is_main():
         print({k: round(v, 4) for k, v in results.items()
                if k in ('aAcc', 'mIoU', 'mAcc', 'mDice', 'mFscore')})

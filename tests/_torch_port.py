@@ -83,6 +83,35 @@ def assert_argmax_agrees(p_ref: np.ndarray, p: np.ndarray, tol: float):
     np.testing.assert_array_equal(p_ref.argmax(-1)[sure], p.argmax(-1)[sure])
 
 
+def jax_eval_probs(model, variables, img: np.ndarray, gt_shape):
+    """The JAX in-loop eval's probabilities for one pipeline image at its
+    label map's shape (``s4former_tpu/core/runner.py:make_eval_fn``): the
+    image corner-padded to the patch size, the raw head logits resized by
+    the eval's composed matrices (``eval_resize_matrices``), a softmax.
+    The margin rule of the label comparisons reads them."""
+    import jax
+    import jax.numpy as jnp
+    from s4former_tpu.core.runner import (_pad_to_bucket,
+                                          eval_resize_matrices)
+    x, (vh, vw) = _pad_to_bucket(img[None], 16)
+    logits = np.asarray(model.apply(
+        variables, jnp.asarray(x), train=False,
+        method='forward_decode_from_img'))[0]
+    lh, lw = logits.shape[:2]
+    m_h, m_w = eval_resize_matrices(vh, vw, lh, lw, lh, lw, gt_shape,
+                                    False, 1)
+    out = np.einsum('oh,hwc->owc', m_h, logits)
+    out = np.einsum('pw,hwc->hpc', m_w, out)
+    return np.asarray(jax.nn.softmax(jnp.asarray(out), axis=-1))
+
+
+def sure_pixels(probs: np.ndarray, tol: float) -> np.ndarray:
+    """Where the top-2 probabilities lie more than ``tol`` apart: the
+    pixels whose label two f32 forwards must agree on."""
+    top2 = np.sort(probs, axis=-1)[..., -2:]
+    return (top2[..., 1] - top2[..., 0]) > tol
+
+
 # The training tests' model: the tiny ViT above with a main head whose
 # logits come out at image resolution (4 -> 16 -> 64, as SETR-PUP at 512²)
 # and two one-conv aux heads at a quarter of it (resized to the labels).
@@ -253,6 +282,77 @@ def write_cli_config(directory, val_split: str) -> str:
     path.write_text(CLI_CFG.format(root=osp.abspath(FIXTURE),
                                    test_pipeline=repr(TEST_PIPELINE),
                                    val_split=val_split))
+    return str(path)
+
+
+def write_ade_tree(root, seed: int = 0, n_sup: int = 4, n_unsup: int = 4,
+                   n_val: int = 3, hw=(48, 64)) -> dict:
+    """An ADE20K-layout tree written with numpy under ``root``:
+    ``images/{training,validation}/*.jpg`` of about ``hw`` (some turned to
+    portrait) and their ``annotations/`` label PNGs of blocks of 0-150 (0 is
+    "other", ignored under ``reduce_zero_label``), plus the split files
+    ``sup.txt`` and ``unsup.txt`` of the training stems. Returns the stems
+    by split."""
+    import os
+    from PIL import Image
+    rs = np.random.RandomState(seed)
+    stems = {'sup': [], 'unsup': [], 'val': []}
+    names = ['sup'] * n_sup + ['unsup'] * n_unsup + ['val'] * n_val
+    for i, which in enumerate(names):
+        part = 'validation' if which == 'val' else 'training'
+        stem = f'ADE_{"val" if which == "val" else "train"}_{i + 1:08d}'
+        h, w = hw if i % 3 else hw[::-1]
+        h, w = h + int(rs.randint(0, 8)), w + int(rs.randint(0, 8))
+        blocks = rs.randint(1, 151, (-(-h // 8), -(-w // 8)))
+        blocks[rs.rand(*blocks.shape) < 0.15] = 0
+        label = np.kron(blocks, np.ones((8, 8), np.int64))[:h, :w]
+        img = (rs.randint(0, 256, (h, w, 3)) // 2 +
+               (label[..., None] * np.array([1, 3, 7])) % 128)
+        for sub, ext, arr in (('images', '.jpg', img.astype(np.uint8)),
+                              ('annotations', '.png',
+                               label.astype(np.uint8))):
+            os.makedirs(osp.join(root, sub, part), exist_ok=True)
+            Image.fromarray(arr).save(osp.join(root, sub, part, stem + ext))
+        stems[which].append(stem)
+    for which in ('sup', 'unsup'):
+        with open(osp.join(root, f'{which}.txt'), 'w') as f:
+            f.write('\n'.join(stems[which]) + '\n')
+    return stems
+
+
+def write_ade_config(directory, root) -> str:
+    """The CLI config on the ADE20K tree at ``root`` (``write_ade_tree``):
+    ``ADE20KDataset`` in sup, unsup and val (the whole validation folder,
+    keep-ratio test pipeline), labels through ``reduce_zero_label``, and
+    150 classes on the decode head and both aux heads."""
+    text = CLI_CFG.format(root=osp.abspath(root),
+                          test_pipeline=repr(TEST_PIPELINE), val_split='')
+    for old, new, count in (
+            ("dict(type='LoadAnnotations')",
+             "dict(type='LoadAnnotations', reduce_zero_label=True)", 1),
+            ("'PascalVOCDataset'", "'ADE20KDataset'", 4),
+            ("img_dir='JPEGImages', ann_dir='SegmentationClass',\n"
+             "                 split=splits + 'train_supervised.txt'",
+             "img_dir='images/training', ann_dir='annotations/training',\n"
+             "                 split='sup.txt'", 1),
+            ("img_dir='JPEGImages', ann_dir='SegmentationClass',\n"
+             "                   split=splits + 'train_unsupervised.txt'",
+             "img_dir='images/training',\n"
+             "                   ann_dir='annotations/training',\n"
+             "                   split='unsup.txt'", 1),
+            ("img_dir='JPEGImages', ann_dir='SegmentationClass',\n"
+             "             split='', pipeline",
+             "img_dir='images/validation',\n"
+             "             ann_dir='annotations/validation', pipeline", 1),
+            ("img_dir='JPEGImages', ann_dir='SegmentationClass',\n"
+             "              split='', pipeline",
+             "img_dir='images/validation',\n"
+             "              ann_dir='annotations/validation', pipeline", 1),
+            ('num_classes=21', 'num_classes=150', 2)):
+        assert text.count(old) == count, old
+        text = text.replace(old, new)
+    path = directory / 'tiny_ade.py'
+    path.write_text(text)
     return str(path)
 
 
@@ -586,11 +686,27 @@ def eval_vis_worker(rank: int, world: int, cfg_path: str, weights: str,
     finalize_pending_saves()
 
 
+def warm_forward(cfg: str):
+    """One throwaway forward of the config's model (seeded weights) on the
+    CPU in this process. A fresh process's first f32 forward can round
+    otherwise than all its later ones: the first parallel regions' CPU
+    thread team forms while the forward runs (seen in 5 of 320 cold first
+    forwards of the CLI model under the suite's load, differing in the
+    first layer's attention block, and at 3 threads without load; in no
+    later forward). A test that holds a spawned process's predictions bit
+    for bit to another process's warms both first."""
+    from s4former_tpu_torch import apis
+    seg = apis.init_segmentor(cfg, device='cpu')
+    apis.inference_segmentor(seg, np.zeros((64, 64, 3), np.uint8))
+
+
 def cli_test_worker(rank: int, world: int, argv, out: str):
-    """``tools.test --launcher env --device cpu`` at ``world`` ranks; rank
-    0 writes the returned metrics (or None) to ``out`` as JSON."""
+    """``tools.test --launcher env --device cpu`` at ``world`` ranks, each
+    rank warmed first (``warm_forward``); rank 0 writes the returned
+    metrics (or None) to ``out`` as JSON."""
     import json
     from s4former_tpu_torch.tools import test as test_cli
+    warm_forward(argv[0])
     results = test_cli.main(list(argv) + ['--launcher', 'env', '--device',
                                           'cpu'])
     if rank == 0:

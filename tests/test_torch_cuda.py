@@ -585,3 +585,68 @@ def test_row_split_partials_round_once(cuda):
     for a, r in zip(torch.autograd.grad(split, (x, w), go),
                     torch.autograd.grad(whole, (x, w), go)):
         assert torch.equal(a, r)
+
+
+def test_ade_150_class_step_matches_cpu(cuda):
+    """One flagship S4Former step (EMA, PASA, PatchShuffle + CutMix with
+    injected boxes and permutations, NCR) with 150 classes on the decode
+    head and both aux heads, labels 0-149 and 255 as ADE20K's
+    ``reduce_zero_label`` leaves them, on the card and on the CPU from the
+    same weights: losses within 1e-4 relative, the updated parameters
+    within 1e-4 abs; 2 layers x 3 forward and 2 fused backward launches."""
+    from s4former_tpu_torch.models import build_segmentor
+    from s4former_tpu_torch.semi.config import SemiConfig
+    from s4former_tpu_torch.semi.train_step import (create_train_state,
+                                                    make_semi_train_step)
+    cpu, gpu = _vit_pair(cuda)
+    models = []
+    for model in (cpu, gpu):
+        cfg = _vit_cfg()
+        for head in [cfg['decode_head']] + cfg['auxiliary_head']:
+            head['num_classes'] = 150
+        wide = build_segmentor(cfg)
+        sd = model.state_dict()
+        gen = torch.Generator().manual_seed(3)
+        wide.load_state_dict({k: sd[k] if sd[k].shape == v.shape else
+                              0.02 * torch.randn(v.shape, generator=gen)
+                              for k, v in wide.state_dict().items()})
+        models.append(wide.to(next(model.parameters()).device))
+    flags = SemiConfig(
+        ema=True, ema_momentum=0.99, unsup_weight=1.0, unsup_confidence=0.0,
+        attn_mask_seperate_head=True, attn_mask_weight=5.0,
+        adaptive_attn_mask=True, use_PatchShuffle_w_Cutmix=True,
+        PatchMix_N=2, negative_class_ranking=True,
+        negative_class_ranking_mode='unsup_only')
+    rs = np.random.RandomState(2)
+    gt = rs.randint(0, 150, (2, 64, 64)).astype(np.int32)
+    gt[rs.rand(2, 64, 64) < 0.1] = 255
+    masks = np.ones((2, 64, 64), np.float32)
+    masks[0, 8:40, 16:48] = 0
+    masks[1, 0:32, 24:56] = 0
+    batch = {'sup_gt': gt, 'dbg_cutmix_mask': masks,
+             'dbg_patchmix_perm': np.array([[1, 0, 3, 2], [2, 3, 0, 1]],
+                                           np.int32)}
+    for key in ('sup_img', 'unsup_teacher_img', 'unsup_student_img'):
+        batch[key] = rs.randn(2, 64, 64, 3).astype(np.float32)
+    out = {}
+    for model, device in zip(models, ('cpu', cuda)):
+        state = create_train_state(model, ema=True)
+        step = make_semi_train_step(model, flags, num_classes=150,
+                                    base_lr=0.01, max_iters=100)
+        before = (fa.launch_count, fa.fused_launch_count)
+        state, logs = step(state, {k: torch.from_numpy(v).to(device)
+                                   for k, v in batch.items()},
+                           torch.Generator(device=device).manual_seed(0))
+        launches = (fa.launch_count - before[0],
+                    fa.fused_launch_count - before[1])
+        out[str(device)] = ({k: float(v) for k, v in logs.items()},
+                            {k: v.detach().cpu() for k, v in
+                             state.model.state_dict().items()}, launches)
+    (lc, sc, nc), (lg, sg, ng) = out['cpu'], out[str(cuda)]
+    assert nc == (0, 0) and ng == (6, 4)
+    assert lc['mask_ratio'] > 0 and lc['unsup.loss_ncr_unsup'] > 0
+    assert sc['decode_head.conv_seg.weight'].shape[0] == 150
+    for k, v in lc.items():
+        assert abs(lg[k] - v) <= 1e-4 * max(abs(v), 1e-3), k
+    for k, v in sc.items():
+        assert (sg[k].float() - v.float()).abs().max().item() <= 1e-4, k

@@ -18,6 +18,7 @@ import copy
 import json
 import os
 import os.path as osp
+import sys
 from unittest import mock
 
 import jax
@@ -298,19 +299,21 @@ def test_unported_train_flags_raise(argv, tmp_path):
 
 
 # what tools.test still refuses: a submission format VOC does not have,
-# the JAX eval fast mode, and the official Cityscapes evaluator
+# the JAX eval fast mode, and the official Cityscapes evaluator without
+# cityscapesscripts (JAX's ImportError; test_torch_datasets stubs it)
 @pytest.mark.parametrize('argv', [
-    (['--format-only'], {}),
-    ([], {'S4_EVAL_BUCKET': '256'}),
+    (['--format-only'], {}, NotImplementedError),
+    ([], {'S4_EVAL_BUCKET': '256'}, NotImplementedError),
     (['--eval', 'cityscapes', '--cfg-options',
       'data.test.type=CityscapesDataset', 'data.test.img_suffix=.jpg',
-      'data.test.seg_map_suffix=.png'], {})])
+      'data.test.seg_map_suffix=.png'], {}, ImportError)])
 def test_unported_test_flags_raise(argv, tmp_path, monkeypatch):
-    flags, env = argv
+    flags, env, error = argv
     for k, v in env.items():
         monkeypatch.setenv(k, v)
+    monkeypatch.setitem(sys.modules, 'cityscapesscripts', None)
     cfg_path = write_cli_config(tmp_path, _split(tmp_path, 1))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error):
         test_cli.main([cfg_path, '--device', 'cpu', '--imgfile-prefix',
                        str(tmp_path / 'fmt')] + flags)
 

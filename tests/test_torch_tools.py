@@ -60,7 +60,7 @@ from s4former_tpu_torch.tools import (benchmark, ensemble_test, get_flops,
 from s4former_tpu_torch.tools import test as test_cli
 from tests._stub_cv2 import StubCv2
 from tests._torch_port import (FIXTURE, cli_test_worker, jax_variables,
-                               run_ranks, write_cli_config)
+                               run_ranks, warm_forward, write_cli_config)
 
 REPO = Path(__file__).resolve().parents[1]
 TOOLS = REPO / 's4former_tpu_torch' / 'tools'
@@ -149,6 +149,7 @@ def test_test_cli_on_two_ranks_equals_one_process(tools_setup, case):
                 (['--aug-test'] if case == 'aug_test' else [])
         argv = [s.cfg, s.ckpts[0]] + flags
         if world == 1:
+            warm_forward(s.cfg)       # as each rank is (cli_test_worker)
             runs[world] = test_cli.main(argv + ['--device', 'cpu'])
         else:
             run_ranks(cli_test_worker, 2, argv, str(out / 'metrics.json'),
