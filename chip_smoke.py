@@ -108,12 +108,22 @@ on the card, then drives the port's paths through its entry points:
   device ms, peak memory, the floats and heads a rank); ``tools.train
   --model-parallel 2 --zero3`` on 4 ranks, 3 steps with eval and a
   checkpoint (the layout of ``train_cli``'s), resumed to 4, and
-  ``tools.test`` on it against the in-loop mIoU.
+  ``tools.test`` on it against the in-loop mIoU;
+- pipeline and context parallelism (``parallel/pp.py``,
+  ``parallel/ring_attention.py``), one ``torch.distributed.run`` of 4
+  ranks (gloo on one card) for every grid: ring attention at B = 1, L =
+  4096, H = 12 in bf16 and f32, rings of 2 (blocks of 2048: the dk/dv and
+  dq kernels) and of 4 (1024: the fused one), without and with a PASA
+  bias, against the one-process flash kernels and their plain versions;
+  GPipe of DeiT-B's 12 layers (bf16; f32 at 4) on [8, 1025, 768] tokens
+  over pipe 4 (M = 8) and data 2 x pipe 2 (M = 4), and GPipe x Megatron
+  TP over data 1 x pipe 2 x model 2 (M = 4; with sequence parallelism at
+  L = 1026), against the one-process sequential stack.
 
-Kernel #1 is held to its plain version at every forward shape a path
-launched: the shapes listed up front (the TTA and whole-image eval token
-counts worked out from the fixture images), and at the end any other
-that the launches recorded, the ranks' included.
+Each kernel is held to its plain version at every shape a path launched:
+the shapes listed up front (the TTA and whole-image eval token counts
+worked out from the fixture images, the ring's blocks), and at the end
+any other that the launches recorded, the ranks' included.
 
 Every phase prints one JSON line; any failed check raises and the script
 exits nonzero without its last line. Each path runs with the kernels'
@@ -187,6 +197,19 @@ UNSUP_CONFIDENCE_F32 = 0.07
 TOL_MIOU = 1e-3
 KERNELS = ('flash_attn_fwd', 'flash_attn_bwd_fused', 'flash_attn_bwd_dkv',
            'flash_attn_bwd_dq')
+# the ring attention phases' sequence: a 1024² image at patch 16, 64 x 64
+# tokens (the long-token use JAX ring_attention.py's docstring names); rings
+# of 2 (blocks of 2048: the dk/dv and dq kernels) and of 4 (1024: fused)
+RING_L = 4096
+RING_CPS = (2, 4)
+# a pipeline against the one-process sequential stack on the card: max abs
+# error over the reference's max |value|, per tensor (the output, x's
+# gradient, each stage parameter's). f32: the same sums on other GEMM
+# shapes (a microbatch's rows, a rank's columns). bf16: those GEMMs round
+# each output to bf16 (2^-8 of a value) at other places, and 12 layers
+# carry a layer's rounding on; a misrouted microbatch, stage or gradient sum
+# is off by O(1)
+TOL_PP = {'float32': 1e-4, 'bfloat16': 5e-2}
 # the bf16 device functions that must run on the tensor cores, fed by
 # asynchronous copies (the build phase reads their SASS), and how many
 # instances of each the libraries hold: with and without a bias, and the
@@ -250,7 +273,9 @@ def graph_time_ms(fn, iters=20) -> float:
 
 def attention_inputs(b, l, h, dtype, bias_kind, gen):
     """q, k, v as the ViT makes them (strided views of one fused qkv
-    projection) and a bias of the given kind, in their dtype."""
+    projection) and a bias of the given kind, in their dtype. 'pasa_block'
+    is a ring step's bias: the rows of one query chunk and the columns of
+    the next k/v chunk of a PASA bias over RING_L tokens, a strided view."""
     import torch
     from s4former_tpu_torch.semi.pasa import build_pasa_bias
     d = 64
@@ -261,6 +286,10 @@ def attention_inputs(b, l, h, dtype, bias_kind, gen):
     elif bias_kind == 'pasa':
         unconf = torch.rand((b, l - 1), generator=gen, device='cuda')
         bias = build_pasa_bias(unconf, 5.0, adaptive=True)
+    elif bias_kind == 'pasa_block':
+        unconf = torch.rand((b, RING_L - 1), generator=gen, device='cuda')
+        bias = build_pasa_bias(unconf, 5.0, adaptive=True).to(dtype)[
+            :, :, :l, l:2 * l]
     else:
         heads = 1 if bias_kind == 'random_b1' else h
         bias = torch.randn((b, heads, l, l), generator=gen, device='cuda')
@@ -361,9 +390,11 @@ def eval_lengths(patch=16, buckets=(16, 256)):
 
 # kernel #1's forward shapes, each (dtype, B, L, H, bias: None, 'b1' one
 # row for all heads, 'bh' one a head): those held against the plain
-# version (``check_forward``) and those launched (``record_fwd_shapes``,
-# in the parent and in every rank)
+# version (``check_forward``) and those launched (``record_shapes``, in the
+# parent and in every rank); the backward kernels' likewise, each (kernel,
+# dtype, B, L, H, bias)
 FWD_HELD, FWD_SEEN = set(), set()
+BWD_HELD, BWD_SEEN = set(), set()
 
 
 def fwd_shape(q, bias):
@@ -372,27 +403,38 @@ def fwd_shape(q, bias):
     return (str(q.dtype).replace('torch.', ''), b, l, h, kind)
 
 
-def record_fwd_shapes(fa):
-    """Wrap kernel #1's launcher so that every launch adds its shape to
-    FWD_SEEN; the launch and its count stay the launcher's."""
+def record_shapes(fa):
+    """Wrap the kernels' launchers so that every launch adds its shape to
+    FWD_SEEN or BWD_SEEN; the launch and its count stay the launcher's."""
     launch = fa._launch_fwd
 
     def recording(q, k, v, bias):
         FWD_SEEN.add(fwd_shape(q, bias))
         return launch(q, k, v, bias)
     fa._launch_fwd = recording
+    for name in BWD_WORK:
+        attr = 'launch_' + name.replace('flash_attn_', '')
+        setattr(fa, attr, _recording_bwd(name, getattr(fa, attr)))
 
 
-def phase_kernels_seen(fa, entry):
-    """Kernel #1 against its plain version at every forward shape a path
+def _recording_bwd(name, launch):
+    def recording(q, k, v, bias, *rest):
+        BWD_SEEN.add((name,) + fwd_shape(q, bias))
+        return launch(q, k, v, bias, *rest)
+    return recording
+
+
+def phase_kernels_seen(fa, entries):
+    """Each kernel against its plain version at every shape a path
     launched that no earlier check held (random inputs, a random bias of
     the path's kind), so that no shape a path brings goes unheld; adds
-    them to the kernels line's ``entry``. The shapes held here belong in
-    ``phase_kernels``' list."""
+    them to the kernels line's ``entries``. The shapes held here belong in
+    ``phase_kernels``' or ``phase_kernels_bwd``'s lists."""
     import torch
     gen = torch.Generator(device='cuda').manual_seed(2)
     late = sorted(FWD_SEEN - FWD_HELD, key=str)
     kinds = {None: None, 'b1': 'random_b1', 'bh': 'random_bh'}
+    entry = entries['flash_attn_fwd']
     for name, b, l, h, kind in late:
         q, k, v, bias = attention_inputs(b, l, h, getattr(torch, name),
                                          kinds[kind], gen)
@@ -407,10 +449,50 @@ def phase_kernels_seen(fa, entry):
             entry['max_abs_err'] = max(entry['max_abs_err'], err_o)
         del q, k, v, bias, o, lse
     entry['shapes_held_late'] = late
+    late_bwd = sorted(BWD_SEEN - BWD_HELD, key=str)
+    for kernel, name, b, l, h, kind in late_bwd:
+        where = f'{kernel} {name} B={b} L={l} H={h} bias={kind}'
+        q, k, v, bias = attention_inputs(b, l, h, getattr(torch, name),
+                                         kinds[kind], gen)
+        do = torch.randn(q.shape, generator=gen, device='cuda').to(q.dtype)
+        o, lse = fa.flash_attention_fwd(q, k, v, bias)
+        ref = fa.flash_attention_backward_reference(q, k, v, bias, o, lse,
+                                                    do)
+        args = (q, k, v, bias, do, lse, fa.row_delta(o, do))
+        got = getattr(fa, 'launch_' + kernel.replace('flash_attn_', ''))(
+            *args)
+        if kernel == 'flash_attn_bwd_dkv':
+            got = (ref[0],) + tuple(got)
+        elif kernel == 'flash_attn_bwd_dq':
+            got = (got,) + tuple(ref[1:])
+        torch.cuda.synchronize()
+        errs, peaks = grad_errors(got, ref)
+        rel = max(e / p for e, p in zip(errs, peaks))
+        emit({'phase': 'kernel_check_bwd', 'for': 'seen_on_a_path',
+              'kernel': kernel, 'dtype': name, 'B': b, 'L': l, 'H': h,
+              'D': 64, 'bias': kind, 'abs_err_dq_dk_dv': errs,
+              'max_abs_dq_dk_dv': peaks, 'max_rel_err': rel,
+              'tol': TOL_BWD[name]})
+        check(rel <= TOL_BWD[name], f'{kernel} disagrees with the plain '
+              f'backward: {where} err={errs} max |grad|={peaks}')
+        BWD_HELD.add((kernel, name, b, l, h, kind))
+        if name == 'bfloat16':
+            entries[kernel]['max_abs_err'] = max(
+                entries[kernel]['max_abs_err'], max(errs))
+            entries[kernel]['max_rel_err'] = max(
+                entries[kernel]['max_rel_err'], rel)
+        del q, k, v, bias, do, o, lse, ref, args, got
+    for kernel in BWD_WORK:
+        entries[kernel]['shapes_held_late'] = [s[1:] for s in late_bwd
+                                               if s[0] == kernel]
     emit({'phase': 'kernel_shapes', 'launched': len(FWD_SEEN),
-          'held': len(FWD_HELD), 'held_late': late})
+          'held': len(FWD_HELD), 'held_late': late,
+          'bwd_launched': len(BWD_SEEN), 'bwd_held': len(BWD_HELD),
+          'bwd_held_late': late_bwd})
     check(FWD_SEEN <= FWD_HELD, 'forward shapes launched but not held: '
           f'{sorted(FWD_SEEN - FWD_HELD, key=str)}')
+    check(BWD_SEEN <= BWD_HELD, 'backward shapes launched but not held: '
+          f'{sorted(BWD_SEEN - BWD_HELD, key=str)}')
 
 
 def phase_kernels(fa, tta_ls, eval_ls):
@@ -488,7 +570,8 @@ def phase_kernels_bwd(fa):
     pass's 16 with PASA; the CLI's 4 + 4: B = 4 and 8 with PASA; the 2 + 2
     f32 steps, a data-parallel rank's among them: B = 2 and 4 with PASA;
     no bias / PASA / per-head bias), the ragged L = 130 and L = 2305 (768²
-    crops);
+    crops), and a ring block of RING_L tokens over 2 and 4 ranks (L = 2048
+    and 1024, no bias and a PASA bias's strided column block);
     the forward that gives them o and lse is held to the plain forward at
     each. Times at the headline shapes, and the forward's at the training
     shapes. Returns the kernels line's entries, the forward's max abs
@@ -501,16 +584,20 @@ def phase_kernels_bwd(fa):
               (16, 1025, 'pasa'),
               (2, 130, 'random_b1'), (2, 130, None), (2, 2305, None),
               (1, 2305, 'pasa')]
+    ring = [(1, RING_L // cp, kind) for cp in RING_CPS
+            for kind in (None, 'pasa_block')]
+    shapes += ring
     # the training steps' shapes (teacher and sup pass; fused 2B pass) at
     # 8 + 8 and 4 + 4
     train_shapes = {('bfloat16', 8, 1025, None),
                     ('bfloat16', 16, 1025, 'pasa'),
                     ('bfloat16', 4, 1025, None),
                     ('bfloat16', 8, 1025, 'pasa')}
-    timed = train_shapes | {('bfloat16', 1, 1025, None),
-                            ('bfloat16', 2, 2305, None),
-                            ('bfloat16', 1, 2305, 'pasa')}
-    fwd_timed = train_shapes
+    ring_timed = {('bfloat16',) + shape for shape in ring}
+    timed = train_shapes | ring_timed | {('bfloat16', 1, 1025, None),
+                                         ('bfloat16', 2, 2305, None),
+                                         ('bfloat16', 1, 2305, 'pasa')}
+    fwd_timed = train_shapes | ring_timed
     fwd_cases = []
     launchers = {'flash_attn_bwd_fused': fa.launch_bwd_fused,
                  'flash_attn_bwd_dkv': fa.launch_bwd_dkv,
@@ -574,6 +661,7 @@ def phase_kernels_bwd(fa):
                       f'non-finite {name} {where}')
                 check(rel <= tol, f'{name} disagrees with the plain backward:'
                       f' {where} err={errs} max |grad|={peaks}')
+                BWD_HELD.add((name,) + fwd_shape(q, bias))
             del ref, runs, args, o, lse, do, dk, dv, delta
     out = {}
     headline = {'flash_attn_bwd_fused': (16, 1025, 'pasa'),
@@ -617,18 +705,21 @@ def phase_kernels_tp(fa, entries):
     [B, L, 3 H 64] product, as the sharded ViT makes them), f32 and bf16,
     at the tolerances above. The forward at every B the sharded paths
     launch at L = 1025 (no bias and PASA's b1 bias) and at the eval's
-    B = 4, L = 1377, timed at B = 8 and 16 and at the eval shape; the
-    fused backward at B = 8, L = 1025; the dk/dv and dq kernels at B = 2,
-    L = 2305. Each timed row with its bound, the plain version's time and
+    B = 4, L = 1377 and at the pipeline x TP ranks' B = 2, L = 1026
+    (sequence parallelism's pad), timed at B = 8 and 16 and at the eval
+    shape; the fused backward at B = 8, L = 1025 and at those ranks' B = 2,
+    L = 1025 and 1026; the dk/dv and dq kernels at B = 2, L = 2305. Each timed row with its bound, the plain version's time and
     the library call's. The rows go to the kernels line's entries
     (``cases``, with their H)."""
     import torch
     gen = torch.Generator(device='cuda').manual_seed(3)
     fwd_shapes = [(b, 1025, kind) for b in (2, 4, 8, 16)
-                  for kind in (None, 'pasa')] + [(4, 1377, None)]
+                  for kind in (None, 'pasa')] + [(4, 1377, None),
+                                                 (2, 1026, None)]
     fwd_timed = {(8, 1025, None), (8, 1025, 'pasa'), (16, 1025, None),
                  (16, 1025, 'pasa'), (4, 1377, None)}
-    bwd_shapes = [(8, 1025, None), (8, 1025, 'pasa'), (2, 2305, None)]
+    bwd_shapes = [(8, 1025, None), (8, 1025, 'pasa'), (2, 2305, None),
+                  (2, 1025, None), (2, 1026, None)]
     launchers = {'flash_attn_bwd_fused': fa.launch_bwd_fused,
                  'flash_attn_bwd_dkv': fa.launch_bwd_dkv,
                  'flash_attn_bwd_dq': fa.launch_bwd_dq}
@@ -704,6 +795,7 @@ def phase_kernels_tp(fa, entries):
                     check(rel <= TOL_BWD[dname], f'{name} disagrees with the '
                           f'plain backward: {where} err={errs} max '
                           f'|grad|={peaks}')
+                    BWD_HELD.add((name,) + fwd_shape(q, bias))
                 del q, k, v, bias, do, o, lse, args, ref
 
 
@@ -3471,12 +3563,16 @@ def state_tensors(state):
 def identical_across_ranks(state):
     """Every tensor of the state bit for bit rank 0's, on every rank (of a
     split state, every tensor each rank holds whole)."""
+    split = set(state.plan.split_names()) if state.plan else set()
+    return same_on_every_rank([
+        t for sd in (state.model.state_dict(), state.ema_model.state_dict(),
+                     state.momentum) for n, t in sd.items() if n not in split])
+
+
+def same_on_every_rank(tensors):
+    """The tensors bit for bit rank 0's on every rank of the world."""
     import torch
     import torch.distributed as dist
-    split = set(state.plan.split_names()) if state.plan else set()
-    tensors = [t for sd in (state.model.state_dict(),
-                            state.ema_model.state_dict(), state.momentum)
-               for n, t in sd.items() if n not in split]
     flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
     ref = flat.clone()
     dist.broadcast(ref, 0)
@@ -3668,10 +3764,224 @@ def tp_rank_train_bf16(fa, spec, device):
             'same': identical_across_ranks(state), 'logs': floats(logs)}
 
 
+def rel_err(got, ref):
+    """The max abs error over the reference's max |value|."""
+    ref = ref.float()
+    return (got.float() - ref).abs().max().item() / max(
+        ref.abs().max().item(), 1e-30)
+
+
+def ring_rank_case(fa, device, dtype, cp, bias_kind):
+    """One case of ring_attention_*: the rings of ``cp`` ranks (a data
+    axis of 4 / cp) run ``ring_attention_sharded`` on the same whole q, k,
+    v [1, RING_L, 12, 64] (and a PASA bias [1, 1, RING_L, RING_L]) and the
+    backward of sum(o * do), counted; then, outside the count, the rank's
+    lse by ``ring_attention_fwd``, and rank 0 holds o, lse, dq, dk and dv
+    to the one-process flash kernels on the whole sequence and to their
+    plain versions."""
+    import torch
+    from s4former_tpu_torch.parallel.distributed import ctx_rank, rank
+    from s4former_tpu_torch.parallel.mesh import make_cp_mesh, reset_mesh
+    from s4former_tpu_torch.parallel.ring_attention import (
+        ring_attention_fwd, ring_attention_sharded)
+    make_cp_mesh(cp)
+    gen = torch.Generator(device=device).manual_seed(11)
+    q, k, v, bias = attention_inputs(1, RING_L, 12, dtype, bias_kind, gen)
+    do = torch.randn(q.shape, generator=gen, device=device).to(dtype)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    torch.cuda.synchronize(device)
+    reset_counts(fa)                               # the main path starts
+    t0 = time.perf_counter()
+    o = ring_attention_sharded(*leaves, bias)
+    (o.float() * do.float()).sum().backward()
+    torch.cuda.synchronize(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = counts(fa)                          # the main path ends
+    grads = [t.grad for t in leaves]
+    out = {'cp': cp, 'bias': bias_kind, 'ms': ms, 'launches': launches,
+           'same_on_every_rank': same_on_every_rank([o] + grads)}
+    n = RING_L // cp
+    rows = slice(ctx_rank() * n, (ctx_rank() + 1) * n)
+    _, lse = ring_attention_fwd(q[:, rows], k[:, rows], v[:, rows],
+                                None if bias is None else bias[:, :, rows])
+    if rank() == 0:
+        o_k, lse_k = fa.flash_attention_fwd(q, k, v, bias)
+        g_k = fa.flash_attention_bwd(q, k, v, bias, o_k, lse_k, do)
+        o_p, lse_p = fa.flash_attention_reference(q, k, v, bias)
+        g_p = fa.flash_attention_backward_reference(q, k, v, bias, o_p,
+                                                    lse_p, do)
+        for key, (o_r, lse_r, g_r) in (('vs_kernel', (o_k, lse_k, g_k)),
+                                       ('vs_plain', (o_p, lse_p, g_p))):
+            out[key] = {
+                'o': (o.float() - o_r.float()).abs().max().item(),
+                'lse': (lse - lse_r[:, :, rows]).abs().max().item(),
+                'dq_dk_dv': [rel_err(a, b) for a, b in zip(grads, g_r)]}
+        del o_k, lse_k, g_k, o_p, lse_p, g_p
+    reset_mesh()
+    return out
+
+
+def seeded_layers(num_layers, dtype, device, seed=21):
+    """DeiT-B's transformer layers (768 wide, 12 heads, 3072 hidden) in
+    ``dtype`` with seeded weights, the same on every rank: N(0, 0.02),
+    LayerNorm scales N(1, 0.02)."""
+    import torch
+    from s4former_tpu_torch.models.backbones.vit import \
+        TransformerEncoderLayer
+    gen = torch.Generator().manual_seed(seed)
+    layers = torch.nn.ModuleList([
+        TransformerEncoderLayer(768, 12, 3072, dtype=getattr(torch, dtype))
+        for _ in range(num_layers)])
+    with torch.no_grad():
+        for name, p in layers.named_parameters():
+            mean = 1.0 if name.endswith(('ln1.weight', 'ln2.weight')) \
+                else 0.0
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.02 + mean)
+    return layers.to(device)
+
+
+def token_batch(l, dtype, device, seed):
+    """Tokens [8, l, 768] and an output cotangent, the same on every
+    rank."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn((8, l, 768), generator=gen,
+                        device=device).to(getattr(torch, dtype))
+            for _ in range(2)]
+
+
+def stack_reference(layers, x, cot):
+    """The one-process sequential stack: its output, and the gradients of
+    sum(out * cot) in x and in every parameter (by the stack's names)."""
+    xr = x.detach().requires_grad_()
+    out = xr
+    for layer in layers:
+        out = layer(out)
+    (out.float() * cot.float()).sum().backward()
+    ref = {'out': out.detach(), 'x_grad': xr.grad,
+           'grads': {n: p.grad for n, p in layers.named_parameters()}}
+    for p in layers.parameters():
+        p.grad = None
+    return ref
+
+
+def timed_pipeline(fa, device, run, x, cot):
+    """``run(x)`` and the backward of sum(out * cot), counted and timed:
+    (out, x's gradient, ms, launches)."""
+    import torch
+    xr = x.detach().requires_grad_()
+    torch.cuda.synchronize(device)
+    reset_counts(fa)                               # the main path starts
+    t0 = time.perf_counter()
+    out = run(xr)
+    (out.float() * cot.float()).sum().backward()
+    torch.cuda.synchronize(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, xr.grad, ms, counts(fa)            # the main path ends
+
+
+def pp_rank_case(fa, device, layers, x, cot, ref, stages, m):
+    """One grid of pp_*: GPipe of ``layers`` over ``stages`` (the rest of
+    the 4 ranks the data axis), M = m, against ``ref``."""
+    from s4former_tpu_torch.parallel.distributed import data_size, pipe_rank
+    from s4former_tpu_torch.parallel.mesh import make_pp_mesh, reset_mesh
+    from s4former_tpu_torch.parallel.pp import pipeline_apply, stage_layers
+    make_pp_mesh(stages)
+    stage = stage_layers(layers)
+    first = pipe_rank() * len(stage)
+    out, x_grad, ms, launches = timed_pipeline(
+        fa, device, lambda xr: pipeline_apply(None, stage, xr, m), x, cot)
+    grad_err = 0.0
+    for name, p in stage.named_parameters():
+        i, rest = name.split('.', 1)
+        grad_err = max(grad_err, rel_err(
+            p.grad, ref['grads'][f'{first + int(i)}.{rest}']))
+        p.grad = None
+    res = {'grid': f'data {data_size()} x pipe {stages}', 'M': m,
+           'stages': stages, 'stage': pipe_rank(), 'layers': len(stage),
+           'ms': ms,
+           'launches': launches, 'out': rel_err(out, ref['out']),
+           'x_grad': rel_err(x_grad, ref['x_grad']), 'grads': grad_err,
+           'stage_param_floats': sum(p.numel() for p in stage.parameters()),
+           'stack_param_floats': sum(p.numel() for p in layers.parameters())}
+    reset_mesh()
+    return res
+
+
+def pp_tp_rank_case(fa, device, layers, x, cot, ref, sequence_parallel):
+    """One case of pp_tp_bf16: data 1 x pipe 2 x model 2, M = 4,
+    ``pipeline_apply_tp`` of the rank's leaves against ``ref`` (the
+    reference's gradients cut to the rank's pieces by the same plan)."""
+    from s4former_tpu_torch.parallel import tp
+    from s4former_tpu_torch.parallel.distributed import model_rank, pipe_rank
+    from s4former_tpu_torch.parallel.mesh import make_pp_tp_mesh, reset_mesh
+    from s4former_tpu_torch.parallel.pp import (LEAF_NAMES, pipeline_apply_tp,
+                                                stage_layers, tp_stage_leaves)
+    make_pp_tp_mesh(2, 2)
+    leaves = tp_stage_leaves(layers)
+    stage = stage_layers(layers)
+    plan = tp.ShardPlan(tp.param_specs(
+        {n: tuple(p.shape) for n, p in stage.named_parameters()}, 2), 2, 1)
+    first = pipe_rank() * len(stage)
+    out, x_grad, ms, launches = timed_pipeline(
+        fa, device, lambda xr: pipeline_apply_tp(leaves, xr, 4, 12,
+                                                 sequence_parallel), x, cot)
+    grad_err = max(
+        rel_err(leaf[short].grad,
+                plan.local(f'{i}.{name}', ref['grads'][f'{first + i}.{name}']))
+        for i, leaf in enumerate(leaves) for name, short in LEAF_NAMES)
+    res = {'grid': 'data 1 x pipe 2 x model 2', 'M': 4, 'stages': 2,
+           'layers': len(stage), 'sequence_parallel': sequence_parallel,
+           'L': x.shape[1], 'stage': pipe_rank(),
+           'model_rank': model_rank(), 'ms': ms,
+           'launches': launches, 'out': rel_err(out, ref['out']),
+           'x_grad': rel_err(x_grad, ref['x_grad']), 'grads': grad_err,
+           'leaf_floats': sum(p.numel() for p in leaves.parameters())}
+    reset_mesh()
+    return res
+
+
+def pp_rank_phases(fa, spec, device):
+    """One of the 4 ranks of the pipeline and ring phases (every grid
+    of them in one start-up): ring_attention_{bf16,f32}, then pp_bf16 (12
+    layers) and pp_f32 (4) on pipe 4 (M = 8) and data 2 x pipe 2 (M = 4),
+    then pp_tp_bf16 without and with sequence parallelism (L = 1025,
+    1026), each against the one-process sequential stack of the same
+    seeded layers on the same tokens."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {'ring': [], 'pp': [], 'pp_tp': []}
+    for dtype in (torch.bfloat16, torch.float32):
+        for cp in RING_CPS:
+            for bias_kind in (None, 'pasa'):
+                out['ring'].append(dict(ring_rank_case(
+                    fa, device, dtype, cp, bias_kind),
+                    dtype=str(dtype).replace('torch.', '')))
+    for dtype, depth in (('bfloat16', 12), ('float32', 4)):
+        layers = seeded_layers(depth, dtype, device)
+        x, cot = token_batch(1025, dtype, device, seed=22)
+        ref = stack_reference(layers, x, cot)
+        for stages, m in ((4, 8), (2, 4)):
+            out['pp'].append(dict(pp_rank_case(fa, device, layers, x, cot,
+                                               ref, stages, m),
+                                  dtype=dtype, depth=depth))
+        if dtype == 'bfloat16':
+            for sp, l in ((False, 1025), (True, 1026)):
+                if l != x.shape[1]:
+                    x, cot = token_batch(l, dtype, device, seed=23)
+                    ref = stack_reference(layers, x, cot)
+                out['pp_tp'].append(pp_tp_rank_case(fa, device, layers, x,
+                                                    cot, ref, sp))
+        del layers, x, cot, ref
+        torch.cuda.empty_cache()
+    return out
+
+
 DP_RANK_PHASES = {'step_f32': dp_rank_step_f32,
                   'tp_train_bf16': tp_rank_train_bf16,
                   'train_bf16': dp_rank_train_bf16, 'cli': dp_rank_cli,
-                  'test': dp_rank_test}
+                  'test': dp_rank_test, 'parallel': pp_rank_phases}
 
 
 def dp_worker(kind, spec_path):
@@ -3690,7 +4000,7 @@ def dp_worker(kind, spec_path):
     from s4former_tpu_torch.parallel.distributed import init_distributed
     fa.load_library()                              # built by the parent
     fa.load_bwd_library()
-    record_fwd_shapes(fa)
+    record_shapes(fa)
     device = None
     if kind not in ('cli', 'test'):
         device = init_distributed('env', backend=spec['backend'],
@@ -3701,6 +4011,7 @@ def dp_worker(kind, spec_path):
         if device is not None:
             torch.distributed.destroy_process_group()
     result['fwd_shapes'] = sorted(FWD_SEEN, key=str)
+    result['bwd_shapes'] = sorted(BWD_SEEN, key=str)
     with open(f"{spec['out']}.rank{os.environ['RANK']}.json", 'w') as f:
         json.dump(result, f)
     return 0
@@ -3728,6 +4039,7 @@ def run_ranks(kind, spec, n, directory, timeout):
         with open(f"{spec['out']}.rank{r}.json") as f:
             results.append(json.load(f))
         FWD_SEEN.update(tuple(x) for x in results[-1]['fwd_shapes'])
+        BWD_SEEN.update(tuple(x) for x in results[-1]['bwd_shapes'])
     return results, proc.stdout
 
 
@@ -4304,6 +4616,100 @@ def run_dp(fa, images, gpu_line, root):
     return paths
 
 
+def ring_launches(fa, cp):
+    """A rank's launches in one ring call: one forward a step; the fused
+    backward a step for chunks up to FULL_Q_MAX, else dk/dv and dq."""
+    long_blocks = RING_L // cp > fa.FULL_Q_MAX
+    return {'flash_attn_fwd': cp,
+            'flash_attn_bwd_fused': 0 if long_blocks else cp,
+            'flash_attn_bwd_dkv': cp if long_blocks else 0,
+            'flash_attn_bwd_dq': cp if long_blocks else 0}
+
+
+def run_pp(fa, gpu_line, root):
+    """The pipeline- and context-parallel slice: one ``torch.distributed
+    .run`` of 4 ranks (gloo, every rank on cuda:0) serves every grid
+    (``pp_rank_phases``); prints ring_attention_bf16, ring_attention_f32,
+    pp_bf16, pp_f32, pp_tp_bf16 and 'pp_seconds' and fails unless each
+    case holds its tolerance and each rank launched exactly the kernels
+    its grid implies. Returns the ranks' launches summed, by path."""
+    t0 = time.perf_counter()
+    ranks, _ = run_ranks('parallel', {'backend': 'gloo', 'device': 'cuda:0'},
+                         4, root, 600)
+    run_s = time.perf_counter() - t0
+    paths = {'ring_attention': {n: 0 for n in KERNELS},
+             'pp': {n: 0 for n in KERNELS}, 'pp_tp': {n: 0 for n in KERNELS}}
+    for dname in ('bfloat16', 'float32'):
+        short = {'bfloat16': 'bf16', 'float32': 'f32'}[dname]
+        cases = []
+        for i, case in enumerate(ranks[0]['ring']):
+            if case['dtype'] != dname:
+                continue
+            per_rank = [r['ring'][i] for r in ranks]
+            want = ring_launches(fa, case['cp'])
+            for r in per_rank:
+                check(r['launches'] == want, f'ring cp={case["cp"]} '
+                      f'{dname}: a rank launched {r["launches"]}, not {want}')
+                check(r['same_on_every_rank'], f'ring cp={case["cp"]}: '
+                      f'ranks differ')
+                paths['ring_attention'] = add_counts(
+                    paths['ring_attention'], r['launches'])
+            for key in ('vs_kernel', 'vs_plain'):
+                errs = case[key]
+                check(errs['o'] <= TOL[dname]['o'] and
+                      errs['lse'] <= TOL[dname]['lse'] and
+                      max(errs['dq_dk_dv']) <= TOL_BWD[dname],
+                      f'ring cp={case["cp"]} bias={case["bias"]} {dname} '
+                      f'{key}: {errs}')
+            cases.append({**{k: v for k, v in case.items()
+                             if k not in ('launches', 'ms')},
+                          'ms_per_rank': [r['ms'] for r in per_rank],
+                          'launches_per_rank': [r['launches']
+                                                for r in per_rank],
+                          'block_L': RING_L // case['cp']})
+        emit({'phase': f'ring_attention_{short}', 'B': 1, 'L': RING_L,
+              'H': 12, 'D': 64, 'ranks': 4,
+              'grid': 'data 4 / cp x ctx cp, gloo on cuda:0', 'cases': cases,
+              'tol_o': TOL[dname]['o'], 'tol_lse': TOL[dname]['lse'],
+              'tol_grad': TOL_BWD[dname],
+              'errors_are': 'o, lse: max abs error; dq, dk, dv: max abs '
+                            'error / max |grad| of the reference',
+              'gpu': gpu_line})
+    for key, phases in (('pp', ('pp_bf16', 'pp_f32')),
+                        ('pp_tp', ('pp_tp_bf16',))):
+        for phase in phases:
+            dname = 'float32' if phase.endswith('f32') else 'bfloat16'
+            cases = []
+            for i, case in enumerate(ranks[0][key]):
+                if case.get('dtype', 'bfloat16') != dname:
+                    continue
+                per_rank = [r[key][i] for r in ranks]
+                # every tick's layers, forward and backward
+                per = (case['M'] + case['stages'] - 1) * case['layers']
+                want = {'flash_attn_fwd': per, 'flash_attn_bwd_fused': per,
+                        'flash_attn_bwd_dkv': 0, 'flash_attn_bwd_dq': 0}
+                for r in per_rank:
+                    check(r['launches'] == want, f'{phase} {case["grid"]}: '
+                          f'a rank launched {r["launches"]}, not {want}')
+                    worst = max(r['out'], r['x_grad'], r['grads'])
+                    check(worst <= TOL_PP[dname], f'{phase} {case["grid"]} '
+                          f'stage {r["stage"]}: out {r["out"]}, x grad '
+                          f'{r["x_grad"]}, stage grads {r["grads"]} > '
+                          f'{TOL_PP[dname]}')
+                    paths[key] = add_counts(paths[key], r['launches'])
+                cases.append({'grid': case['grid'], 'M': case['M'],
+                              'per_rank': per_rank})
+            emit({'phase': phase, 'tokens': '[8, 1025, 768]' if key == 'pp'
+                  else '[8, 1025 | 1026, 768]', 'heads': 12,
+                  'layers': 4 if dname == 'float32' else 12,
+                  'cases': cases, 'tol': TOL_PP[dname],
+                  'errors_are': 'max abs error / max |value| of the '
+                                'one-process sequential stack, per tensor',
+                  'gpu': gpu_line})
+    emit({'phase': 'pp_seconds', 'run_s': run_s})
+    return paths
+
+
 def phase_build(libs, seconds):
     """Per kernel function of the built libraries: registers and spills
     (ptxas), tensor-core instructions and asynchronous copies (SASS). Every
@@ -4356,7 +4762,7 @@ def main() -> int:
         native_lib = native_lib.result()
     fa.load_library()
     fa.load_bwd_library()
-    record_fwd_shapes(fa)
+    record_shapes(fa)
     phase_build(libs, time.perf_counter() - t0)
 
     images = sorted(glob.glob(IMAGES))
@@ -4461,9 +4867,11 @@ def main() -> int:
         paths.update(run_unimatch(fa, images, gpu_line, root))
         # data parallelism: 2 ranks
         paths.update(run_dp(fa, images, gpu_line, root))
+        # pipeline and context parallelism: 4 ranks
+        paths.update(run_pp(fa, gpu_line, root))
 
-    # kernel #1 at each forward shape the paths launched
-    phase_kernels_seen(fa, fwd)
+    # each kernel at each shape the paths launched
+    phase_kernels_seen(fa, entries)
     for name in KERNELS:
         entries[name]['launches'] = sum(p[name] for p in paths.values())
         entries[name]['launches_by_path'] = {k: p[name]

@@ -24,11 +24,13 @@ The backend is NCCL for CUDA devices and gloo for the CPU unless the
 caller names one. NCCL takes one card per rank: more ranks on a host than
 it has cards is an error, never a silent fallback to gloo.
 
-The ranks form a (data, model) grid, JAX ``make_mesh``'s layout
-(``parallel/mesh.py:make_mesh`` builds it): rank ``r`` is data index
-``r // mp`` and model index ``r % mp``. Without a grid (or with mp = 1)
-the data axis is the world. A data group's ranks feed the same rows
-(``local_batch_slice``).
+The ranks form a grid of up to four axes, (data, pipe, ctx, model), the
+last fastest: rank ``r`` is ``((d * pp + p) * cp + c) * mp + m``. The
+functions in ``parallel/mesh.py`` lay out JAX's meshes on it: ``make_mesh``
+(data, model), ``make_pp_mesh`` (data, pipe), ``make_pp_tp_mesh`` (data,
+pipe, model) and ``make_cp_mesh`` (data, ctx); an axis a mesh lacks has
+size 1. Without a grid the data axis is the world. A data group's ranks
+feed the same rows (``local_batch_slice``).
 """
 from __future__ import annotations
 
@@ -38,9 +40,10 @@ from typing import Dict, Mapping, Optional
 import torch
 import torch.distributed as dist
 
-# the model axis's size and the two groups of this rank (None: the world),
-# set by ``parallel.mesh.make_mesh``
-_GRID = {'mp': 1, 'data': None, 'model': None}
+# the sizes of the pipe, ctx and model axes and this rank's group of each
+# axis (None: the world), set by the mesh functions of ``parallel.mesh``
+_GRID = {'pp': 1, 'cp': 1, 'mp': 1, 'data': None, 'pipe': None,
+         'ctx': None, 'model': None}
 
 
 def _first_host(nodelist: str) -> str:
@@ -162,13 +165,32 @@ def model_rank() -> int:
     return rank() % model_size()
 
 
+def pipe_size() -> int:
+    """The pipe axis's size: the stages of a pipeline (1 without one)."""
+    return _GRID['pp']
+
+
+def pipe_rank() -> int:
+    return rank() // (_GRID['cp'] * _GRID['mp']) % _GRID['pp']
+
+
+def ctx_size() -> int:
+    """The ctx axis's size: the ranks that split one sequence (1 without
+    a ring)."""
+    return _GRID['cp']
+
+
+def ctx_rank() -> int:
+    return rank() // _GRID['mp'] % _GRID['cp']
+
+
 def data_size() -> int:
     """The data axis's size: the ranks that feed distinct rows."""
-    return world_size() // model_size()
+    return world_size() // (_GRID['pp'] * _GRID['cp'] * _GRID['mp'])
 
 
 def data_rank() -> int:
-    return rank() // model_size()
+    return rank() // (_GRID['pp'] * _GRID['cp'] * _GRID['mp'])
 
 
 def data_group():
@@ -178,6 +200,14 @@ def data_group():
 
 def model_group():
     return _GRID['model']
+
+
+def pipe_group():
+    return _GRID['pipe']
+
+
+def ctx_group():
+    return _GRID['ctx']
 
 
 def local_batch_slice(global_batch: int) -> slice:

@@ -1,5 +1,6 @@
-"""The (data, model) rank grid over ``torch.distributed`` (counterpart of
-``s4former_tpu/parallel/mesh.py``).
+"""The rank grid over ``torch.distributed`` (counterpart of
+``s4former_tpu/parallel/mesh.py``, and of the meshes of JAX
+``parallel/pp.py`` and ``parallel/ring_attention.py``).
 
 The rule, the JAX package's: the N-rank step computes the single-process
 step on the global batch. Under ``jax.jit`` XLA derives each collective
@@ -8,8 +9,12 @@ the identity without a process group.
 
 ``make_mesh(model_parallel)`` lays the ranks out as JAX ``make_mesh``
 does: rank r is data index r // mp and model index r % mp, with one
-``dist.new_group`` per data axis and per model axis. The data axis's
-collectives (each over the rank's data group; the world when mp = 1):
+``dist.new_group`` per data axis and per model axis. ``make_pp_mesh``,
+``make_pp_tp_mesh`` and ``make_cp_mesh`` add a pipe axis (the stages of
+``parallel/pp.py``) and a ctx axis (the rings of
+``parallel/ring_attention.py``) in their JAX layouts; ``reset_mesh`` undoes
+any of them. The data axis's collectives (each over the rank's data group;
+the world without a grid):
 
 - ``shard_batch``: the data index's contiguous block of each batch array;
 - ``replicate_state``: parameters, buffers, the EMA teacher and the SGD
@@ -39,6 +44,21 @@ ZeRO-3 gather; ``parallel/tp.py`` places them):
 - ``gather_from_data``: a ZeRO-3 shard all-gathered over the data group,
   its gradient reduce-scattered back.
 
+Those four are cases of collectives over any axis that autograd goes
+through, which the pipeline and the ring use as they are:
+
+- ``ppermute(x, axis, shift)``: JAX ``lax.ppermute`` by a shift (a
+  pipeline's hop to the next stage, a ring's k/v rotation); its backward
+  shifts back;
+- ``axis_sum``: all-reduce forward, identity backward (a pipeline's final
+  sum over 'pipe');
+- ``sum_grads``: identity forward, the gradients all-reduced in one
+  bucket (a stage's parameters over 'data');
+- ``axis_slice`` / ``axis_gather``: a rank's chunk of a tensor every rank
+  holds, and the chunks gathered, each the other's backward (a batch's
+  rows, a sequence's chunk); ``axis_gather(summed=True)`` and
+  ``axis_reduce_scatter`` are Megatron-SP's conjugate pair.
+
 Only ``all_reduce`` and ``broadcast`` are used: gloo runs both on CUDA
 tensors too, so several ranks may share one card with gloo.
 ``all_gather`` and ``reduce_scatter`` are written on ``all_reduce``: a
@@ -49,17 +69,20 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from s4former_tpu_torch.parallel import distributed as _dist
-from s4former_tpu_torch.parallel.distributed import (data_group, data_rank,
-                                                     data_size,
+from s4former_tpu_torch.parallel.distributed import (ctx_group, ctx_rank,
+                                                     ctx_size, data_group,
+                                                     data_rank, data_size,
                                                      local_batch_slice,
                                                      model_group, model_rank,
-                                                     model_size, world_size)
+                                                     model_size, pipe_group,
+                                                     pipe_rank, pipe_size,
+                                                     world_size)
 
 Tensor = torch.Tensor
 
@@ -68,33 +91,68 @@ Tensor = torch.Tensor
 _SEGMENTS = contextvars.ContextVar('s4_batch_segments', default=1)
 
 
+def _make_grid(what: str, pp: int = 1, cp: int = 1, mp: int = 1) -> None:
+    """Lay the world out as the (data, pipe, ctx, model) grid of these axis
+    sizes, the model axis fastest (``parallel.distributed``'s rank rule),
+    with one ``dist.new_group`` per row of each axis longer than 1 and of
+    the data axis. Every rank creates every group, in the same order."""
+    n = world_size()
+    inner = pp * cp * mp
+    if min(pp, cp, mp) < 1 or n % inner:
+        raise ValueError(f'{n} ranks do not divide into {what}')
+    grid = {'pp': pp, 'cp': cp, 'mp': mp, 'data': None, 'pipe': None,
+            'ctx': None, 'model': None}
+    if inner > 1:
+        r = _dist.rank()
+        for axis, size, stride in (('data', n // inner, inner),
+                                   ('pipe', pp, cp * mp), ('ctx', cp, mp),
+                                   ('model', mp, 1)):
+            if axis != 'data' and size == 1:
+                continue
+            for first in range(n):
+                if first // stride % size:
+                    continue
+                ranks = [first + i * stride for i in range(size)]
+                g = dist.new_group(ranks)
+                if r in ranks:
+                    grid[axis] = g
+    _dist._GRID.update(grid)
+
+
 def make_mesh(model_parallel: int = 1) -> None:
     """Lay the world out as a (data, model) grid of ``model_parallel``
-    model ranks (JAX ``make_mesh``); every rank must call it. mp = 1 keeps
-    the world as the data axis and makes no group."""
-    n = world_size()
-    if model_parallel < 1 or n % model_parallel:
-        raise ValueError(f'{n} ranks do not divide into model axes of '
-                         f'{model_parallel}')
-    grid = {'mp': model_parallel, 'data': None, 'model': None}
-    if model_parallel > 1:
-        r, dp = _dist.rank(), n // model_parallel
-        # every rank creates every group, in the same order
-        for m in range(model_parallel):
-            g = dist.new_group([d * model_parallel + m for d in range(dp)])
-            if r % model_parallel == m:
-                grid['data'] = g
-        for d in range(dp):
-            g = dist.new_group(list(range(d * model_parallel,
-                                          (d + 1) * model_parallel)))
-            if r // model_parallel == d:
-                grid['model'] = g
-    _dist._GRID.update(grid)
+    model ranks (JAX ``make_mesh``): rank r is data index r // mp, model
+    index r % mp. Every rank must call it. mp = 1 keeps the world as the
+    data axis and makes no group."""
+    _make_grid(f'model axes of {model_parallel}', mp=model_parallel)
+
+
+def make_pp_mesh(num_stages: int) -> None:
+    """A (data, pipe) grid of ``num_stages`` stages, pipe fastest (JAX
+    ``parallel/pp.py:make_pp_mesh``): rank r is data index r // S, stage
+    r % S, so neighbouring stages are neighbouring ranks."""
+    _make_grid(f'pipelines of {num_stages} stages', pp=num_stages)
+
+
+def make_pp_tp_mesh(num_stages: int, model_parallel: int) -> None:
+    """A (data, pipe, model) grid (JAX ``make_pp_tp_mesh``): rank r is
+    data index r // (S mp), stage r // mp % S, model index r % mp."""
+    _make_grid(f'{num_stages} stages of {model_parallel} model ranks',
+               pp=num_stages, mp=model_parallel)
+
+
+def make_cp_mesh(context_parallel: Optional[int] = None) -> None:
+    """A (data, ctx) grid of rings of ``context_parallel`` ranks (default:
+    the world, JAX ``parallel/ring_attention.py:make_cp_mesh``'s 1-D
+    ('ctx',) mesh); rank r is data index r // cp, ring position r % cp."""
+    cp = world_size() if context_parallel is None else context_parallel
+    _make_grid(f'rings of {cp}', cp=cp)
 
 
 def reset_mesh() -> None:
     """Back to no grid (before the process group is destroyed)."""
-    _dist._GRID.update(mp=1, data=None, model=None)
+    _dist._GRID.update(pp=1, cp=1, mp=1, data=None, pipe=None, ctx=None,
+                       model=None)
 
 
 def _all_reduce(t: Tensor, group) -> Tensor:
@@ -254,77 +312,206 @@ def draw_rows(draw: Callable[[Sequence[int]], Tensor],
     return local_rows(draw((shape[0] * n,) + tuple(shape[1:])), segments)
 
 
+# --------------------------------------------- collectives autograd sees
+_AXES = {'data': (data_group, data_rank, data_size),
+         'pipe': (pipe_group, pipe_rank, pipe_size),
+         'ctx': (ctx_group, ctx_rank, ctx_size),
+         'model': (model_group, model_rank, model_size)}
+
+
+def _axis_of(axis: str) -> Tuple[object, int, int]:
+    """(process group, this rank's index, size) of grid axis ``axis``:
+    'data', 'pipe', 'ctx' or 'model'."""
+    group, index, size = _AXES[axis]
+    return group(), index(), size()
+
+
+def _chunk(x: Tensor, dim: int, index: int, n: int) -> Tensor:
+    return x.chunk(n, dim)[index].clone(memory_format=torch.contiguous_format)
+
+
+def _shift(x: Tensor, group, index: int, n: int, shift: int) -> Tensor:
+    """Rank ``index`` receives the ``x`` of rank ``index - shift`` (mod
+    n): each rank's ``x`` in its own slot of a zero buffer, all-reduced."""
+    buf = x.new_zeros((n,) + tuple(x.shape))
+    buf[index] = x
+    return _all_reduce(buf, group)[(index - shift) % n]
+
+
+class _SumGrads(torch.autograd.Function):
+    """Identity forward; the backward sums each gradient over the axis,
+    all of them through one flat bucket."""
+
+    @staticmethod
+    def forward(ctx, axis, *xs):
+        ctx.axis = axis
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        group = _axis_of(ctx.axis)[0]
+        flat = _all_reduce(torch.cat([g.reshape(-1) for g in grads]),
+                           group)
+        out, i = [], 0
+        for g in grads:
+            out.append(flat[i:i + g.numel()].view_as(g).to(g.dtype))
+            i += g.numel()
+        return (None, *out)
+
+
+class _Sum(torch.autograd.Function):
+    """The sum over the axis; the gradient passes as it is."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        return _all_reduce(x.clone(), _axis_of(axis)[0])
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _Slice(torch.autograd.Function):
+    """The axis index's chunk along ``dim``; the backward gathers the
+    chunks' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        _, index, n = _axis_of(axis)
+        return _chunk(x, dim, index, n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather(grad.contiguous(), ctx.dim,
+                          *_axis_of(ctx.axis)), None, None
+
+
+class _Gather(torch.autograd.Function):
+    """The axis's chunks concatenated along ``dim``. The backward either
+    reduce-scatters (``summed``: each rank's gradient of the whole is a
+    part) or keeps the rank's chunk (each rank holds the same gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, axis, summed):
+        ctx.dim, ctx.axis, ctx.summed = dim, axis, summed
+        return all_gather(x.detach().contiguous(), dim, *_axis_of(axis))
+
+    @staticmethod
+    def backward(ctx, grad):
+        group, index, n = _axis_of(ctx.axis)
+        grad = grad.contiguous()
+        out = reduce_scatter(grad, ctx.dim, group, index, n) \
+            if ctx.summed else _chunk(grad, ctx.dim, index, n)
+        return out, None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """The axis index's chunk along ``dim`` of the sum over the axis; the
+    backward gathers."""
+
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        return reduce_scatter(x.contiguous(), dim, *_axis_of(axis))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather(grad.contiguous(), ctx.dim,
+                          *_axis_of(ctx.axis)), None, None
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, shift):
+        ctx.axis, ctx.shift = axis, shift
+        return _shift(x.contiguous(), *_axis_of(axis), shift)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _shift(grad.contiguous(), *_axis_of(ctx.axis),
+                      -ctx.shift), None, None
+
+
+def _one(axis: str) -> bool:
+    return _axis_of(axis)[2] == 1
+
+
+def sum_grads(tensors: Sequence[Tensor], axis: str) -> Tuple[Tensor, ...]:
+    """The tensors as they are, each gradient summed over the axis in one
+    flat bucket: for tensors every rank of the axis holds alike and uses
+    on its own part of the work (a stage's parameters over 'data'; under
+    sequence parallelism the LayerNorms and whole biases over 'model')."""
+    if _one(axis) or not tensors:
+        return tuple(tensors)
+    return _SumGrads.apply(axis, *tensors)
+
+
+def axis_sum(x: Tensor, axis: str) -> Tensor:
+    """The sum of ``x`` over the axis, its gradient passed as it is (JAX's
+    final ``psum`` of a pipeline, whose loss is taken on the replicated
+    output)."""
+    return x if _one(axis) else _Sum.apply(x, axis)
+
+
+def axis_slice(x: Tensor, dim: int, axis: str) -> Tensor:
+    """The axis index's chunk along ``dim`` of a tensor every rank of the
+    axis holds whole; its gradient is the chunks' gradients gathered, so
+    the whole tensor's gradient is the same on every rank."""
+    return x if _one(axis) else _Slice.apply(x, dim, axis)
+
+
+def axis_gather(x: Tensor, dim: int, axis: str,
+                summed: bool = False) -> Tensor:
+    """The axis's chunks of ``x`` concatenated along ``dim``. Gradient:
+    with ``summed``, the sum of the ranks' gradients, reduce-scattered
+    (Megatron-SP's gather before a column-split product); else the rank's
+    chunk of a gradient every rank holds alike (a loss taken on the
+    gathered tensor on each rank)."""
+    return x if _one(axis) else _Gather.apply(x, dim, axis, summed)
+
+
+def axis_reduce_scatter(x: Tensor, dim: int, axis: str) -> Tensor:
+    """The axis index's chunk along ``dim`` of the sum of ``x`` over the
+    axis (Megatron-SP's reduce after a row-split product); its gradient is
+    gathered."""
+    return x if _one(axis) else _ReduceScatter.apply(x, dim, axis)
+
+
+def ppermute(x: Tensor, axis: str, shift: int = 1) -> Tensor:
+    """JAX ``lax.ppermute`` with the permutation i -> i + shift (mod n)
+    over the axis: each rank gets the ``x`` of the rank ``shift`` before
+    it. Written on ``all_reduce`` (the file's rule): a buffer of n slots,
+    each rank's ``x`` in its own, summed. Its gradient travels the
+    reversed shift."""
+    return x if _one(axis) else _PPermute.apply(x, axis, shift)
+
+
 # ------------------------------------------------------------ model axis
-class _CopyToModel(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x):
-        return x
-
-    @staticmethod
-    def backward(ctx, grad):
-        return _all_reduce(grad.clone(), model_group())
-
-
-class _ReduceFromModel(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x):
-        return _all_reduce(x.clone(), model_group())
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad
-
-
-class _ModelSlice(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, dim):
-        ctx.dim = dim
-        return x.chunk(model_size(), dim)[model_rank()].clone(
-            memory_format=torch.contiguous_format)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return all_gather(grad.contiguous(), ctx.dim, model_group(),
-                          model_rank(), model_size()), None
-
-
-class _GatherFromData(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, dim):
-        ctx.dim = dim
-        return all_gather(x.detach(), dim, data_group(), data_rank(),
-                          data_size())
-
-    @staticmethod
-    def backward(ctx, grad):
-        return reduce_scatter(grad.contiguous(), ctx.dim, data_group(),
-                              data_rank(), data_size()), None
-
-
 def copy_to_model(x: Tensor) -> Tensor:
     """``x`` as it is; its gradient summed over the model group (the
     input of a column-split product, whose ranks each give a part)."""
-    return _CopyToModel.apply(x) if model_size() > 1 else x
+    return sum_grads([x], 'model')[0]
 
 
 def reduce_from_model(x: Tensor) -> Tensor:
     """The sum of the model group's partial products (a row-split
     product's output); the gradient passes as it is."""
-    return _ReduceFromModel.apply(x) if model_size() > 1 else x
+    return axis_sum(x, 'model')
 
 
 def model_slice(x: Tensor, dim: int) -> Tensor:
     """The model index's chunk along ``dim`` of a tensor every model rank
     holds whole; its gradient is the chunks' gradients gathered, so the
     whole tensor's gradient is the same on every model rank."""
-    return _ModelSlice.apply(x, dim) if model_size() > 1 else x
+    return axis_slice(x, dim, 'model')
 
 
 def gather_from_data(x: Tensor, dim: int) -> Tensor:
     """A ZeRO-3 shard (chunk ``data_rank()`` along ``dim``) all-gathered
     over the data group; the gradient is reduce-scattered: summed over the
     data axis, the rank keeping its chunk."""
-    return _GatherFromData.apply(x, dim) if data_size() > 1 else x
+    return axis_gather(x, dim, 'data', summed=True)
 
 
 def param(module: torch.nn.Module, name: str) -> Tensor:

@@ -712,3 +712,149 @@ def cli_test_worker(rank: int, world: int, argv, out: str):
     if rank == 0:
         with open(out, 'w') as f:
             json.dump(results, f)
+
+
+# ----------------------------------------------- pipeline and ring workers
+# spawned gloo ranks of tests/test_torch_pp.py, test_torch_ring_attention.py
+# and the ring case of test_torch_cuda.py: the parent writes the cases to
+# ``inp`` (torch.save of numpy arrays); each rank writes its results to
+# ``out`` + '.rank{r}'
+def _layer_stack(state, num_layers: int, c: int, heads: int):
+    """A ModuleList of the port's TransformerEncoderLayer loaded from
+    ``state`` ('{i}.ln1.weight', ... : the bridge's 'backbone.layers.'
+    keys without the prefix)."""
+    import torch
+    from s4former_tpu_torch.models.backbones.vit import \
+        TransformerEncoderLayer
+    layers = torch.nn.ModuleList([TransformerEncoderLayer(c, heads, 4 * c)
+                                  for _ in range(num_layers)])
+    layers.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
+    return layers
+
+
+def _raises(fn) -> str:
+    """The message of the ValueError ``fn()`` raises ('' if none)."""
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return ''
+
+
+def pp_worker(rank: int, world: int, inp: str, out: str):
+    """Each case of ``inp`` on its grid ('grid': (data, pipe, model)):
+    ``pipeline_apply`` of the port's layers ('kind' 'pp') or
+    ``pipeline_apply_tp`` ('tp', 'sp' for sequence parallelism) on the
+    whole batch 'x', the loss mean((out - tgt)^2), its backward. A rank
+    writes, by case: out, loss, x's gradient, and the whole gradients of
+    its stage's layers under the bridge's names (TP pieces gathered over
+    the model group), and the ValueErrors of the case's 'errors'."""
+    import torch
+    from s4former_tpu_torch.parallel import pp
+    from s4former_tpu_torch.parallel import tp as tp_mod
+    from s4former_tpu_torch.parallel.distributed import (data_size,
+                                                         model_size,
+                                                         pipe_rank)
+    from s4former_tpu_torch.parallel.mesh import (make_pp_mesh,
+                                                  make_pp_tp_mesh,
+                                                  reset_mesh)
+    data = torch.load(inp, weights_only=False)
+    results = []
+    for case in data['cases']:
+        dp, s, mp = case['grid']
+        if mp == 1:
+            make_pp_mesh(s)
+        else:
+            make_pp_tp_mesh(s, mp)
+        assert data_size() == dp and model_size() == mp
+        n, c, heads = data['num_layers'], data['c'], data['heads']
+        layers = _layer_stack(data['state'], n, c, heads)
+        x = torch.from_numpy(case['x']).requires_grad_()
+        tgt = torch.from_numpy(case['tgt'])
+        per = n // s
+        res = {'errors': {}}
+        if case['kind'] == 'pp':
+            stage = pp.stage_layers(layers)
+            y = pp.pipeline_apply(None, stage, x, case['M'])
+            res['errors'] = {
+                'layers': _raises(lambda: pp.stage_layers(layers[:-1])),
+                'microbatches': _raises(lambda: pp.pipeline_apply(
+                    None, stage, x[:-2], case['M']))}
+            if dp > 1:          # one row a microbatch, over dp ranks
+                res['errors']['data_rows'] = _raises(
+                    lambda: pp.pipeline_apply(None, stage, x[:case['M']],
+                                              case['M']))
+        else:
+            sp = case['kind'] == 'sp'
+            leaves = pp.tp_stage_leaves(layers)
+            stage = pp.stage_layers(layers)
+            y = pp.pipeline_apply_tp(leaves, x, case['M'], heads, sp)
+            res['errors'] = {
+                'heads': _raises(lambda: pp.pipeline_apply_tp(
+                    leaves, x, case['M'], heads + 1, sp)),
+                'tokens': _raises(lambda: pp.pipeline_apply_tp(
+                    leaves, x[:, :mp + 1], case['M'], heads, True)),
+                'layers': _raises(lambda: pp.tp_stage_leaves(layers[:-1]))}
+        loss = ((y - tgt) ** 2).mean()
+        loss.backward()
+        grads = {}
+        if case['kind'] == 'pp':
+            for name, p in stage.named_parameters():
+                i, rest = name.split('.', 1)
+                grads[f'{pipe_rank() * per + int(i)}.{rest}'] = p.grad
+        else:
+            plan = tp_mod.ShardPlan(tp_mod.param_specs(
+                {k: tuple(p.shape) for k, p in stage.named_parameters()},
+                mp), mp, 1)
+            for i, leaf in enumerate(leaves):
+                for name, short in pp.LEAF_NAMES:
+                    grads[f'{pipe_rank() * per + i}.{name}'] = plan.gather(
+                        f'{i}.{name}', leaf[short].grad)
+        res.update(out=y.detach().numpy(), loss=float(loss),
+                   x_grad=x.grad.numpy(),
+                   grads={k: g.detach().numpy() for k, g in grads.items()})
+        results.append(res)
+        reset_mesh()
+    torch.save(results, f'{out}.rank{rank}')
+
+
+def ring_worker(rank: int, world: int, inp: str, out: str):
+    """Each case of ``inp``: a (data, ctx) grid of rings of 'cp' ranks,
+    ``ring_attention_sharded`` of the whole q, k, v (and 'bias') on
+    'device', and the backward of ``sum(o * do)`` (whose gradients are the
+    vjp of ``do``). A rank writes, by case: o, dq, dk, dv, the launches
+    of kernels #1-#4 in the call and the ValueError of a length the ring
+    does not divide."""
+    import torch
+    from s4former_tpu_torch.ops import flash_attention as fa
+    from s4former_tpu_torch.parallel.mesh import make_cp_mesh, reset_mesh
+    from s4former_tpu_torch.parallel.ring_attention import \
+        ring_attention_sharded
+    data = torch.load(inp, weights_only=False)
+    results = []
+    for case in data['cases']:
+        make_cp_mesh(case['cp'])
+        dev = torch.device(case.get('device', 'cpu'))
+        dtype = getattr(torch, case.get('dtype', 'float32'))
+        q, k, v, do = (torch.from_numpy(case[n]).to(dev, dtype)
+                       for n in ('q', 'k', 'v', 'do'))
+        bias = None if case['bias'] is None else \
+            torch.from_numpy(case['bias']).to(dev, dtype)
+        for t in (q, k, v):
+            t.requires_grad_()
+        before = (fa.launch_count, fa.fused_launch_count,
+                  fa.dkv_launch_count, fa.dq_launch_count)
+        o = ring_attention_sharded(q, k, v, bias)
+        (o.float() * do.float()).sum().backward()
+        if dev.type == 'cuda':
+            torch.cuda.synchronize(dev)
+        after = (fa.launch_count, fa.fused_launch_count,
+                 fa.dkv_launch_count, fa.dq_launch_count)
+        results.append({
+            'o': o.detach().float().cpu().numpy(),
+            'grads': [t.grad.float().cpu().numpy() for t in (q, k, v)],
+            'launches': [a - b for a, b in zip(after, before)],
+            'length_error': _raises(lambda: ring_attention_sharded(
+                q[:, :-1], k[:, :-1], v[:, :-1]))})
+        reset_mesh()
+    torch.save(results, f'{out}.rank{rank}')

@@ -650,3 +650,49 @@ def test_ade_150_class_step_matches_cpu(cuda):
         assert abs(lg[k] - v) <= 1e-4 * max(abs(v), 1e-3), k
     for k, v in sc.items():
         assert (sg[k].float() - v.float()).abs().max().item() <= 1e-4, k
+
+
+@pytest.mark.parametrize('dtype,tol,bwd_tol', [
+    (torch.float32, 1e-4, 1e-4), (torch.bfloat16, 2e-2, 1e-2)])
+def test_ring_on_kernels_matches_the_dense_kernel(cuda, tmp_path, dtype, tol,
+                                                  bwd_tol):
+    """Ring attention on 4 gloo ranks sharing the card (rings of 2: blocks
+    of 2048, the dk/dv and dq kernels; of 4: 1024, the fused one) against
+    the one-process flash kernels on the whole L = 4096, without and with
+    a bias: o at the forward's tolerance, dq, dk and dv within the
+    backward's of their max |value| (each ring block's gradients are
+    rounded to the dtype before they are summed); each rank launches the
+    kernels its blocks imply."""
+    from tests import _torch_port as port
+    rs = np.random.RandomState(0)
+    b, length, h = 1, 4096, 2
+    q, k, v, do = (rs.randn(b, length, h, 64).astype(np.float32)
+                   for _ in range(4))
+    bias = rs.randn(b, 1, length, length).astype(np.float32)
+    cases = [dict(cp=cp, bias=bb, q=q, k=k, v=v, do=do, device='cuda:0',
+                  dtype=str(dtype).replace('torch.', ''))
+             for cp in (2, 4) for bb in (None, bias)]
+    inp, out = str(tmp_path / 'cases.pt'), str(tmp_path / 'result')
+    torch.save({'cases': cases}, inp)
+    port.run_ranks(port.ring_worker, 4, inp, out, timeout=300.0)
+    ranks = [torch.load(f'{out}.rank{r}', weights_only=False)
+             for r in range(4)]
+    for i, case in enumerate(cases):
+        qt, kt, vt, dot = (torch.from_numpy(t).to(cuda, dtype)
+                           for t in (q, k, v, do))
+        bt = None if case['bias'] is None else \
+            torch.from_numpy(case['bias']).to(cuda, dtype)
+        for t in (qt, kt, vt):
+            t.requires_grad_()
+        o = fa.flash_attention(qt, kt, vt, bt)
+        o.backward(dot)
+        long_blocks = length // case['cp'] > fa.FULL_Q_MAX
+        cp = case['cp']
+        want = [cp, 0 if long_blocks else cp, cp if long_blocks else 0,
+                cp if long_blocks else 0]
+        for r in ranks:
+            assert r[i]['launches'] == want
+            assert np.abs(r[i]['o'] - o.detach().float().cpu().numpy()).max() <= tol
+            got = [torch.from_numpy(g).to(dtype) for g in r[i]['grads']]
+            _assert_grads_close(got, [t.grad.cpu() for t in (qt, kt, vt)],
+                                bwd_tol)

@@ -33,8 +33,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert len(files) > 15
     # the host runtime, the profiler's reader, the test CLI's modules, the
     # SegFormer slice's, the ablation slice's, the UniMatch slice's, the
-    # data-parallel slice's and the eval-and-tools slice's (the tools and
-    # the demo package) are among the files read
+    # data-parallel slice's, the eval-and-tools slice's (the tools and the
+    # demo package) and the pipeline- and context-parallel slice's are
+    # among the files read
     assert {'native/__init__.py', 'native/build.py', 'core/hooks.py',
             'tools/profile_trace.py', 'utils/palette.py',
             'utils/collect_env.py', 'tools/test.py',
@@ -47,6 +48,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             'data/pipelines/extra_transforms.py',
             'data/datasets/custom.py', 'data/loader.py',
             'parallel/distributed.py', 'parallel/mesh.py',
+            'parallel/pp.py', 'parallel/ring_attention.py',
             'core/runner.py', 'apis.py', 'ops/resize.py',
             'tools/print_config.py', 'tools/publish_model.py',
             'tools/ensemble_test.py', 'tools/benchmark.py',
