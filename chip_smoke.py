@@ -57,8 +57,8 @@ on the card, then drives the port's paths through its entry points:
   ``..._MT_w_ours.py`` at depth [1, 1, 1, 1], 1 + 1 at 768², drop rates 0,
   against the CPU; the bf16 step at full depth and the config's 4 + 4,
   drop path and dropout live (the first, 3 timed, 1 profiled by operator
-  class); ``tools.train`` on a seeded Cityscapes tree (6 steps, slide eval
-  and checkpoints at 3 and 6), ``--auto-resume`` to 8, and ``tools.test``
+  class); ``tools.train`` on a seeded Cityscapes tree (4 steps, slide eval
+  and checkpoints at 2 and 4), ``--auto-resume`` to 5, and ``tools.test``
   (``--eval mIoU`` against the in-loop mIoU, ``--format-only``);
 - the datasets (``ade_train_cli``): ``..._MT_w_ours.py`` with
   ``ADE20KDataset`` and 150 classes on every head, on a seeded ADE20K tree
@@ -67,28 +67,44 @@ on the card, then drives the port's paths through its entry points:
   against the in-loop mIoU, a ``ConcatDataset`` of the val halves with
   separate and merged evaluation, and ``--eval cityscapes`` on the
   Cityscapes tree, which must raise the missing-package ImportError;
+- the ViT model zoo (``mla_*``, ``segmenter_*``): SETR-MLA (ViT-L, 24
+  layers of 16 heads over 1024 tokens, no cls token; the MLA neck, the
+  SETR-MLA head and four FCN aux heads) and Segmenter (ViT-B and the
+  mask-transformer head), each ``configs/_base_/models/``'s model in
+  ``setr_fixture_voc_mini_fullflag.py`` (21 classes, bf16 backbone; MLA's
+  PASA off, as no cls token can take its bias), seeded weights: serving
+  one 512² request in f32 at 4 layers against the CPU, then at full depth
+  in bf16 over the 16 fixture JPEGs; one f32 step at 4 layers against the
+  CPU (threshold leaving half of the pixels confident); the bf16 step at
+  full depth, 4 + 4 (the first, 3 timed), launches as the flags predict;
+  ``tools.train`` on the MLA config, 4 steps of 2 + 2 with eval and a
+  checkpoint holding ``neck.*``, and ``tools.test`` on it against the
+  in-loop mIoU; kernels #1 and #2 are held at H = 16 in
+  ``kernel_check``;
 - the ablation flags of the step (``ablation_*``): one f32 step of
   ``..._MT_w_ours.py`` at 4 layers with every flag group whose draws can be
   handed to both devices, against the CPU; three bf16 flag sets at full
-  width, 4 + 4 at 512² (strong mixes; adaptive CutMix, PatchShuffle +
+  width and 6 layers, 4 + 4 at 512² (strong mixes; adaptive CutMix, PatchShuffle +
   ClassMix and the supervised mixes; dropout, drop path, head dropout,
   fdrop, EMA head dropout, supervised NCR, ``sup_ema``, layer decay and a
   sigmoid aux CE), each step's launches checked against the passes its
   flags imply; MiT-B4 with fdrop at 4 + 4, 768²; ``tools.train`` with the
   regularisers by ``--cfg-options``, 6 steps, resumed to 8;
 - UniMatch and the ViT's remat (``unimatch_*``, ``remat_*``): one f32
-  UniMatch step against the CPU (``..._MT_w_ours.py`` at 4 layers, 2 + 2 at
+  UniMatch step against the CPU (``..._MT_w_ours.py`` at 4 layers, 1 + 1 at
   512², head 1 as the PASA pass and as the fdrop pass; MiT-B4 at depth
   [1, 1, 1, 1], 1 + 1 at 768²), the streams' boxes and permutations
   injected; the bf16 UniMatch step at full depth, 8 + 8 at 512² with its
   mix stream (timed, profiled); the flagship and the UniMatch 8 + 8 steps
-  with remat off, 'dots' and 'full' (losses and updates against remat off,
-  step time, peak memory); ``tools.train`` on a UniMatch variant of the
-  fixture config (``UniSemiDataset``, three-branch pipelines with
-  RandomGrayscale and GaussianBlur), 3 steps, resumed to 6, and
-  ``tools.test`` against the in-loop mIoU;
-- data parallelism (``dp_*``, each phase's ranks started by
-  ``torch.distributed.run`` on this script's ``--dp-worker`` mode): 2
+  at 6 layers with remat off, 'dots' and 'full' (losses and updates
+  against remat off, step time, peak memory); ``tools.train`` on a
+  UniMatch variant of the fixture config (``UniSemiDataset``,
+  three-branch pipelines with RandomGrayscale and GaussianBlur), 3 steps,
+  resumed to 6, and ``tools.test`` against the in-loop mIoU;
+- data parallelism (``dp_*``; the ranks of this and the next two items
+  started by ``torch.distributed.run`` on this script's ``--dp-worker``
+  mode, the tasks that need the same ranks in one start-up,
+  ``run_together``, the ranks writing their results to files): 2
   ranks on one card over gloo against one process, the f32 step of
   ``..._MT_w_ours.py`` at 4 layers, 3 steps of 4 + 4 global (2 + 2 a
   rank), the ranks' states bit-identical and the hard pseudo-labels that
@@ -98,20 +114,26 @@ on the card, then drives the port's paths through its entry points:
   same over NCCL, one rank a card (up to 4); ``tools.train --launcher
   env`` over NCCL with min(2, cards) ranks on the fixture config, 6 steps,
   resumed to 8, rank 0 alone writing (its eval panels too), and
-  ``tools.test`` against the in-loop mIoU;
+  ``tools.test`` against the in-loop mIoU. Ranks start once a rank
+  count: on one card 2 (the 2-rank f32 grids, the 1 x 2 bf16 step and
+  dp_train_bf16), 4 (the sharded ``tools.train`` and its resume, then the
+  ZeRO-3 f32 grid, the 2 x 2 bf16 step, the pipeline and ring grids);
+  the tasks of one rank (the data-parallel ``tools.train``, its resume and
+  ``test_cli_ranks``' ``tools.test`` on one card) run in this process
+  under the launcher's environment;
 - sharded training (``tp_*``, ``zero3_*``; ``parallel/tp.py``): kernels
   #1-#4 held at H = 6 and 3, the heads of a tensor-parallel rank; the f32
   step at 4 layers split as data 1 x model 2 (2 ranks, gloo on cuda:0)
   and data 2 x model 2 with ZeRO-3 (4 ranks; NCCL with 4 cards) against
-  one process, within the data-parallel bounds; the bf16 flagship on one
-  global 4 + 4 batch in one process, 1 x 2 and 2 x 2 with ZeRO-3 (step and
-  device ms, peak memory, the floats and heads a rank); ``tools.train
-  --model-parallel 2 --zero3`` on 4 ranks, 3 steps with eval and a
-  checkpoint (the layout of ``train_cli``'s), resumed to 4, and
+  one process, within the data-parallel bounds; the bf16 flagship at 6
+  layers on one global 4 + 4 batch in one process, 1 x 2 and 2 x 2 with
+  ZeRO-3 (step and device ms, peak memory, the floats and heads a rank);
+  ``tools.train --model-parallel 2 --zero3`` on 4 ranks, 2 steps with
+  eval and a checkpoint (the layout of ``train_cli``'s), resumed to 3, and
   ``tools.test`` on it against the in-loop mIoU;
 - pipeline and context parallelism (``parallel/pp.py``,
-  ``parallel/ring_attention.py``), one ``torch.distributed.run`` of 4
-  ranks (gloo on one card) for every grid: ring attention at B = 1, L =
+  ``parallel/ring_attention.py``), 4 ranks (gloo on one card) for every
+  grid: ring attention at B = 1, L =
   4096, H = 12 in bf16 and f32, rings of 2 (blocks of 2048: the dk/dv and
   dq kernels) and of 4 (1024: the fused one), without and with a PASA
   bias, against the one-process flash kernels and their plain versions;
@@ -125,8 +147,10 @@ the shapes listed up front (the TTA and whole-image eval token counts
 worked out from the fixture images, the ring's blocks), and at the end
 any other that the launches recorded, the ranks' included.
 
-Every phase prints one JSON line; any failed check raises and the script
-exits nonzero without its last line. Each path runs with the kernels'
+Every phase prints one JSON line, with ``t``, the seconds since the start
+(so a run that is cut or fails shows how far it got and where the time
+went); any failed check raises and the script exits nonzero without its
+last line. Each path runs with the kernels'
 launch counts set to 0 just before it and read just after. The line before
 the last lists the kernels; the last line is the device summary
 ``{"ok": true, "device": {...}}``. Without CUDA it fails at once: there is
@@ -227,7 +251,14 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+# the script's start: every phase line carries 't', the seconds since it,
+# so a run that is cut or fails shows how far it got and where time went
+T_START = time.perf_counter()
+
+
 def emit(obj):
+    if 'phase' in obj:
+        obj = {**obj, 't': round(time.perf_counter() - T_START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -708,11 +739,10 @@ def phase_kernels_tp(fa, entries):
     B = 4, L = 1377 and at the pipeline x TP ranks' B = 2, L = 1026
     (sequence parallelism's pad), timed at B = 8 and 16 and at the eval
     shape; the fused backward at B = 8, L = 1025 and at those ranks' B = 2,
-    L = 1025 and 1026; the dk/dv and dq kernels at B = 2, L = 2305. Each timed row with its bound, the plain version's time and
+    L = 1025 and 1026; the dk/dv and dq kernels at B = 2, L = 2305, all
+    timed. Each timed row with its bound, the plain version's time and
     the library call's. The rows go to the kernels line's entries
     (``cases``, with their H)."""
-    import torch
-    gen = torch.Generator(device='cuda').manual_seed(3)
     fwd_shapes = [(b, 1025, kind) for b in (2, 4, 8, 16)
                   for kind in (None, 'pasa')] + [(4, 1377, None),
                                                  (2, 1026, None)]
@@ -720,11 +750,43 @@ def phase_kernels_tp(fa, entries):
                  (16, 1025, 'pasa'), (4, 1377, None)}
     bwd_shapes = [(8, 1025, None), (8, 1025, 'pasa'), (2, 2305, None),
                   (2, 1025, None), (2, 1026, None)]
+    hold_kernels_at(fa, entries, TP_HEADS, fwd_shapes, fwd_timed,
+                    bwd_shapes, set(bwd_shapes), 'tensor_parallel', seed=3)
+
+
+def phase_kernels_zoo(fa, entries):
+    """Kernels #1 and #2 against their plain versions at SETR-MLA's ViT-L:
+    H = 16 over L = 1024 tokens (no cls token), f32 and bf16. The forward
+    at B = 1 (serving) and at the B of each MLA step pass (1 + 1 f32, the
+    CLI's 2 + 2, 4 + 4; 8 as a larger batch), and at the eval's B = 4,
+    L = 1376 (43 x 32 patches); the fused backward at B = 1, 2, 4 and 8.
+    Timed in bf16 at B = 1, 4, 8 and the eval shape (forward) and at B = 4
+    and 8 (backward)."""
+    fwd_shapes = [(b, MLA_L, None) for b in (1, 2, 4, 8)] + \
+        [(4, 1376, None)]
+    fwd_timed = {(1, MLA_L, None), (4, MLA_L, None), (8, MLA_L, None),
+                 (4, 1376, None)}
+    bwd_shapes = [(b, MLA_L, None) for b in (1, 2, 4, 8)]
+    hold_kernels_at(fa, entries, (MLA_HEADS,), fwd_shapes, fwd_timed,
+                    bwd_shapes, {(4, MLA_L, None), (8, MLA_L, None)},
+                    'zoo', seed=4)
+
+
+def hold_kernels_at(fa, entries, heads, fwd_shapes, fwd_timed, bwd_shapes,
+                    bwd_timed, purpose, seed):
+    """The kernels against their plain versions at each of ``heads``, in
+    f32 and bf16: the forward at ``fwd_shapes`` (B, L, bias kind), the
+    backward kernels that L takes at ``bwd_shapes``; the shapes in
+    ``fwd_timed`` / ``bwd_timed`` with their times, bound, plain and
+    library times, added to the kernels line's ``entries`` (``cases``).
+    Each check line names ``purpose``."""
+    import torch
+    gen = torch.Generator(device='cuda').manual_seed(seed)
     launchers = {'flash_attn_bwd_fused': fa.launch_bwd_fused,
                  'flash_attn_bwd_dkv': fa.launch_bwd_dkv,
                  'flash_attn_bwd_dq': fa.launch_bwd_dq}
     fwd_entry = entries['flash_attn_fwd']
-    for h in TP_HEADS:
+    for h in heads:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).replace('torch.', '')
             for b, l, kind in fwd_shapes:
@@ -742,8 +804,7 @@ def phase_kernels_tp(fa, entries):
                 if dname == 'bfloat16':
                     fwd_entry['max_abs_err'] = max(fwd_entry['max_abs_err'],
                                                    err_o)
-                emit({'phase': 'kernel_check', 'for': 'tensor_parallel',
-                      **case})
+                emit({'phase': 'kernel_check', 'for': purpose, **case})
                 del q, k, v, bias, o, lse
             for b, l, kind in bwd_shapes:
                 where = f'{dname} B={b} L={l} H={h} bias={kind}'
@@ -757,10 +818,12 @@ def phase_kernels_tp(fa, entries):
                     q, k, v, bias, o, lse, do)
                 names = ['flash_attn_bwd_fused'] if l <= fa.FULL_Q_MAX \
                     else ['flash_attn_bwd_dkv', 'flash_attn_bwd_dq']
-                plain_ms = cuda_time_ms(
-                    lambda: fa.flash_attention_backward_reference(
-                        q, k, v, bias, o, lse, do), iters=3, warmup=1)
-                library_ms = sdpa_backward_ms(q, k, v, bias, do)
+                is_timed = (b, l, kind) in bwd_timed
+                if is_timed:
+                    plain_ms = cuda_time_ms(
+                        lambda: fa.flash_attention_backward_reference(
+                            q, k, v, bias, o, lse, do), iters=3, warmup=1)
+                    library_ms = sdpa_backward_ms(q, k, v, bias, do)
                 for name in names:
                     got = launchers[name](*args)
                     if name == 'flash_attn_bwd_dkv':
@@ -770,26 +833,28 @@ def phase_kernels_tp(fa, entries):
                     torch.cuda.synchronize()
                     errs, peaks = grad_errors(got, ref)
                     rel = max(e / p for e, p in zip(errs, peaks))
-                    products, outputs = BWD_WORK[name]
-                    bound, bound_by = bound_ms(q, bias, products,
-                                               5 + outputs)
                     case = dict(dtype=dname, B=b, L=l, H=h, D=64, bias=kind,
                                 max_abs_err=max(errs),
                                 abs_err_dq_dk_dv=errs,
                                 max_abs_dq_dk_dv=peaks, max_rel_err=rel,
-                                tol=TOL_BWD[dname],
-                                ms=cuda_time_ms(lambda: launchers[name](
-                                    *args), iters=10, warmup=2),
-                                plain_ms=plain_ms, library_ms=library_ms,
-                                bound_ms=bound, bound_by=bound_by)
+                                tol=TOL_BWD[dname])
                     entry = entries[name]
-                    entry['cases'].append(case)
+                    if is_timed:
+                        products, outputs = BWD_WORK[name]
+                        bound, bound_by = bound_ms(q, bias, products,
+                                                   5 + outputs)
+                        case.update(
+                            ms=cuda_time_ms(lambda: launchers[name](*args),
+                                            iters=10, warmup=2),
+                            plain_ms=plain_ms, library_ms=library_ms,
+                            bound_ms=bound, bound_by=bound_by)
+                        entry['cases'].append(case)
                     if dname == 'bfloat16':
                         entry['max_abs_err'] = max(entry['max_abs_err'],
                                                    max(errs))
                         entry['max_rel_err'] = max(entry['max_rel_err'], rel)
                     emit({'phase': 'kernel_check_bwd', 'kernel': name,
-                          'for': 'tensor_parallel', **case})
+                          'for': purpose, **case})
                     check(all(torch.isfinite(t).all().item() for t in got),
                           f'non-finite {name} {where}')
                     check(rel <= TOL_BWD[dname], f'{name} disagrees with the '
@@ -818,6 +883,15 @@ def sdpa_backward_ms(q, k, v, bias, do):
     return graph_time_ms(fwd_bwd) - graph_time_ms(fwd)
 
 
+def cut_depth(backbone, num_layers):
+    """A ViT config's depth cut to ``num_layers``, its taps moved to the
+    last layers (so every layer still reaches a head and the main head
+    reads the last one)."""
+    taps = len(backbone.out_indices)
+    backbone.num_layers = num_layers
+    backbone.out_indices = tuple(range(num_layers))[-taps:]
+
+
 def load_config(dtype, name='sup', num_layers=None):
     from s4former_tpu_torch.config import Config
     cfg = Config.fromfile(CONFIGS[name])
@@ -827,8 +901,7 @@ def load_config(dtype, name='sup', num_layers=None):
         for head in cfg.model.auxiliary_head:
             head.dtype = dtype
     if num_layers is not None:
-        cfg.model.backbone.num_layers = num_layers
-        cfg.model.backbone.out_indices = tuple(range(num_layers))
+        cut_depth(cfg.model.backbone, num_layers)
     return cfg
 
 
@@ -1343,7 +1416,7 @@ def phase_native(images, library, gpu_line):
     ms = {}
     for kind in ('plain', 'native', 'native', 'plain'):   # in turns
         with host_functions(kind):
-            for n_threads, n in ((1, 8), (threads, 4 * threads)):
+            for n_threads, n in ((1, 4), (threads, 2 * threads)):
                 ms.setdefault(f'{kind}_{n_threads}_threads', []).append(
                     pipeline_sample_ms(sup_ds, unsup_ds, n, n_threads))
     emit({'phase': 'native', 'has_decode': has_decode,
@@ -1703,35 +1776,47 @@ def read_files(directory):
             for n in sorted(os.listdir(directory))}
 
 
-def phase_test_cli_ranks(fa, gpu_line, ckpt, root):
-    """``tools.test --launcher env`` over NCCL with K = min(2, cards) ranks
-    (one a card; on one card the launcher path with K = 1) against one
-    process, the exact path with ``--show-dir --out`` on ``ckpt``: the
-    metrics equal (``==``), the painted PNGs and the ``.pkl`` byte-equal,
-    and the forward launches summed over the ranks one process's (12 a
-    flush of 4). Returns both runs' launches summed, and the single
-    process's metrics."""
+def test_cli_dirs(root):
+    return {name: os.path.join(root, f'test_{name}')
+            for name in ('one', 'ranks')}
+
+
+def test_cli_argv(ckpt, d):
+    return [FULLFLAG, ckpt, '--show-dir', os.path.join(d, 'vis'), '--out',
+            os.path.join(d, 'preds.pkl')]
+
+
+def test_cli_one(fa, ckpt, root):
+    """The one-process half of test_cli_ranks: ``tools.test`` on ``ckpt``
+    with ``--show-dir --out``. Returns (its launches, its metrics, its
+    seconds)."""
     import torch
     from s4former_tpu_torch.tools import test as test_cli
+    reset_counts(fa)                               # the main path starts
+    t0 = time.perf_counter()
+    single = test_cli.main(test_cli_argv(ckpt, test_cli_dirs(root)['one']))
+    torch.cuda.synchronize()
+    return counts(fa), single, time.perf_counter() - t0
+
+
+def phase_test_cli_ranks(fa, gpu_line, ckpt, root, one):
+    """``tools.test --launcher env`` over NCCL with K = min(2, cards) ranks
+    (one a card; on one card the launcher path with K = 1) against one
+    process (``one``: ``test_cli_one``'s launches, metrics and seconds),
+    the exact path with ``--show-dir --out`` on ``ckpt``: the metrics
+    equal (``==``), the painted PNGs and the ``.pkl`` byte-equal, and the
+    forward launches summed over the ranks one process's (12 a flush of
+    4). The ranks start with the data-parallel slice's CLI ranks
+    (``run_dp``). Returns both runs' launches summed."""
+    import torch
     k = min(DP_RANKS, torch.cuda.device_count())
     n_val, flush = 16, 4
     per_eval = 12 * -(-n_val // flush)
-    dirs = {name: os.path.join(root, f'test_{name}')
-            for name in ('one', 'ranks')}
-
-    def argv(d):
-        return [FULLFLAG, ckpt, '--show-dir', os.path.join(d, 'vis'),
-                '--out', os.path.join(d, 'preds.pkl')]
-    reset_counts(fa)                               # the main path starts
-    t0 = time.perf_counter()
-    single = test_cli.main(argv(dirs['one']))
-    torch.cuda.synchronize()
-    one_s = time.perf_counter() - t0
-    one_counts = counts(fa)                        # the main path ends
-    t0 = time.perf_counter()
-    ranks, _ = run_ranks('test', {'argv': argv(dirs['ranks']) +
-                                  ['--launcher', 'env']}, k, root, 600)
-    ranks_s = time.perf_counter() - t0
+    dirs = test_cli_dirs(root)
+    one_counts, single, one_s = one
+    ranks, = yield [rank_task('test', {'argv': test_cli_argv(
+        ckpt, dirs['ranks']) + ['--launcher', 'env']}, k)]
+    ranks_s = max(r['seconds'] for r in ranks)
     rank_counts = sum_counts(ranks)
     single = json.loads(json.dumps(single))        # as the ranks report it
     same_metrics = [json.dumps(r['metrics'], sort_keys=True) ==
@@ -1749,7 +1834,7 @@ def phase_test_cli_ranks(fa, gpu_line, ckpt, root):
           'pkl_equal': pkl['ranks'] == pkl['one'],
           'launches_one': one_counts,
           'launches_per_rank': [r['launches'] for r in ranks],
-          'one_s': one_s, 'ranks_s': ranks_s, 'gpu': gpu_line})
+          'one_s': one_s, 'ranks_task_s': ranks_s, 'gpu': gpu_line})
     check(all(same_metrics), 'the ranks\' metrics are not one process\'s')
     check(len(vis['one']) == n_val and vis['ranks'] == vis['one'],
           'the ranks\' --show-dir files are not one process\'s')
@@ -1759,7 +1844,7 @@ def phase_test_cli_ranks(fa, gpu_line, ckpt, root):
     check(one_counts == want and rank_counts == want,
           f'launches: one process {one_counts}, the ranks {rank_counts}, '
           f'not {per_eval} forward')
-    return add_counts(one_counts, rank_counts), single
+    return add_counts(one_counts, rank_counts)
 
 
 def phase_tools_cli(fa, gpu_line, wd, root, images, test_miou):
@@ -1891,20 +1976,25 @@ def phase_tools_cli(fa, gpu_line, wd, root, images, test_miou):
 
 def run_eval_tools(fa, gpu_line, wd, root, images):
     """The eval-and-tools slice's phases on the train_cli run's
-    checkpoints; returns their launch counts by path and prints their
+    checkpoints; returns their launch counts by path and the test_cli_ranks
+    phase, whose ranks start with the data-parallel slice's (``run_dp``)
+    on a link of ``iter_12`` that outlives ``wd``; prints their
     seconds."""
-    paths, seconds = {}, {}
+    seconds = {}
+    ckpt = os.path.join(root, 'test_cli_ranks_iter_12')
+    shutil.copytree(os.path.join(wd, 'iter_12'), ckpt, copy_function=os.link)
     t0 = time.perf_counter()
-    paths['test_cli_ranks'], single = phase_test_cli_ranks(
-        fa, gpu_line, os.path.join(wd, 'iter_12'), root)
-    seconds['test_cli_ranks'] = time.perf_counter() - t0
+    one = test_cli_one(fa, ckpt, root)
+    seconds['test_cli_one'] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    paths['tools_cli'] = phase_tools_cli(fa, gpu_line, wd, root, images,
-                                         single['mIoU'])
+    paths = {'tools_cli': phase_tools_cli(fa, gpu_line, wd, root, images,
+                                          one[1]['mIoU'])}
     seconds['tools_cli'] = time.perf_counter() - t0
     emit({'phase': 'eval_tools_seconds', **seconds,
           'total': sum(seconds.values())})
-    return paths
+    return paths, ('test_cli_ranks', lambda: phase_test_cli_ranks(
+        fa, gpu_line, ckpt, root, one))
+
 
 # ------------------------------------------------- SegFormer / MiT-B4 path
 _MIT_STEM = os.path.join(REPO, 'configs', 'segformer', 'segformer_mit-b4_bs_'
@@ -2293,9 +2383,9 @@ def write_city_tree(root, seed=8, n_sup=8, n_unsup=8, n_val=2):
 def phase_mit_train_cli(fa, gpu_line, root, n_sup, n_unsup):
     """The port's training CLI on ``..._MT_w_ours.py`` (bf16, full depth,
     ``n_sup`` + ``n_unsup`` a step through the Cityscapes pipelines) over a
-    seeded Cityscapes tree: 6 steps with slide eval and checkpoints at 3
-    and 6; ``--auto-resume`` to 8; ``tools.test --eval mIoU`` on
-    ``iter_6`` within TOL_MIOU of the in-loop mIoU; ``--format-only``
+    seeded Cityscapes tree: 4 steps with slide eval and checkpoints at 2
+    and 4; ``--auto-resume`` to 5; ``tools.test --eval mIoU`` on
+    ``iter_4`` within TOL_MIOU of the in-loop mIoU; ``--format-only``
     writes label-id PNGs. Returns the runs' launch counts summed."""
     import numpy as np
     import torch
@@ -2305,8 +2395,8 @@ def phase_mit_train_cli(fa, gpu_line, root, n_sup, n_unsup):
     data_root = os.path.join(root, 'city')
     cfg_path = MIT_CONFIGS['ours']
     opts = ['--cfg-options', 'model.backbone.dtype=bfloat16',
-            'model.decode_head.dtype=bfloat16', 'evaluation.interval=3',
-            'checkpoint_config.interval=3', 'log_config.interval=3',
+            'model.decode_head.dtype=bfloat16', 'evaluation.interval=2',
+            'checkpoint_config.interval=2', 'log_config.interval=2',
             f'samples_per_gpu_sup={n_sup}',
             f'samples_per_gpu_unsup={n_unsup}']
     for key, split in (('data.train.sup', 'sup'),
@@ -2318,19 +2408,19 @@ def phase_mit_train_cli(fa, gpu_line, root, n_sup, n_unsup):
     torch.cuda.reset_peak_memory_stats()
     reset_counts(fa)                               # the main path starts
     t0 = time.perf_counter()
-    state = train_cli.main([cfg_path, '--work-dir', wd, '--max-iters', '6']
+    state = train_cli.main([cfg_path, '--work-dir', wd, '--max-iters', '4']
                            + opts)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     train_counts = counts(fa)                      # the main path ends
     peak = torch.cuda.max_memory_allocated()
-    check(int(state.step) == 6, f'trained to step {int(state.step)}')
+    check(int(state.step) == 4, f'trained to step {int(state.step)}')
     del state
     torch.cuda.empty_cache()
     records = read_jsonl(os.path.join(wd, 'metrics.jsonl'))
     train = [r for r in records if r['prefix'] == 'train']
     val = {r['step']: r for r in records if r['prefix'] == 'val'}
-    check([r['step'] for r in train] == [3, 6] and sorted(val) == [3, 6],
+    check([r['step'] for r in train] == [2, 4] and sorted(val) == [2, 4],
           f'logged steps {records}')
     check(all(np.isfinite(r['loss']) for r in train), f'losses {train}')
     check(all('unsup.loss_seg_unsup' in r for r in train),
@@ -2338,25 +2428,25 @@ def phase_mit_train_cli(fa, gpu_line, root, n_sup, n_unsup):
 
     reset_counts(fa)
     state = train_cli.main([cfg_path, '--work-dir', wd, '--auto-resume',
-                            '--max-iters', '8'] + opts)
+                            '--max-iters', '5'] + opts)
     torch.cuda.synchronize()
     resume_counts = counts(fa)
-    check(int(state.step) == 8, f'resumed run ended at {int(state.step)}')
+    check(int(state.step) == 5, f'resumed run ended at {int(state.step)}')
     del state
     torch.cuda.empty_cache()
-    resumed = f'resumed from {os.path.join(wd, "iter_6")}'
+    resumed = f'resumed from {os.path.join(wd, "iter_4")}'
     check(resumed in read_logs(wd), f'no "{resumed}" in the log')
 
     reset_counts(fa)
     t0 = time.perf_counter()
-    results = test_cli.main([cfg_path, os.path.join(wd, 'iter_6'),
+    results = test_cli.main([cfg_path, os.path.join(wd, 'iter_4'),
                              '--eval', 'mIoU'] + opts)
     test_s = time.perf_counter() - t0
     fmt = os.path.join(root, 'mit_fmt')
-    none = test_cli.main([cfg_path, os.path.join(wd, 'iter_6'),
+    none = test_cli.main([cfg_path, os.path.join(wd, 'iter_4'),
                           '--format-only', '--imgfile-prefix', fmt] + opts)
     test_counts = counts(fa)
-    in_loop = val[6]['mIoU']
+    in_loop = val[4]['mIoU']
     gap = abs(results['mIoU'] - in_loop)
     formatted = sorted(os.listdir(fmt))
     emit({'phase': 'mit_train_cli', 'config': os.path.basename(cfg_path),
@@ -2373,7 +2463,7 @@ def phase_mit_train_cli(fa, gpu_line, root, n_sup, n_unsup):
           'launches': {'train': train_counts, 'resume': resume_counts,
                        'test': test_counts},
           'resumed': resumed, 'test_miou': results['mIoU'],
-          'in_loop_miou_iter_6': in_loop, 'miou_gap': gap, 'tol': TOL_MIOU,
+          'in_loop_miou_iter_4': in_loop, 'miou_gap': gap, 'tol': TOL_MIOU,
           'test_run_s': test_s, 'format_only_files': len(formatted),
           'gpu': gpu_line})
     check(gap <= TOL_MIOU, f'offline mIoU {results["mIoU"]} vs in-loop '
@@ -2631,6 +2721,374 @@ def phase_ade_train_cli(fa, gpu_line, root, deit, n_backbone):
     return add_counts(add_counts(train_counts, test_counts), city_counts)
 
 
+# ----------------------------------------------------- the ViT model zoo
+ZOO_MODELS = {'mla': 'setr_mla.py', 'segmenter': 'segmenter_vit-b_mask.py'}
+# the f32 card-vs-CPU phases' depth: 4 layers, the taps the last ones
+ZOO_F32_LAYERS = 4
+# SETR-MLA's ViT-L: 24 layers of 16 heads over 1024 tokens (no cls token)
+MLA_HEADS, MLA_L = 16, 1024
+
+
+def zoo_config(root, which):
+    """``setr_fixture_voc_mini_fullflag.py`` (the fixture run of
+    ``..._MT_w_ours.py``: VOC fixture data, every S4Former flag) with its
+    model replaced by that of ``configs/_base_/models/`` ``setr_mla.py``
+    ('mla': ViT-L, the MLA neck, SETRMLAHead, four FCN aux heads) or
+    ``segmenter_vit-b_mask.py`` ('segmenter': ViT-B, the mask-transformer
+    head, no aux heads), written to ``root`` as ``ade_cli_config`` writes
+    its config: 21 classes on every head, the backbone in the flagship's
+    bf16 (the neck and heads compute in f32, as JAX's). SETR-MLA's ViT has
+    no cls token, so its PASA is off (``attn_mask_seperate_head=False``;
+    the JAX package cannot build that bias either); PatchShuffle with
+    CutMix, NCR and the EMA stay on. Returns the path."""
+    from s4former_tpu_torch.config import Config
+    model = Config.fromfile(os.path.join(
+        REPO, 'configs', '_base_', 'models', ZOO_MODELS[which])).to_dict()[
+            'model']
+    aux = model.get('auxiliary_head') or []
+    for head in [model['decode_head']] + aux:
+        head['num_classes'] = 21
+    over = dict(backbone=dict(model['backbone'], _delete_=True,
+                              dtype='bfloat16'),
+                decode_head=dict(model['decode_head'], _delete_=True),
+                auxiliary_head=aux)
+    if 'neck' in model:
+        over['neck'] = model['neck']
+    if which == 'mla':
+        over['attn_mask_seperate_head'] = False
+    path = os.path.join(root, f'{which}_voc_mini_MT_w_ours.py')
+    with open(path, 'w') as f:
+        f.write(f'_base_ = [{FULLFLAG!r}]\nmodel = {over!r}\n')
+    return path
+
+
+def zoo_cfg(path, dtype=None, num_layers=None, drop=True):
+    """A zoo config with the backbone's dtype set, its depth cut to
+    ``num_layers`` (the taps moved to the last layers), and with
+    ``drop=False`` every dropout and drop path at 0."""
+    from s4former_tpu_torch.config import Config
+    cfg = Config.fromfile(path)
+    bb = cfg.model.backbone
+    if dtype is not None:
+        bb.dtype = dtype
+    if num_layers is not None:
+        cut_depth(bb, num_layers)
+    if not drop:
+        bb.drop_rate = 0.0
+        if cfg.model.decode_head.type == 'SegmenterMaskTransformerHead':
+            cfg.model.decode_head.drop_path_rate = 0.0
+    return cfg
+
+
+def phase_zoo_serve_f32(fa, which, path, image):
+    """The zoo model in f32 at ZOO_F32_LAYERS layers on the card against
+    the same seeded weights on the CPU, one 512² request; probabilities
+    within TOL_MAIN_F32. Returns the card's launch counts."""
+    import torch
+    from s4former_tpu_torch.apis import _prepare_image, init_segmentor
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = zoo_cfg(path, 'float32', ZOO_F32_LAYERS)
+    gpu = init_segmentor(cfg, seed=0, device='cuda')
+    cpu = init_segmentor(cfg, seed=0, device='cpu')
+    x, _ = _prepare_image(gpu, image)
+    reset_counts(fa)                               # the main path starts
+    p_gpu = gpu.probs(torch.from_numpy(x).cuda())
+    torch.cuda.synchronize()
+    path_counts = counts(fa)                       # the main path ends
+    t0 = time.perf_counter()
+    p_cpu = cpu.probs(torch.from_numpy(x))
+    cpu_s = time.perf_counter() - t0
+    check(p_gpu.shape == (1, 512, 512, 21), f'probs shape {p_gpu.shape}')
+    check(torch.isfinite(p_gpu).all().item(), 'non-finite f32 probs')
+    err = (p_gpu.cpu() - p_cpu).abs().max().item()
+    agree = (p_gpu.cpu().argmax(-1) == p_cpu.argmax(-1)).float().mean()
+    emit({'phase': f'{which}_serve_f32_vs_cpu',
+          'config': os.path.basename(path),
+          'cut': f'num_layers -> {ZOO_F32_LAYERS}, out_indices '
+                 f'{tuple(cfg.model.backbone.out_indices)}',
+          'probs_max_abs_err': err, 'tol': TOL_MAIN_F32,
+          'argmax_agreement': agree.item(), 'cpu_forward_s': cpu_s,
+          'launches': path_counts})
+    check(path_counts == dict({n: 0 for n in KERNELS},
+                              flash_attn_fwd=ZOO_F32_LAYERS),
+          f'{which} f32 request launched {path_counts}')
+    check(err <= TOL_MAIN_F32, f'{which} f32 card vs CPU probs differ by '
+          f'{err}')
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return path_counts
+
+
+def phase_zoo_serve_bf16(fa, which, path, images, gpu_line):
+    """The zoo model at full depth in bf16 through ``init_segmentor`` and
+    ``inference_segmentor``: one request a fixture JPEG (padded to 512²),
+    each launching kernel #1 once a layer. Returns the launch counts."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from s4former_tpu_torch.apis import inference_segmentor, init_segmentor
+    seg = init_segmentor(path, seed=0, device='cuda')
+    layers = len(seg.model.backbone.layers)
+    inference_segmentor(seg, images[0])          # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    latencies = []
+    reset_counts(fa)                               # the main path starts
+    for img in images:
+        with Image.open(img) as im:
+            hw = (im.height, im.width)
+        before = fa.launch_count
+        t0 = time.perf_counter()
+        labels = inference_segmentor(seg, img)    # ends in a device->host copy
+        latencies.append((time.perf_counter() - t0) * 1e3)
+        n = fa.launch_count - before
+        check(n == layers, f'{which} request launched the kernel {n} times, '
+              f'not {layers}')
+        check(labels.shape == hw and labels.min() >= 0 and labels.max() < 21,
+              f'bad label map for {img}')
+    path_counts = counts(fa)                       # the main path ends
+    lat = np.asarray(latencies)
+    emit({'phase': f'{which}_serve_bf16', 'config': os.path.basename(path),
+          'layers': layers, 'heads': seg.model.backbone.num_heads,
+          'requests': len(images),
+          'request_ms': [round(t, 3) for t in latencies],
+          'request_ms_mean': float(lat.mean()),
+          'request_ms_p50': float(np.median(lat)),
+          'peak_mem_bytes': torch.cuda.max_memory_allocated(),
+          'launches': path_counts, 'gpu': gpu_line})
+    check(path_counts == dict({n: 0 for n in KERNELS},
+                              flash_attn_fwd=layers * len(images)),
+          f'{which} serving launched {path_counts}')
+    del seg
+    torch.cuda.empty_cache()
+    return path_counts
+
+
+def half_confident(max_prob):
+    """A confidence threshold that leaves about half of the pixels of the
+    teacher's max softmax ``max_prob`` confident, in the middle of the
+    widest gap between neighbouring values of its middle fifth: the card's
+    and the CPU's teacher then label the same pixels unless they differ
+    by half that gap (at the median itself one pixel sits on the edge, and
+    on a 32 x 32 head output one flip moves a loss by 0.2%)."""
+    v = max_prob.flatten().sort().values
+    lo, hi = int(0.4 * v.numel()), int(0.6 * v.numel())
+    i = lo + int((v[lo + 1:hi + 1] - v[lo:hi]).argmax())
+    return float((v[i] + v[i + 1]) / 2)
+
+
+def phase_zoo_train_f32(fa, which, path, images):
+    """One S4Former step of the zoo config in f32 at ZOO_F32_LAYERS layers,
+    dropout and drop path at 0, 1 + 1 fixture images at 512², the same
+    CutMix box and PatchShuffle permutation, on the card and on the CPU
+    from the same seeded weights. The threshold (``half_confident``) makes
+    about half of the CPU teacher's pixels confident, so pseudo-CE and NCR
+    (and Segmenter's PASA) are live. Losses within TOL_TRAIN_F32 relative,
+    updates within TOL_TRAIN_F32 of the largest CPU update. Returns the
+    card's launches."""
+    import numpy as np
+    import torch
+    from s4former_tpu_torch.semi.config import SemiConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batch = train_batch(images, 1, 1)
+    mask = np.ones((1, 512, 512), np.float32)
+    mask[0, 96:352, 128:320] = 0
+    batch['dbg_cutmix_mask'] = mask
+    batch['dbg_patchmix_perm'] = np.random.RandomState(0).permutation(
+        16)[None].astype(np.int32)
+    cfg = zoo_cfg(path, 'float32', ZOO_F32_LAYERS, drop=False)
+    state, _ = trainer_from_config(cfg, 'cpu')
+    with torch.no_grad():
+        t_logits = state.model.forward_decode_from_img(
+            torch.from_numpy(batch['unsup_teacher_img']), train=False)
+    threshold = half_confident(torch.softmax(t_logits.float(), -1).amax(-1))
+    del state
+    runs = {}
+    for device in ('cuda', 'cpu'):
+        state, step = trainer_from_config(cfg, device,
+                                          unsup_confidence=threshold)
+        before = {n: p.detach().cpu().clone()
+                  for n, p in state.model.named_parameters()}
+        dev_batch = to_device(batch, device)
+        reset_counts(fa)
+        t0 = time.perf_counter()
+        state, logs = step(state, dev_batch,
+                           torch.Generator(device=device).manual_seed(0))
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        delta = {n: p.detach().cpu() - before[n]
+                 for n, p in state.model.named_parameters()}
+        runs[device] = (floats(logs), delta, seconds, counts(fa))
+        del state, step, dev_batch
+        torch.cuda.empty_cache()
+    (lg, dg, sg, cg), (lc, dc, sc, cc) = runs['cuda'], runs['cpu']
+    want = predicted_launches(SemiConfig.from_model_cfg(cfg.model),
+                              ZOO_F32_LAYERS)
+    check(sorted(lg) == sorted(lc), 'log keys differ')
+    loss_err = {k: abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-6) for k in lc}
+    scale = max(d.abs().max().item() for d in dc.values())
+    upd_err = max((dg[n] - dc[n]).abs().max().item() for n in dc)
+    emit({'phase': f'{which}_train_f32_vs_cpu',
+          'config': os.path.basename(path),
+          'cut': f'num_layers -> {ZOO_F32_LAYERS}, dropout and drop path 0',
+          'batch': f'1 sup + 1 unsup at 512², unsup_confidence {threshold} '
+                   f'(half of the teacher\'s pixels confident)',
+          'mask_ratio': lc['mask_ratio'], 'losses_card': lg,
+          'losses_cpu': lc, 'loss_rel_err': loss_err,
+          'update_max_abs_err': upd_err, 'update_max_abs_cpu': scale,
+          'tol': TOL_TRAIN_F32, 'card_step_s': sg, 'cpu_step_s': sc,
+          'launches': cg, 'predicted_launches': want})
+    check(cg == want, f'{which} f32 step launched {cg}, not {want}')
+    check(not any(cc.values()), 'the CPU step reached a kernel')
+    check(0 < lc['mask_ratio'] < 1, f'mask_ratio {lc["mask_ratio"]}')
+    check(lc['unsup.loss_seg_unsup'] > 0 and lc['unsup.loss_ncr_unsup'] > 0,
+          'the unsup losses are not live')
+    check(all(np.isfinite(v) for v in lg.values()), 'non-finite losses')
+    check(max(loss_err.values()) <= TOL_TRAIN_F32,
+          f'{which} f32 losses, card vs CPU: {loss_err}')
+    check(upd_err <= TOL_TRAIN_F32 * scale, f'{which} f32 parameter '
+          f'updates differ by {upd_err} (max {scale})')
+    return cg
+
+
+def phase_zoo_train_bf16(fa, which, path, images, gpu_line):
+    """The zoo config's step at full depth in bf16 (dropout and drop path
+    as configured), 4 + 4 fixture images at 512²: the first step, 3 timed;
+    peak memory; launches ``predicted_launches`` a step. Returns the
+    counts of the 4 steps."""
+    import numpy as np
+    import torch
+    from s4former_tpu_torch.config import Config
+    from s4former_tpu_torch.semi.config import SemiConfig
+    cfg = Config.fromfile(path)
+    state, step = trainer_from_config(cfg, 'cuda')
+    layers = cfg.model.backbone.num_layers
+    want = predicted_launches(SemiConfig.from_model_cfg(cfg.model), layers)
+    batch = to_device(train_batch(images, 4, 4), 'cuda')
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa)                               # the main path starts
+    state, logs, ms = timed_steps(state, step, batch, gen, 4)
+    path_counts = counts(fa)                       # the main path ends
+    lg = floats(logs)
+    emit({'phase': f'{which}_train_bf16', 'config': os.path.basename(path),
+          'layers': layers, 'heads': cfg.model.backbone.num_heads,
+          'batch': '4 + 4 at 512², bf16 backbone', 'first_step_ms': ms[0],
+          'step_ms': ms[1:], 'step_ms_mean': float(np.mean(ms[1:])),
+          'img_per_s': 8 / (np.mean(ms[1:]) / 1e3),
+          'peak_mem_bytes': torch.cuda.max_memory_allocated(),
+          'logs': lg, 'launches': path_counts,
+          'predicted_launches_per_step': want, 'gpu': gpu_line})
+    check(all(np.isfinite(v) for v in lg.values()), f'non-finite logs {lg}')
+    check(path_counts == {k: 4 * v for k, v in want.items()},
+          f'{which} bf16: 4 steps launched {path_counts}, not {want} a step')
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return path_counts
+
+
+def phase_mla_train_cli(fa, gpu_line, root, path):
+    """``tools.train`` on the MLA config (ViT-L at full depth, bf16, seeded
+    weights), 4 steps of 2 + 2 through the fixture pipelines, eval and a
+    checkpoint at 4; the checkpoint holds ``neck.*``; ``tools.test`` on
+    ``iter_4`` within TOL_MIOU of the in-loop mIoU. Launches: 72 forward +
+    48 fused a step (PASA off: the sequential pass), 24 forward an eval
+    flush. Returns the counts of both runs."""
+    import numpy as np
+    import torch
+    from s4former_tpu_torch.tools import test as test_cli
+    from s4former_tpu_torch.tools import train as train_cli
+    wd = os.path.join(root, 'mla_work')
+    per_eval = zoo_cfg(path).model.backbone.num_layers * -(-16 // 4)
+    reset_counts(fa)                               # the main path starts
+    t0 = time.perf_counter()
+    state = train_cli.main([path, '--work-dir', wd, '--max-iters', '4',
+                            '--cfg-options', 'evaluation.interval=4',
+                            'checkpoint_config.interval=4',
+                            'log_config.interval=2',
+                            'samples_per_gpu_sup=2',
+                            'samples_per_gpu_unsup=2'])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_counts = counts(fa)
+    check(int(state.step) == 4, f'trained to step {int(state.step)}')
+    del state
+    torch.cuda.empty_cache()
+    ckpt = os.path.join(wd, 'iter_4')
+    saved = torch.load(os.path.join(ckpt, 'state.pt'), map_location='cpu',
+                       weights_only=True, mmap=True)
+    neck = sorted(k for k in saved['model'] if k.startswith('neck.'))
+    del saved
+    records = read_jsonl(os.path.join(wd, 'metrics.jsonl'))
+    train = [r for r in records if r['prefix'] == 'train']
+    val = {r['step']: r for r in records if r['prefix'] == 'val'}
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    results = test_cli.main([path, ckpt])
+    test_s = time.perf_counter() - t0
+    test_counts = counts(fa)                       # the main path ends
+    gap = abs(results['mIoU'] - val[4]['mIoU']) if 4 in val else None
+    per_step = {'flash_attn_fwd': 72, 'flash_attn_bwd_fused': 48}
+    emit({'phase': 'mla_train_cli', 'config': os.path.basename(path),
+          'batch': '2 + 2 at 512², bf16 ViT-L, 24 layers',
+          'losses': {r['step']: r['loss'] for r in train},
+          'step_ms_windows': [r['step_ms'] for r in train],
+          'data_wait_ms_windows': [r['data_wait_ms'] for r in train],
+          'eval_s': val.get(4, {}).get('eval_s'),
+          'in_loop_miou_iter_4': val.get(4, {}).get('mIoU'),
+          'test_miou': results['mIoU'], 'miou_gap': gap, 'tol': TOL_MIOU,
+          'checkpoint_neck_tensors': len(neck), 'train_run_s': train_s,
+          'test_run_s': test_s,
+          'launches': {'train': train_counts, 'test': test_counts},
+          'gpu': gpu_line})
+    check([r['step'] for r in train] == [2, 4] and sorted(val) == [4],
+          f'logged steps {[(r["prefix"], r["step"]) for r in records]}')
+    check(all(np.isfinite(r['loss']) for r in train), f'losses {train}')
+    check(len(neck) == 24, f'the checkpoint holds {len(neck)} neck tensors')
+    check(train_counts == dict(
+        {n: 0 for n in KERNELS},
+        flash_attn_fwd=4 * per_step['flash_attn_fwd'] + per_eval,
+        flash_attn_bwd_fused=4 * per_step['flash_attn_bwd_fused']),
+        f'4 steps + 1 eval launched {train_counts}')
+    check(test_counts == dict({n: 0 for n in KERNELS},
+                              flash_attn_fwd=per_eval),
+          f'tools.test launched {test_counts}')
+    check(gap <= TOL_MIOU, f'offline mIoU {results["mIoU"]} vs in-loop '
+          f'{val[4]["mIoU"]}: {gap} > {TOL_MIOU}')
+    shutil.rmtree(wd, ignore_errors=True)
+    return add_counts(train_counts, test_counts)
+
+
+def run_zoo(fa, images, gpu_line, root):
+    """The ViT model-zoo slice: SETR-MLA (ViT-L at H = 16, no cls token)
+    and Segmenter (ViT-B) through the serving and training entry points;
+    prints 'zoo_seconds'. Returns the launch counts by path."""
+    paths, seconds = {}, {}
+    configs = {which: zoo_config(root, which) for which in ZOO_MODELS}
+    phases = []
+    for which, path in configs.items():
+        phases += [
+            (f'{which}_serve_f32', lambda w=which, p=path:
+             phase_zoo_serve_f32(fa, w, p, images[0])),
+            (f'{which}_serve_bf16', lambda w=which, p=path:
+             phase_zoo_serve_bf16(fa, w, p, images, gpu_line)),
+            (f'{which}_train_f32', lambda w=which, p=path:
+             phase_zoo_train_f32(fa, w, p, images)),
+            (f'{which}_train_bf16', lambda w=which, p=path:
+             phase_zoo_train_bf16(fa, w, p, images, gpu_line))]
+    phases.append(('mla_train_cli', lambda: phase_mla_train_cli(
+        fa, gpu_line, root, configs['mla'])))
+    for name, run in phases:
+        t0 = time.perf_counter()
+        paths[name] = run()
+        seconds[name] = time.perf_counter() - t0
+    emit({'phase': 'zoo_seconds', **seconds, 'total': sum(seconds.values())})
+    return paths
+
+
 # ---------------------------------------------------- the ablation flags
 # the flag sets of ``ablation_train_bf16``, over ``..._MT_w_ours.py``: every
 # flag ported for the ablations is live at full width in one of them. The
@@ -2653,6 +3111,9 @@ ABLATION_SETS = {
 ABLATION_RATES = dict(drop_rate=0.1, drop_path_rate=0.1, attn_drop_rate=0.1)
 ABLATION_DROPOUT_RATIO = 0.1
 ABLATION_LAYER_DECAY = dict(num_layers=12, decay_rate=0.65)
+# ablation_train_bf16's depth: the flags' passes and launches at the
+# flagship's width, the 12 layers cut to 6
+ABLATION_BF16_LAYERS = 6
 # ablation_f32_vs_cpu: every group of the ablation tests whose draws
 # chip_smoke can hand both devices (fdrop's masks are drawn in the model;
 # 'sup_only' and sup_ClassMix exclude 'both' and sup_cutmix)
@@ -2816,9 +3277,10 @@ def phase_ablation_f32_vs_cpu(fa, images):
 
 
 def phase_ablation_train_bf16(fa, images, gpu_line):
-    """``..._MT_w_ours.py`` in bf16 at full depth, 4 + 4 fixture images at
-    512² from one batch, once for each of ABLATION_SETS ((c) with its
-    rates, head dropout, sigmoid aux CE and layer decay): the first step, 3
+    """``..._MT_w_ours.py`` in bf16 at full width, depth cut to
+    ABLATION_BF16_LAYERS, 4 + 4 fixture images at 512² from one batch, once
+    for each of ABLATION_SETS ((c) with its rates, head dropout, sigmoid
+    aux CE and layer decay over those layers): the first step, 3
     timed (mean, p50), 1 profiled; the flash launches of every step checked
     against the flags' predicted passes; peak memory; finite losses.
     Returns the launch counts of the three sets summed."""
@@ -2829,13 +3291,15 @@ def phase_ablation_train_bf16(fa, images, gpu_line):
     batch = to_device(train_batch(images, 4, 4), 'cuda')
     for name, flags in ABLATION_SETS.items():
         regularisers = name.startswith('c_')
-        cfg = ablation_config('ours', None, None, regularisers)
+        cfg = ablation_config('ours', None, ABLATION_BF16_LAYERS,
+                              regularisers)
         check(cfg.model.backbone.dtype == 'bfloat16', 'flagship dtype')
+        layer_decay = dict(ABLATION_LAYER_DECAY,
+                           num_layers=ABLATION_BF16_LAYERS)
         state, step = trainer_from_config(
-            cfg, 'cuda', ABLATION_LAYER_DECAY if regularisers else None,
-            **flags)
+            cfg, 'cuda', layer_decay if regularisers else None, **flags)
         semi = SemiConfig.from_model_cfg(dict(cfg.model, **flags))
-        expect = predicted_launches(semi, 12)
+        expect = predicted_launches(semi, ABLATION_BF16_LAYERS)
         gen = torch.Generator(device='cuda').manual_seed(0)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2851,9 +3315,10 @@ def phase_ablation_train_bf16(fa, images, gpu_line):
               'regularisers': dict(ABLATION_RATES,
                                    dropout_ratio=ABLATION_DROPOUT_RATIO,
                                    sigmoid_aux_ce=True,
-                                   layer_decay=ABLATION_LAYER_DECAY)
+                                   layer_decay=layer_decay)
               if regularisers else None,
-              'batch': '4 + 4 at 512², bf16, 12 layers',
+              'batch': f'4 + 4 at 512², bf16, {ABLATION_BF16_LAYERS} '
+                       f'layers',
               'first_step_ms': ms[0], 'step_ms': ms[1:],
               'step_ms_mean': float(timed.mean()),
               'step_ms_p50': float(np.median(timed)),
@@ -3027,6 +3492,9 @@ REMAT = {'off': dict(remat_layers=False),
 # value), so losses and updates agree to bf16 rounding, relative to the
 # loss and to the largest update. Two runs without remat are compared too.
 TOL_REMAT_BF16 = 2e-2
+# remat_train_bf16's depth: remat off, 'dots' and 'full' compared at the
+# same depth, the flagship's 12 layers cut to 6
+REMAT_LAYERS = 6
 
 
 def unimatch_batch(images, n_sup, n_unsup, size=512):
@@ -3047,7 +3515,8 @@ def with_mix_views(batch, mix):
     def mirror(x):
         return np.ascontiguousarray(x[:, :, ::-1])
     batch = dict(batch)
-    mix = np.ascontiguousarray(mix)
+    mix = np.array(mix)        # a copy: a reversed view of one image keeps
+    # its negative stride through ascontiguousarray, which torch refuses
     batch['unsup_student_2_img'] = mirror(batch['unsup_student_img'])
     batch['unsup_teacher_mix_img'] = batch['unsup_student_mix_img'] = mix
     batch['unsup_student_2_mix_img'] = mirror(mix)
@@ -3123,7 +3592,7 @@ def unimatch_step_vs_cpu(fa, cfg, batch, semi_over):
 def phase_unimatch_f32_vs_cpu(fa, images):
     """One UniMatch step in f32 against the CPU, the streams' boxes and
     permutations injected: ``..._MT_w_ours.py`` at full width, depth cut to
-    4 layers, 2 + 2 at 512², dropout and drop path 0, the threshold
+    4 layers, 1 + 1 at 512², dropout and drop path 0, the threshold
     UNSUP_CONFIDENCE_F32, with head 1 as the PASA pass and as the fdrop
     pass (``attn_mask_seperate_head`` off; its fdrop masks from
     ``masks_from_cpu``); then MiT-B4 ``_MT_w_ours`` at depth
@@ -3139,7 +3608,7 @@ def phase_unimatch_f32_vs_cpu(fa, images):
     cases = []
     vit_cfg = load_config('float32', 'ours', 4)
     vit_cfg.model.backbone.update(drop_rate=0.0, drop_path_rate=0.0)
-    vit_batch = unimatch_batch(images, 2, 2)
+    vit_batch = unimatch_batch(images, 1, 1)
     for head in ('pasa', 'fdrop'):
         over = dict(UNIMATCH_FLAGS, unsup_confidence=UNSUP_CONFIDENCE_F32,
                     attn_mask_seperate_head=head == 'pasa')
@@ -3201,9 +3670,10 @@ def phase_unimatch_f32_vs_cpu(fa, images):
     return total
 
 
-def remat_config(name, remat):
-    """A flagship config as written (bf16) with the ViT's remat set."""
-    cfg = load_config(None, name)
+def remat_config(name, remat, num_layers=None):
+    """A flagship config as written (bf16) with the ViT's remat set, the
+    depth cut to ``num_layers`` if given."""
+    cfg = load_config(None, name, num_layers)
     cfg.model.backbone.update(REMAT[remat])
     return cfg
 
@@ -3258,12 +3728,12 @@ def phase_unimatch_train_bf16(fa, images, gpu_line):
 
 def phase_remat_train_bf16(fa, images, gpu_line):
     """The flagship ``..._MT_w_ours.py`` 8 + 8 step and the UniMatch 8 + 8
-    step (bf16, 12 layers, one fixed batch), each with remat off, 'dots'
-    and 'full': the first step's losses and parameter updates against
-    remat off's (and a second run without remat) within TOL_REMAT_BF16;
-    then 3 steps timed and 1 profiled, with peak memory; launches against
-    predicted_launches with remat (60 + 24, 120 + 48). Returns the counts
-    summed."""
+    step (bf16, DeiT-B width, depth cut to REMAT_LAYERS, one fixed batch),
+    each with remat off, 'dots' and 'full': the first step's losses and
+    parameter updates against remat off's (and a second run without
+    remat) within TOL_REMAT_BF16; then 3 steps timed and 1 profiled, with
+    peak memory; launches against predicted_launches with remat (5 + 2 and
+    10 + 4 a layer). Returns the counts summed."""
     import dataclasses
     import numpy as np
     import torch
@@ -3274,11 +3744,11 @@ def phase_remat_train_bf16(fa, images, gpu_line):
                           train_batch(images, 8, 8), 'cuda')
         first = {}
         for remat in ('off', 'dots', 'full', 'off_again'):
-            cfg = remat_config('ours', remat.split('_')[0])
+            cfg = remat_config('ours', remat.split('_')[0], REMAT_LAYERS)
             semi = dataclasses.replace(SemiConfig.from_model_cfg(cfg.model),
                                        **over)
-            expect = predicted_launches(semi, 12, remat != 'off' and
-                                        remat != 'off_again')
+            expect = predicted_launches(semi, REMAT_LAYERS,
+                                        remat not in ('off', 'off_again'))
             state, step = trainer_from_config(cfg, 'cuda', **over)
             before = {n: p.detach().clone()
                       for n, p in state.model.named_parameters()}
@@ -3313,7 +3783,7 @@ def phase_remat_train_bf16(fa, images, gpu_line):
             upd_err = max((dg[n] - d0[n]).abs().max().item() for n in d0)
             emit({'phase': 'remat_train_bf16', 'regime': regime,
                   'remat': REMAT[remat], 'config': 'ours', 'flags': over,
-                  'batch': '8 + 8 at 512², bf16, 12 layers',
+                  'batch': f'8 + 8 at 512², bf16, {REMAT_LAYERS} layers',
                   'first_step_ms': ms[0], 'step_ms': timed,
                   'step_ms_mean': float(np.mean(timed)),
                   'step_ms_p50': float(np.median(timed)),
@@ -3533,11 +4003,12 @@ def dp_global_batches(images, n, steps):
     return out
 
 
-def save_batches(batches, directory):
+def save_batches(batches, directory, name):
+    """The batches as ``name``_i.npz files in ``directory``."""
     import numpy as np
     paths = []
     for i, batch in enumerate(batches):
-        paths.append(os.path.join(directory, f'batch_{i}.npz'))
+        paths.append(os.path.join(directory, f'{name}_{i}.npz'))
         np.savez(paths[-1], **batch)
     return paths
 
@@ -3705,6 +4176,7 @@ def dp_rank_cli(fa, spec, device):
     """One rank of dp_train_cli: ``tools.train`` as ``-m`` would run it."""
     import torch
     from s4former_tpu_torch.tools import train as train_cli
+    torch.cuda.reset_peak_memory_stats()
     reset_counts(fa)                               # the main path starts
     state = train_cli.main(spec['argv'])
     torch.cuda.synchronize()
@@ -3725,14 +4197,14 @@ def dp_rank_test(fa, spec, device):
 def tp_rank_train_bf16(fa, spec, device):
     """One rank of tp_train_bf16: the flagship as written on SPEC's grid
     (model axis 'mp', 'zero3'), its data index's block of one global
-    batch; 2 warm-up steps, 3 timed, one under the profiler. Reports what
-    a rank holds: its parameters' floats (the EMA and the SGD buffers hold
-    as many) against the whole model's."""
+    batch; a warm-up step, TP_TIMED timed, one under the profiler. Reports
+    what a rank holds: its parameters' floats (the EMA and the SGD buffers
+    hold as many) against the whole model's."""
     import numpy as np
     import torch
     from s4former_tpu_torch.parallel import mesh
     from s4former_tpu_torch.parallel.tp import shard_state
-    state, step, cfg = make_trainer('ours', device)
+    state, step, cfg = make_trainer('ours', device, None, TP_LAYERS)
     check(cfg.model.backbone.dtype == 'bfloat16', 'flagship dtype')
     state = mesh.replicate_state(state)
     whole = sum(p.numel() for p in state.model.parameters())
@@ -3744,10 +4216,10 @@ def tp_rank_train_bf16(fa, spec, device):
     held = sum(p.numel() for p in state.model.parameters())
     batch = mesh.shard_batch(load_batch(spec['batches'][0], device))
     gen = torch.Generator(device=device).manual_seed(0)
-    state, _, warm_ms = timed_steps(state, step, batch, gen, 2)
+    state, _, warm_ms = timed_steps(state, step, batch, gen, 1)
     torch.cuda.reset_peak_memory_stats(device)
     reset_counts(fa)                               # the main path starts
-    state, logs, ms = timed_steps(state, step, batch, gen, 3)
+    state, logs, ms = timed_steps(state, step, batch, gen, TP_TIMED)
     launches = counts(fa)                          # the main path ends
     peak = torch.cuda.max_memory_allocated(device)
     (state, _), prof = device_profile(lambda: step(state, batch, gen), 8)
@@ -3984,13 +4456,19 @@ DP_RANK_PHASES = {'step_f32': dp_rank_step_f32,
                   'test': dp_rank_test, 'parallel': pp_rank_phases}
 
 
-def dp_worker(kind, spec_path):
-    """One rank of a data-parallel phase, started by ``python -m
-    torch.distributed.run ... chip_smoke.py --dp-worker KIND SPEC``. The
-    step phases join the group of SPEC's 'backend' and 'device' (gloo with
-    every rank on cuda:0, since NCCL takes one card per rank; or NCCL, one
-    rank a card); the CLIs set up their own group. Writes its result to
-    SPEC's 'out' + '.rank{RANK}.json'."""
+def dp_worker(spec_path):
+    """The ranks' side of a start-up by ``launch_ranks``: ``python -m
+    torch.distributed.run ... chip_smoke.py --dp-worker SPEC``. SPEC lists
+    tasks, each a rank phase of DP_RANK_PHASES with its spec, run one after
+    the other in this process. A step task runs in a process group of its
+    'backend' and 'device' (gloo with every rank on cuda:0, since NCCL
+    takes one card per rank; or NCCL, one rank a card), kept for the next
+    step task that wants the same one (the mesh is reset after each); CLI
+    tasks (tools.train / tools.test with ``--launcher env``) set up and
+    tear down their own. Whenever a task needs a new group, its store is
+    made on the task's own port, so no group reads another's keys. Each
+    task's result carries its seconds and the kernel shapes it launched;
+    the results go to SPEC's 'out' + '.rank{RANK}.json'."""
     import torch
     sys.path.insert(0, REPO)
     os.chdir(REPO)
@@ -3998,49 +4476,180 @@ def dp_worker(kind, spec_path):
         spec = json.load(f)
     from s4former_tpu_torch.ops import flash_attention as fa
     from s4former_tpu_torch.parallel.distributed import init_distributed
+    from s4former_tpu_torch.parallel.mesh import reset_mesh
     fa.load_library()                              # built by the parent
     fa.load_bwd_library()
     record_shapes(fa)
-    device = None
-    if kind not in ('cli', 'test'):
-        device = init_distributed('env', backend=spec['backend'],
-                                  device=spec['device'])
+    group = device = None          # the live group's (backend, device)
+    # a task starts from the process defaults, as in a start-up of its own
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    results = []
     try:
-        result = DP_RANK_PHASES[kind](fa, spec, device)
+        for task in spec['tasks']:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = tf32
+            want = None if task['kind'] in ('cli', 'test') else (
+                task['backend'], task['device'])
+            if group is not None and group != want:
+                torch.distributed.destroy_process_group()
+                group = device = None
+            if 'port' in task:
+                os.environ['MASTER_PORT'] = str(task['port'])
+                os.environ.pop('TORCHELASTIC_USE_AGENT_STORE', None)
+            if want is not None and group is None:
+                device = init_distributed('env', backend=want[0],
+                                          device=want[1])
+                group = want
+            before = (set(FWD_SEEN), set(BWD_SEEN))
+            FWD_SEEN.clear()
+            BWD_SEEN.clear()
+            t0 = time.perf_counter()
+            result = DP_RANK_PHASES[task['kind']](fa, task['spec'], device)
+            result['seconds'] = time.perf_counter() - t0
+            result['fwd_shapes'] = sorted(FWD_SEEN, key=str)
+            result['bwd_shapes'] = sorted(BWD_SEEN, key=str)
+            FWD_SEEN.update(before[0])
+            BWD_SEEN.update(before[1])
+            if group is not None:
+                reset_mesh()
+            torch.cuda.empty_cache()
+            results.append(result)
     finally:
-        if device is not None:
+        if group is not None:
             torch.distributed.destroy_process_group()
-    result['fwd_shapes'] = sorted(FWD_SEEN, key=str)
-    result['bwd_shapes'] = sorted(BWD_SEEN, key=str)
     with open(f"{spec['out']}.rank{os.environ['RANK']}.json", 'w') as f:
-        json.dump(result, f)
+        json.dump(results, f)
     return 0
 
 
-def run_ranks(kind, spec, n, directory, timeout):
-    """``n`` ranks of ``kind`` under torch.distributed.run; returns their
-    results, rank 0 first."""
-    spec = dict(spec, out=os.path.join(directory, kind))
-    spec_path = os.path.join(directory, f'{kind}.json')
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(tasks, n, directory, timeout):
+    """One start-up of ``n`` ranks under torch.distributed.run running
+    ``tasks`` (each {'kind', 'spec', 'backend', 'device'}) in turn
+    (``dp_worker``); with more than one, each task gets a port of its own
+    for a group it makes. Returns each task's results, rank 0 first."""
+    if len(tasks) > 1:
+        tasks = [dict(t, port=free_port()) for t in tasks]
+    name = '_'.join(t['kind'] for t in tasks)[:60] + f'_{n}'
+    out = os.path.join(directory, name)
+    spec_path = out + '.json'
     with open(spec_path, 'w') as f:
-        json.dump(spec, f)
+        json.dump({'tasks': tasks, 'out': out}, f)
     cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
            f'--nproc_per_node={n}', os.path.abspath(__file__),
-           '--dp-worker', kind, spec_path]
+           '--dp-worker', spec_path]
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
                           timeout=timeout)
     if proc.returncode != 0:
         print(proc.stdout[-6000:], file=sys.stderr)
         print(proc.stderr[-6000:], file=sys.stderr)
-    check(proc.returncode == 0, f'{n} ranks of {kind} exited with '
-          f'{proc.returncode}')
-    results = []
+    check(proc.returncode == 0, f'{n} ranks of {[t["kind"] for t in tasks]} '
+          f'exited with {proc.returncode}')
+    by_rank = []
     for r in range(n):
-        with open(f"{spec['out']}.rank{r}.json") as f:
-            results.append(json.load(f))
-        FWD_SEEN.update(tuple(x) for x in results[-1]['fwd_shapes'])
-        BWD_SEEN.update(tuple(x) for x in results[-1]['bwd_shapes'])
-    return results, proc.stdout
+        with open(f'{out}.rank{r}.json') as f:
+            by_rank.append(json.load(f))
+        for result in by_rank[-1]:
+            FWD_SEEN.update(tuple(x) for x in result['fwd_shapes'])
+            BWD_SEEN.update(tuple(x) for x in result['bwd_shapes'])
+    return [[ranks[i] for ranks in by_rank] for i in range(len(tasks))]
+
+
+def run_here(fa, tasks):
+    """CLI tasks of one rank run in this process, each under a launcher
+    environment of one rank (a store on a port of its own): what a
+    start-up of one rank would run, without the ~20 s of starting it. On
+    one card the phases of min(2, cards) ranks have one. Returns each
+    task's results as ``launch_ranks`` does."""
+    keys = ('MASTER_ADDR', 'MASTER_PORT', 'RANK', 'WORLD_SIZE', 'LOCAL_RANK')
+    saved = {k: os.environ.get(k) for k in keys}
+    results = []
+    try:
+        for task in tasks:
+            os.environ.update(MASTER_ADDR='127.0.0.1',
+                              MASTER_PORT=str(free_port()), RANK='0',
+                              WORLD_SIZE='1', LOCAL_RANK='0')
+            t0 = time.perf_counter()
+            result = DP_RANK_PHASES[task['kind']](fa, task['spec'], None)
+            result['seconds'] = time.perf_counter() - t0
+            results.append([result])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return results
+
+
+def rank_task(kind, spec, n, backend=None, device=None):
+    """A task a phase yields to ``run_together``: ``kind`` on ``n`` ranks,
+    step tasks in a group of ``backend`` on ``device``."""
+    return {'kind': kind, 'spec': spec, 'ranks': n, 'backend': backend,
+            'device': device}
+
+
+def run_together(fa, phases, directory, timeout=900):
+    """Phases whose ranks share start-ups. Each of ``phases`` (name, a
+    function returning a generator) does its own work first, then yields
+    the list of its rank tasks (``rank_task``) once, is sent their results
+    (each task's ranks, rank 0 first) and returns its launch counts. The
+    tasks of every phase that run on the same number of ranks go to one
+    start-up, the CLI tasks first, then the step tasks, each kind in the
+    phases' order: starting the ranks (interpreter, torch, the card) is
+    the cost this saves. CLI tasks of one rank run in this process
+    (``run_here``). Returns (each phase's value, each phase's seconds: its own work
+    and its tasks' on the ranks, each start-up's wall seconds)."""
+    import torch
+    gens, asked, seconds = {}, {}, {}
+    for name, make in phases:
+        t0 = time.perf_counter()
+        gens[name] = make()
+        asked[name] = next(gens[name])
+        seconds[name] = time.perf_counter() - t0
+    torch.cuda.empty_cache()        # the ranks share the card
+    groups = {}
+    for name, tasks in asked.items():
+        for i, t in enumerate(tasks):
+            groups.setdefault(t['ranks'], []).append((name, i, t))
+    results = {name: [None] * len(tasks) for name, tasks in asked.items()}
+    startups = {}
+    for n, items in groups.items():
+        # the CLI runs first, each as the first of its kind in fresh
+        # processes (their in-loop evals then run as in a start-up of
+        # their own); then the step tasks
+        items.sort(key=lambda item: item[2]['kind'] not in ('cli', 'test'))
+        t0 = time.perf_counter()
+        tasks = [t for _, _, t in items]
+        here = n == 1 and all(t['kind'] in ('cli', 'test') for t in tasks)
+        if here:
+            done = run_here(fa, tasks)
+        else:
+            done = launch_ranks(tasks, n, directory, timeout)
+        label = ('this process: ' if here else f'{n} ranks: ') + ', '.join(
+            f'{name}/{t["kind"]}' for name, _, t in items)
+        startups[label] = time.perf_counter() - t0
+        for (name, i, _), ranks in zip(items, done):
+            results[name][i] = ranks
+            seconds[name] += max(r['seconds'] for r in ranks)
+    out = {}
+    for name, gen in gens.items():
+        t0 = time.perf_counter()
+        try:
+            gen.send(results[name])
+        except StopIteration as stop:
+            out[name] = stop.value
+        else:
+            raise SmokeFailure(f'{name} asked for ranks twice')
+        seconds[name] += time.perf_counter() - t0
+    return out, seconds, startups
 
 
 def sum_counts(results):
@@ -4199,7 +4808,7 @@ def phase_dp_step_f32(fa, images, gpu_line, root):
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    batches = save_batches(dp_global_batches(images, 4, 3), root)
+    batches = save_batches(dp_global_batches(images, 4, 3), root, 'dp_step')
     teacher, teacher_again = [], []
     before, single, single_logs, single_counts, single_s = single_step_f32(
         fa, batches, record=teacher)
@@ -4232,14 +4841,16 @@ def phase_dp_step_f32(fa, images, gpu_line, root):
               'cuda:0'),
              ('zero3_step_f32_vs_single', False, 4, 2, True,
               'nccl' if nccl4 else 'gloo', 'cuda' if nccl4 else 'cuda:0')]
-    for phase, pin, n_ranks, mp, zero3, backend, device in grids:
-        state_out = os.path.join(root, f'{phase}.pt')
-        t0 = time.perf_counter()
-        ranks, _ = run_ranks('step_f32', {
-            'batches': batches, 'state_out': state_out,
-            'teacher': teacher_out, 'pin': pin, 'backend': backend,
-            'device': device, 'mp': mp, 'zero3': zero3}, n_ranks, root, 600)
-        ranks_s = time.perf_counter() - t0
+    states = {phase: os.path.join(root, f'{phase}.pt') for phase, *_ in grids}
+    results = yield [rank_task('step_f32', {
+        'batches': batches, 'state_out': states[phase], 'teacher':
+        teacher_out, 'pin': pin, 'mp': mp, 'zero3': zero3}, n_ranks,
+        backend, device)
+        for phase, pin, n_ranks, mp, zero3, backend, device in grids]
+    for (phase, pin, n_ranks, mp, zero3, backend, device), ranks in zip(
+            grids, results):
+        state_out = states[phase]
+        ranks_s = max(r['seconds'] for r in ranks)
         loss_err, errs = dp_errors(torch.load(state_out, weights_only=True),
                                    ranks[0]['logs'], single, single_logs,
                                    before)
@@ -4263,7 +4874,8 @@ def phase_dp_step_f32(fa, images, gpu_line, root):
               'ranks_identical_each_step': [r['same'] for r in ranks],
               'launches_per_rank': [r['launches'] for r in ranks],
               'launches_single': single_counts, 'tol': TOL_DP_F32,
-              'single_s': single_s, 'ranks_s': ranks_s, 'gpu': gpu_line})
+              'single_s': single_s, 'ranks_task_s': ranks_s,
+              'gpu': gpu_line})
         for r in ranks:
             check(r['same'] == [True] * 3, f'ranks differ: {r["same"]}')
             check(r['split'] == (mp > 1 or zero3), f'{phase}: split after '
@@ -4302,11 +4914,12 @@ def phase_dp_train_bf16(fa, images, gpu_line, root, n, on_one_card):
     single-process 4 + 4 step: 36 forward and 24 fused a step). Returns
     the ranks' launches summed."""
     import numpy as np
-    batches = save_batches(dp_global_batches(images, 4 * n, 1), root)
-    spec = {'batches': batches, 'backend': 'gloo' if on_one_card else None,
-            'device': 'cuda:0' if on_one_card else 'cuda'}
-    t0 = time.perf_counter()
-    ranks, _ = run_ranks('train_bf16', spec, n, root, 600)
+    batches = save_batches(dp_global_batches(images, 4 * n, 1), root,
+                           f'dp_train_{n}')
+    backend = 'gloo' if on_one_card else None
+    device = 'cuda:0' if on_one_card else 'cuda'
+    ranks, = yield [rank_task('train_bf16', {'batches': batches}, n,
+                              backend, device)]
     step_s = float(np.mean([r['step_ms_mean'] for r in ranks])) / 1e3
     emit({'phase': 'dp_train_bf16' if on_one_card else
           'dp_train_bf16_cards',
@@ -4318,7 +4931,8 @@ def phase_dp_train_bf16(fa, images, gpu_line, root, n, on_one_card):
           'img_per_s_global': 8 * n / step_s,
           'per_rank': [{k: v for k, v in r.items() if k != 'logs'}
                        for r in ranks],
-          'logs_rank0': ranks[0]['logs'], 'run_s': time.perf_counter() - t0,
+          'logs_rank0': ranks[0]['logs'],
+          'ranks_task_s': max(r['seconds'] for r in ranks),
           'gpu': gpu_line})
     for r in ranks:
         check(r['same'], 'the ranks\' states differ')
@@ -4351,14 +4965,14 @@ def phase_dp_train_cli(fa, gpu_line, root):
     n_val, flush = 16, 4
     per_eval = 12 * -(-n_val // flush)
     runs = {}
-    for name, argv, steps in (
-            ('train', ['--max-iters', '6'], 6),
-            ('resume', ['--auto-resume', '--max-iters', '8'], 2)):
-        t0 = time.perf_counter()
-        ranks, _ = run_ranks('cli', {'argv': [FULLFLAG, '--work-dir', wd,
-                                              '--launcher', 'env'] + argv +
-                                     opts}, k, root, 600)
-        runs[name] = (ranks, time.perf_counter() - t0)
+    plan = (('train', ['--max-iters', '6'], 6),
+            ('resume', ['--auto-resume', '--max-iters', '8'], 2))
+    results = yield [rank_task('cli', {'argv': [FULLFLAG, '--work-dir', wd,
+                                                '--launcher', 'env'] + argv +
+                                       opts}, k)
+                     for _, argv, _ in plan]
+    for (name, argv, steps), ranks in zip(plan, results):
+        runs[name] = (ranks, max(r['seconds'] for r in ranks))
         want_step = 6 if name == 'train' else 8
         check(all(r['step'] == want_step for r in ranks),
               f'{name}: ranks ended at {[r["step"] for r in ranks]}')
@@ -4403,7 +5017,7 @@ def phase_dp_train_cli(fa, gpu_line, root):
           'eval_s': val[6]['eval_s'], 'in_loop_miou_iter_6': in_loop,
           'test_miou': results['mIoU'], 'miou_gap': gap,
           'miou_equal': results['mIoU'] == in_loop, 'tol': TOL_MIOU,
-          'run_s': {n: v[1] for n, v in runs.items()},
+          'ranks_task_s': {n: v[1] for n, v in runs.items()},
           'launches_per_rank': {n: [r['launches'] for r in v[0]]
                                 for n, v in runs.items()},
           'peak_mem_bytes_per_rank': {n: [r['peak_mem_bytes'] for r in v[0]]
@@ -4419,19 +5033,27 @@ def phase_dp_train_cli(fa, gpu_line, root):
     return out
 
 
+# tp_train_bf16's timed steps, after one warm-up step, in one process and
+# on each grid's ranks; its depth (the flagship's 12 layers cut to 6, the
+# taps the first 6: over gloo on one card these steps show equality,
+# memory and launches, not speed)
+TP_TIMED = 2
+TP_LAYERS = 6
+
+
 def one_process_4x4(fa, images):
     """The one-process flagship step at 4 + 4 (what tp_train_bf16's grids
-    split): 2 warm-up steps, 3 timed, one profiled; its peak memory and
-    parameter floats."""
+    split): a warm-up step, TP_TIMED timed, one profiled; its peak memory
+    and parameter floats."""
     import numpy as np
     import torch
-    state, step, _ = make_trainer('ours', 'cuda')
+    state, step, _ = make_trainer('ours', 'cuda', None, TP_LAYERS)
     batch = to_device(train_batch(images, 4, 4), 'cuda')
     gen = torch.Generator(device='cuda').manual_seed(0)
-    state, _, _ = timed_steps(state, step, batch, gen, 2)
+    state, _, _ = timed_steps(state, step, batch, gen, 1)
     torch.cuda.reset_peak_memory_stats()
     reset_counts(fa)
-    state, logs, ms = timed_steps(state, step, batch, gen, 3)
+    state, logs, ms = timed_steps(state, step, batch, gen, TP_TIMED)
     launches = counts(fa)
     peak = torch.cuda.max_memory_allocated()
     (state, _), prof = device_profile(lambda: step(state, batch, gen), 8)
@@ -4447,41 +5069,42 @@ def one_process_4x4(fa, images):
 
 
 def phase_tp_train_bf16(fa, images, gpu_line, root):
-    """The flagship as written (bf16, DeiT-B, 12 layers) at 512² on one
-    global batch of 4 + 4, split three ways in one call: one process; 2
-    ranks as data 1 x model 2 (each attends over 6 heads); 4 ranks as data
-    2 x model 2 with ZeRO-3 (2 + 2 a data index). Step ms, device ms and
-    busy share, peak memory, launches and heads a rank, and the floats a
-    rank's state holds. Over gloo on one card this shows equality, memory
-    and launches, not speed: each block's two activation all-reduces make
-    a host round trip there. Each rank must launch one process's 36
-    forward and 24 fused backward a step, at 12/mp heads. Returns the
-    ranks' launches summed."""
+    """The flagship (bf16, DeiT-B width, depth cut to TP_LAYERS) at 512² on
+    one global batch of 4 + 4, split three ways in one call: one process;
+    2 ranks as data 1 x model 2 (each attends over 6 heads); 4 ranks as
+    data 2 x model 2 with ZeRO-3 (2 + 2 a data index). Step ms, device ms
+    and busy share, peak memory, launches and heads a rank, and the floats
+    a rank's state holds. Over gloo on one card this shows equality,
+    memory and launches, not speed: each block's two activation
+    all-reduces make a host round trip there. Each rank must launch one
+    process's 3 forward and 2 fused backward a layer a step, at 12/mp
+    heads. Returns the ranks' launches summed."""
     import torch
     single, single_counts = one_process_4x4(fa, images)
-    batches = save_batches(dp_global_batches(images, 4, 1), root)
+    batches = save_batches(dp_global_batches(images, 4, 1), root, 'tp_train')
     nccl = torch.cuda.device_count() >= 4
-    per_step = {'flash_attn_fwd': 36, 'flash_attn_bwd_fused': 24,
+    per_step = {'flash_attn_fwd': 3 * TP_LAYERS,
+                'flash_attn_bwd_fused': 2 * TP_LAYERS,
                 'flash_attn_bwd_dkv': 0, 'flash_attn_bwd_dq': 0}
     grids, total = {}, {n: 0 for n in KERNELS}
-    for name, n, mp, zero3 in (('tp_1x2', 2, 2, False),
-                               ('tp_zero3_2x2', 4, 2, True)):
-        backend, device = ('nccl', 'cuda') if nccl and n <= 4 else \
-            ('gloo', 'cuda:0')
-        t0 = time.perf_counter()
-        ranks, _ = run_ranks('tp_train_bf16', {
-            'batches': batches, 'mp': mp, 'zero3': zero3,
-            'backend': backend, 'device': device}, n, os.path.join(
-                root), 600)
+    plan = (('tp_1x2', 2, 2, False), ('tp_zero3_2x2', 4, 2, True))
+    backends = {n: ('nccl', 'cuda') if nccl and n <= 4 else
+                ('gloo', 'cuda:0') for _, n, _, _ in plan}
+    results = yield [rank_task('tp_train_bf16', {
+        'batches': batches, 'mp': mp, 'zero3': zero3}, n, *backends[n])
+        for _, n, mp, zero3 in plan]
+    for (name, n, mp, zero3), ranks in zip(plan, results):
         grids[name] = {'ranks': n, 'grid': f'data {n // mp} x model {mp}',
-                       'zero3': zero3, 'backend': backend,
-                       'run_s': time.perf_counter() - t0,
+                       'zero3': zero3, 'backend': backends[n][0],
+                       'ranks_task_s': max(r['seconds'] for r in ranks),
                        'per_rank': [{k: v for k, v in r.items()
                                      if k != 'logs'} for r in ranks],
                        'logs_rank0': ranks[0]['logs']}
         for r in ranks:
-            check(r['launches'] == {k: 3 * v for k, v in per_step.items()},
-                  f'{name}: a rank launched {r["launches"]} in 3 steps')
+            check(r['launches'] == {k: TP_TIMED * v
+                                    for k, v in per_step.items()},
+                  f'{name}: a rank launched {r["launches"]} in {TP_TIMED} '
+                  f'steps')
             check(r['heads'] == [12 // mp], f'{name}: heads {r["heads"]}')
             check(r['split'] and r['same'], f'{name}: split {r["split"]}, '
                   f'whole tensors identical {r["same"]}')
@@ -4489,12 +5112,13 @@ def phase_tp_train_bf16(fa, images, gpu_line, root):
                   f'logs {r["logs"]}')
         total = add_counts(total, sum_counts(ranks))
     emit({'phase': 'tp_train_bf16', 'config': 'ours',
-          'batch': '4 + 4 at 512² global, bf16, 12 layers',
+          'batch': f'4 + 4 at 512² global, bf16, {TP_LAYERS} layers',
+          'cut': f'num_layers 12 -> {TP_LAYERS}',
           'one_process': single, 'grids': grids,
           'note': 'gloo on one card: activation all-reduces go through '
                   'the host; equality, memory and launches, not speed',
           'gpu': gpu_line})
-    check(single_counts == {k: 3 * v for k, v in per_step.items()},
+    check(single_counts == {k: TP_TIMED * v for k, v in per_step.items()},
           f'one process launched {single_counts}')
     return add_counts(total, single_counts)
 
@@ -4504,9 +5128,9 @@ def phase_tp_train_cli(fa, gpu_line, root):
     --launcher env --model-parallel 2 --zero3`` (data 2 x model 2; NCCL one
     rank a card with 4 cards, else gloo with every rank on cuda:0) on
     ``setr_fixture_voc_mini_fullflag.py``, 1 + 1 a rank (the global 4 + 4
-    of one process, 2 + 2 a data index): 3 steps with eval and a checkpoint
-    at 3, then ``--auto-resume`` to 4; the checkpoint has train_cli's
-    names, shapes and dtypes; ``tools.test`` (one process) on ``iter_3``
+    of one process, 2 + 2 a data index): 2 steps with eval and a checkpoint
+    at 2, then ``--auto-resume`` to 3; the checkpoint has train_cli's
+    names, shapes and dtypes; ``tools.test`` (one process) on ``iter_2``
     gives the in-loop mIoU within TOL_MIOU. Under ZeRO-3 every rank runs
     every eval forward. Returns the launches of every rank and run, and
     the test's, summed."""
@@ -4517,19 +5141,19 @@ def phase_tp_train_cli(fa, gpu_line, root):
     grid = ['--model-parallel', '2', '--zero3'] + (
         [] if nccl else ['--backend', 'gloo', '--device', 'cuda:0'])
     wd = os.path.join(root, 'tp_work')
-    opts = ['--cfg-options', 'evaluation.interval=3',
-            'checkpoint_config.interval=3', 'log_config.interval=1',
+    opts = ['--cfg-options', 'evaluation.interval=2',
+            'checkpoint_config.interval=2', 'log_config.interval=1',
             'samples_per_gpu_sup=1', 'samples_per_gpu_unsup=1']
     per_eval = 12 * -(-16 // 4)
     runs = {}
-    for name, argv, steps, evals in (
-            ('train', ['--max-iters', '3'], 3, 1),
-            ('resume', ['--auto-resume', '--max-iters', '4'], 1, 0)):
-        t0 = time.perf_counter()
-        ranks, _ = run_ranks('cli', {'argv': [FULLFLAG, '--work-dir', wd,
-                                              '--launcher', 'env'] + grid +
-                                     argv + opts}, n, root, 900)
-        runs[name] = (ranks, time.perf_counter() - t0)
+    plan = (('train', ['--max-iters', '2'], 2, 1),
+            ('resume', ['--auto-resume', '--max-iters', '3'], 1, 0))
+    results = yield [rank_task('cli', {'argv': [FULLFLAG, '--work-dir', wd,
+                                                '--launcher', 'env'] + grid +
+                                       argv + opts}, n)
+                     for _, argv, _, _ in plan]
+    for (name, argv, steps, evals), ranks in zip(plan, results):
+        runs[name] = (ranks, max(r['seconds'] for r in ranks))
         for r in ranks:
             want = {'flash_attn_fwd': 36 * steps + per_eval * evals,
                     'flash_attn_bwd_fused': 24 * steps,
@@ -4539,39 +5163,39 @@ def phase_tp_train_cli(fa, gpu_line, root):
     text = read_logs(wd)
     for line in ('4 ranks (env), 2 data x 2 model',
                  'sharded state: model axis = 2 (Megatron), zero3 = True',
-                 f'resumed from {os.path.join(wd, "iter_3")} (iter 3)'):
+                 f'resumed from {os.path.join(wd, "iter_2")} (iter 2)'):
         check(line in text, f'tp_train_cli: no "{line}" in the log')
-    layout = checkpoint_layout(os.path.join(wd, 'iter_3'))
+    layout = checkpoint_layout(os.path.join(wd, 'iter_2'))
     check(layout == CHECKPOINT_LAYOUT, 'the sharded checkpoint differs from '
           'train_cli\'s in names, shapes or dtypes')
     records = read_jsonl(os.path.join(wd, 'metrics.jsonl'))
     val = {r['step']: r for r in records if r['prefix'] == 'val'}
     losses = {r['step']: r['loss'] for r in records
               if r['prefix'] == 'train'}
-    check(sorted(val) == [3] and all(np.isfinite(v) for v in
+    check(sorted(val) == [2] and all(np.isfinite(v) for v in
                                      losses.values()),
           f'tp_train_cli records {records}')
     reset_counts(fa)
-    results = test_cli.main([FULLFLAG, os.path.join(wd, 'iter_3')])
+    results = test_cli.main([FULLFLAG, os.path.join(wd, 'iter_2')])
     test_counts = counts(fa)
-    gap = abs(results['mIoU'] - val[3]['mIoU'])
+    gap = abs(results['mIoU'] - val[2]['mIoU'])
     emit({'phase': 'tp_train_cli', 'config': os.path.basename(FULLFLAG),
           'ranks': n, 'grid': 'data 2 x model 2, zero3',
           'backend': 'nccl, one rank a card' if nccl else
           'gloo, every rank on cuda:0',
           'batch': '1 + 1 a rank, 4 + 4 global at 512², bf16, 12 layers',
-          'losses': losses, 'in_loop_miou_iter_3': val[3]['mIoU'],
-          'eval_s': val[3]['eval_s'], 'test_miou': results['mIoU'],
+          'losses': losses, 'in_loop_miou_iter_2': val[2]['mIoU'],
+          'eval_s': val[2]['eval_s'], 'test_miou': results['mIoU'],
           'miou_gap': gap, 'tol': TOL_MIOU,
           'checkpoint_equals_train_cli': True,
-          'run_s': {k: v[1] for k, v in runs.items()},
+          'ranks_task_s': {k: v[1] for k, v in runs.items()},
           'launches_per_rank': {k: [r['launches'] for r in v[0]]
                                 for k, v in runs.items()},
           'peak_mem_bytes_per_rank': {k: [r['peak_mem_bytes'] for r in v[0]]
                                       for k, v in runs.items()},
           'launches_test': test_counts, 'gpu': gpu_line})
     check(gap <= TOL_MIOU, f'tp_train_cli: offline mIoU {results["mIoU"]} '
-          f'vs in-loop {val[3]["mIoU"]}')
+          f'vs in-loop {val[2]["mIoU"]}')
     shutil.rmtree(wd, ignore_errors=True)
     out = test_counts
     for ranks, _ in runs.values():
@@ -4579,40 +5203,49 @@ def phase_tp_train_cli(fa, gpu_line, root):
     return out
 
 
-def run_dp(fa, images, gpu_line, root):
-    """The data-parallel slice's phases; returns their launch counts by
-    path and prints their seconds."""
+def run_dp(fa, images, gpu_line, root, more):
+    """The data-parallel, sharded, pipeline and ring phases, their rank
+    tasks started together (``run_together``): on one card the 2-rank step
+    grids, the 1 x 2 sharded step and dp_train_bf16 in one start-up;
+    tp_train_cli's runs, then the ZeRO-3 step, the 2 x 2 sharded step and
+    the pipeline and ring grids in one of 4 ranks; dp_train_cli's train and
+    resume on min(2, cards) ranks (in this process when that is one), with
+    ``more``, the other phases whose ranks start with these:
+    test_cli_ranks. Prints 'dp_seconds' (each
+    phase's own work and its tasks' seconds on the ranks, and each
+    start-up's wall seconds) and 'pp_seconds'. Returns the launch counts
+    by path."""
     import torch
-    paths, seconds = {}, {}
-    for name, run in (
-            ('dp_step_f32', lambda: phase_dp_step_f32(fa, images, gpu_line,
+    cards = torch.cuda.device_count()
+    phases = [
+        ('dp_step_f32', lambda: phase_dp_step_f32(fa, images, gpu_line,
+                                                  root)),
+        ('tp_train_bf16', lambda: phase_tp_train_bf16(fa, images, gpu_line,
                                                       root)),
-            ('tp_train_bf16', lambda: phase_tp_train_bf16(
-                fa, images, gpu_line, root)),
-            ('tp_train_cli', lambda: phase_tp_train_cli(fa, gpu_line,
-                                                        root)),
-            ('dp_train_bf16', lambda: phase_dp_train_bf16(
-                fa, images, gpu_line, root, DP_RANKS, on_one_card=True)),
-            ('dp_train_cli', lambda: phase_dp_train_cli(fa, gpu_line,
-                                                        root))):
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        result = run()
-        seconds[name] = time.perf_counter() - t0
-        if name == 'dp_step_f32':      # by path, the sharded grids too
+        ('tp_train_cli', lambda: phase_tp_train_cli(fa, gpu_line, root)),
+        ('dp_train_bf16', lambda: phase_dp_train_bf16(
+            fa, images, gpu_line, root, DP_RANKS, on_one_card=True)),
+        ('dp_train_cli', lambda: phase_dp_train_cli(fa, gpu_line, root)),
+        ('pp', lambda: phase_pp(fa, gpu_line))] + list(more)
+    if cards > 1:
+        # the multi-card path itself: one rank a card over NCCL
+        phases.append(('dp_train_bf16_cards', lambda: phase_dp_train_bf16(
+            fa, images, gpu_line, root, min(4, cards), on_one_card=False)))
+    else:
+        emit({'phase': 'dp_train_bf16_cards', 'skipped': f'{cards} card'})
+    t0 = time.perf_counter()
+    out, seconds, startups = run_together(fa, phases, root)
+    wall = time.perf_counter() - t0
+    paths = {}
+    for name, result in out.items():
+        if name in ('dp_step_f32', 'pp'):      # by path
             paths.update(result)
         else:
             paths[name] = result
-    cards = torch.cuda.device_count()
-    if cards > 1:
-        # the multi-card path itself: one rank a card over NCCL
-        t0 = time.perf_counter()
-        paths['dp_train_bf16_cards'] = phase_dp_train_bf16(
-            fa, images, gpu_line, root, min(4, cards), on_one_card=False)
-        seconds['dp_train_bf16_cards'] = time.perf_counter() - t0
-    else:
-        emit({'phase': 'dp_train_bf16_cards', 'skipped': f'{cards} card'})
-    emit({'phase': 'dp_seconds', **seconds, 'total': sum(seconds.values())})
+    pp_s = seconds.pop('pp')
+    emit({'phase': 'dp_seconds', **seconds, 'startups_s': startups,
+          'total': wall})
+    emit({'phase': 'pp_seconds', 'run_s': pp_s})
     return paths
 
 
@@ -4626,17 +5259,15 @@ def ring_launches(fa, cp):
             'flash_attn_bwd_dq': cp if long_blocks else 0}
 
 
-def run_pp(fa, gpu_line, root):
-    """The pipeline- and context-parallel slice: one ``torch.distributed
-    .run`` of 4 ranks (gloo, every rank on cuda:0) serves every grid
-    (``pp_rank_phases``); prints ring_attention_bf16, ring_attention_f32,
-    pp_bf16, pp_f32, pp_tp_bf16 and 'pp_seconds' and fails unless each
-    case holds its tolerance and each rank launched exactly the kernels
-    its grid implies. Returns the ranks' launches summed, by path."""
-    t0 = time.perf_counter()
-    ranks, _ = run_ranks('parallel', {'backend': 'gloo', 'device': 'cuda:0'},
-                         4, root, 600)
-    run_s = time.perf_counter() - t0
+def phase_pp(fa, gpu_line):
+    """The pipeline- and context-parallel slice: 4 ranks (gloo, every rank
+    on cuda:0) serve every grid (``pp_rank_phases``); prints
+    ring_attention_bf16, ring_attention_f32, pp_bf16, pp_f32 and
+    pp_tp_bf16 and fails unless each case holds its tolerance and each
+    rank launched exactly the kernels its grid implies. Yields its rank
+    task (``run_together``); returns the ranks' launches summed, by
+    path."""
+    ranks, = yield [rank_task('parallel', {}, 4, 'gloo', 'cuda:0')]
     paths = {'ring_attention': {n: 0 for n in KERNELS},
              'pp': {n: 0 for n in KERNELS}, 'pp_tp': {n: 0 for n in KERNELS}}
     for dname in ('bfloat16', 'float32'):
@@ -4706,7 +5337,6 @@ def run_pp(fa, gpu_line, root):
                   'errors_are': 'max abs error / max |value| of the '
                                 'one-process sequential stack, per tensor',
                   'gpu': gpu_line})
-    emit({'phase': 'pp_seconds', 'run_s': run_s})
     return paths
 
 
@@ -4736,9 +5366,8 @@ def phase_build(libs, seconds):
 
 def main() -> int:
     if sys.argv[1:2] == ['--dp-worker']:
-        return dp_worker(*sys.argv[2:4])
+        return dp_worker(sys.argv[2])
     import torch
-    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; the port '
               'runs on an NVIDIA GPU and has no CPU fallback here',
@@ -4777,6 +5406,7 @@ def main() -> int:
     fwd['max_abs_err'] = max(fwd['max_abs_err'], fwd_err_train)
     fwd['cases'] += fwd_train_cases
     phase_kernels_tp(fa, entries)       # at a tensor-parallel rank's heads
+    phase_kernels_zoo(fa, entries)      # at SETR-MLA's ViT-L heads
     fwd['tta_lengths'], fwd['eval_lengths'] = tta_ls, eval_ls
     paths = {}
     p_f32 = phase_main_f32(fa, images)
@@ -4826,7 +5456,9 @@ def main() -> int:
         paths['test_cli'] = phase_test_cli(
             fa, gpu_line, os.path.join(wd, 'iter_12'), root)
         # the eval-and-tools slice on the same checkpoints
-        paths.update(run_eval_tools(fa, gpu_line, wd, root, images))
+        eval_paths, test_cli_ranks = run_eval_tools(fa, gpu_line, wd, root,
+                                                    images)
+        paths.update(eval_paths)
         shutil.rmtree(wd, ignore_errors=True)
         paths['train_cli_host'] = phase_train_cli_host(
             fa, gpu_line, root, deit['timm'], n_backbone, windows,
@@ -4861,14 +5493,15 @@ def main() -> int:
             fa, gpu_line, root, deit['bare'], n_backbone)
         emit({'phase': 'ade_seconds', 'ade_train_cli':
               time.perf_counter() - t0})
+        # the ViT model zoo: SETR-MLA (ViT-L, H = 16) and Segmenter
+        paths.update(run_zoo(fa, images, gpu_line, root))
         # the ablation slice: the rest of the step's flags
         paths.update(run_ablation(fa, images, gpu_line, root))
         # the UniMatch slice and the ViT's remat
         paths.update(run_unimatch(fa, images, gpu_line, root))
-        # data parallelism: 2 ranks
-        paths.update(run_dp(fa, images, gpu_line, root))
-        # pipeline and context parallelism: 4 ranks
-        paths.update(run_pp(fa, gpu_line, root))
+        # data, tensor, pipeline and context parallelism: 2 and 4 ranks
+        # (and test_cli_ranks' ranks)
+        paths.update(run_dp(fa, images, gpu_line, root, [test_cli_ranks]))
 
     # each kernel at each shape the paths launched
     phase_kernels_seen(fa, entries)
@@ -4877,7 +5510,7 @@ def main() -> int:
         entries[name]['launches_by_path'] = {k: p[name]
                                              for k, p in paths.items()}
         check(entries[name]['launches'] > 0, f'{name} never ran on a path')
-    emit({'phase': 'total', 'seconds': time.perf_counter() - t_start})
+    emit({'phase': 'total', 'seconds': time.perf_counter() - T_START})
     print(gpu_line)
     emit({'kernels': [entries[name] for name in KERNELS]})
     emit({'ok': True, 'device': {'platform': 'gpu',

@@ -163,24 +163,32 @@ def inference_with_teacher_pasa(segmentor: Segmentor, img,
                                 patch_size: int = 16) -> np.ndarray:
     """Test-time PASA (reference encode_decode, encoder_decoder.py:265-296):
     the EMA teacher (the same model run with ``ema_state_dict``, in the
-    student's key names) gives a continuous max-softmax confidence, which
-    builds the additive attention bias for the student's forward. The ViT
-    only, as in the JAX package: a MiT takes its PASA input as a raw map
-    and is refused."""
+    student's key names: backbone, neck if any, decode head) gives a
+    continuous max-softmax confidence, which builds the additive attention
+    bias for the student's forward. The ViT only, as in the JAX package: a
+    MiT takes its PASA input as a raw map and is refused, and a ViT
+    without a cls token raises ValueError (``semi.pasa.require_cls_token``;
+    JAX fails on it too)."""
     from s4former_tpu_torch.models.backbones.mit import MixVisionTransformer
     from s4former_tpu_torch.ops.resize import resize_bilinear
-    from s4former_tpu_torch.semi.pasa import build_pasa_bias
+    from s4former_tpu_torch.semi.pasa import (build_pasa_bias,
+                                              require_cls_token)
     if isinstance(segmentor.model.backbone, MixVisionTransformer):
         raise NotImplementedError('teacher-PASA inference is not ported for '
                                   'the MiT (ViT token bias only)')
+    require_cls_token(segmentor.model.backbone, 'teacher-PASA inference')
     x, (h, w) = _prepare_image(segmentor, img)
     x = torch.from_numpy(x).to(segmentor.device)
     model = segmentor.model
     teacher = {k: v.to(segmentor.device) for k, v in ema_state_dict.items()
-               if k.startswith(('backbone.', 'decode_head.'))}
+               if k.startswith(('backbone.', 'neck.', 'decode_head.'))}
     with torch.inference_mode():
+        # the teacher's forward_decode_from_img, module by module
         feats = functional_call(
             model.backbone, _strip(teacher, 'backbone.'), (x,), strict=True)
+        if model.neck is not None:
+            feats = functional_call(model.neck, _strip(teacher, 'neck.'),
+                                    (feats,), strict=True)
         t_logits = functional_call(
             model.decode_head, _strip(teacher, 'decode_head.'), (feats,),
             strict=True)

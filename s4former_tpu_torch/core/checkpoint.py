@@ -9,8 +9,11 @@ The port's modules carry the reference (mmseg) parameter names, so its
   numpy arrays, -> reference-layout tensors. It unstacks the scanned ViT
   layers and the vmapped aux heads and transposes dense and conv kernels.
   Same keys and values as JAX ``export_reference_state_dict`` (l.2739) for
-  the ViT and SETR-PUP; for the MiT and the SegFormer head it inverts JAX
-  ``convert_mit_backbone`` (l.283) and ``convert_segformer_head`` (l.911).
+  the ViT and SETR-PUP; for the MiT, the MLA neck and the SegFormer, FCN,
+  SETR-MLA and Segmenter heads it inverts JAX's ``convert_*`` functions
+  (l.283, 1657, 911, 959, 1680, 1609), which
+  ``convert_mmseg_checkpoint`` applies. (JAX's export writes no neck,
+  and of those heads only ``conv_seg``.)
 - ``load_reference_state_dict(path)``: an mmseg/S4Former ``.pth``, or a
   backbone-only DeiT file with bare OpenMMLab or timm keys
   (``normalize_backbone_keys``, applied to ViT-layout backbones only: a MiT
@@ -103,6 +106,26 @@ def _vit(p: Mapping, prefix: str) -> StateDict:
     return sd
 
 
+def _convbn(c: Mapping, stats: Mapping, pre: str) -> StateDict:
+    """A JAX ``ConvBNReLU`` (``conv`` kernel, ``bn`` scale/bias; its BN
+    statistics, if any) -> mmcv ``ConvModule`` keys under ``pre``."""
+    sd = {pre + 'conv.weight': _conv(c['conv']['kernel']),
+          pre + 'bn.weight': _t(c['bn']['scale']),
+          pre + 'bn.bias': _t(c['bn']['bias'])}
+    stats = stats.get('bn', {})
+    if stats:
+        sd[pre + 'bn.running_mean'] = _t(stats['mean'])
+        sd[pre + 'bn.running_var'] = _t(stats['var'])
+    return sd
+
+
+def _conv_seg(p: Mapping, prefix: str) -> StateDict:
+    if 'conv_seg' not in p:
+        return {}
+    return {prefix + 'conv_seg.weight': _conv(p['conv_seg']['kernel']),
+            prefix + 'conv_seg.bias': _t(p['conv_seg']['bias'])}
+
+
 def _setr_up(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
     sd: StateDict = {}
     if 'norm' in p:
@@ -110,19 +133,94 @@ def _setr_up(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
         sd[prefix + 'norm.bias'] = _t(p['norm']['bias'])
     i = 0
     while f'up_convs_{i}' in p:
-        c = p[f'up_convs_{i}']
-        pre = f'{prefix}up_convs.{i}.0.'
-        sd[pre + 'conv.weight'] = _conv(c['conv']['kernel'])
-        sd[pre + 'bn.weight'] = _t(c['bn']['scale'])
-        sd[pre + 'bn.bias'] = _t(c['bn']['bias'])
-        stats = bs.get(f'up_convs_{i}', {}).get('bn', {})
-        if stats:
-            sd[pre + 'bn.running_mean'] = _t(stats['mean'])
-            sd[pre + 'bn.running_var'] = _t(stats['var'])
+        sd.update(_convbn(p[f'up_convs_{i}'], bs.get(f'up_convs_{i}', {}),
+                          f'{prefix}up_convs.{i}.0.'))
         i += 1
-    if 'conv_seg' in p:
-        sd[prefix + 'conv_seg.weight'] = _conv(p['conv_seg']['kernel'])
-        sd[prefix + 'conv_seg.bias'] = _t(p['conv_seg']['bias'])
+    sd.update(_conv_seg(p, prefix))
+    return sd
+
+
+def _fcn(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
+    """JAX misc_heads.FCNHead -> the mmseg layout (the inverse of JAX
+    ``convert_fcn_head``, l.959)."""
+    sd: StateDict = {}
+    names = [f'convs_{i}' for i in range(len(p)) if f'convs_{i}' in p]
+    for name in names + (['conv_cat'] if 'conv_cat' in p else []):
+        key = name.replace('convs_', 'convs.')
+        sd.update(_convbn(p[name], bs.get(name, {}), f'{prefix}{key}.'))
+    sd.update(_conv_seg(p, prefix))
+    return sd
+
+
+def _setr_mla(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
+    """JAX misc_heads.SETRMLAHead -> the mmseg layout (the inverse of JAX
+    ``convert_setr_mla_head``, l.1680)."""
+    sd: StateDict = {}
+    i = 0
+    while f'up_conv_{i}_a' in p:
+        for j, part in enumerate('ab'):
+            name = f'up_conv_{i}_{part}'
+            sd.update(_convbn(p[name], bs.get(name, {}),
+                              f'{prefix}up_convs.{i}.{j}.'))
+        i += 1
+    sd.update(_conv_seg(p, prefix))
+    return sd
+
+
+def _layer(blk: Mapping, pre: str) -> StateDict:
+    """One unstacked JAX ``TransformerEncoderLayer`` -> the mmcv layer's
+    keys under ``pre``."""
+    sd: StateDict = {}
+    for ln in ('ln1', 'ln2'):
+        sd[f'{pre}{ln}.weight'] = _t(blk[ln]['scale'])
+        sd[f'{pre}{ln}.bias'] = _t(blk[ln]['bias'])
+    dense = {'attn.attn.in_proj_': blk['attn']['qkv'],
+             'attn.attn.out_proj.': blk['attn']['proj'],
+             'ffn.layers.0.0.': blk['ffn']['fc1'],
+             'ffn.layers.1.': blk['ffn']['fc2']}
+    for key, leaf in dense.items():
+        # torch MHA names its fused qkv in_proj_weight/in_proj_bias
+        sd[f'{pre}{key}weight'] = _t(np.asarray(leaf['kernel']).T)
+        if 'bias' in leaf:      # qkv_bias=False has none
+            sd[f'{pre}{key}bias'] = _t(leaf['bias'])
+    return sd
+
+
+def _segmenter(p: Mapping, prefix: str) -> StateDict:
+    """JAX extra_heads.SegmenterMaskTransformerHead -> the mmseg layout
+    (the inverse of JAX ``convert_segmenter_mask_head``, l.1609)."""
+    sd: StateDict = {prefix + 'cls_emb': _t(p['cls_emb'])}
+    for name in ('dec_proj', 'patch_proj', 'classes_proj'):
+        sd[f'{prefix}{name}.weight'] = _t(np.asarray(p[name]['kernel']).T)
+        if 'bias' in p[name]:
+            sd[f'{prefix}{name}.bias'] = _t(p[name]['bias'])
+    for name in ('decoder_norm', 'mask_norm'):
+        sd[f'{prefix}{name}.weight'], sd[f'{prefix}{name}.bias'] = \
+            _scale_bias(p[name])
+    i = 0
+    while f'layers_{i}' in p:
+        sd.update(_layer(p[f'layers_{i}'], f'{prefix}layers.{i}.'))
+        i += 1
+    return sd
+
+
+def _mla_neck(p: Mapping, prefix: str) -> StateDict:
+    """JAX necks.MLANeck -> the mmseg layout (the inverse of JAX
+    ``convert_mla_neck``, l.1657)."""
+    sd: StateDict = {}
+    i = 0
+    while f'norm_{i}' in p:
+        sd[f'{prefix}norm.{i}.weight'], sd[f'{prefix}norm.{i}.bias'] = \
+            _scale_bias(p[f'norm_{i}'])
+        i += 1
+    for ours, ref in (('proj', 'mla.channel_proj'),
+                      ('feat', 'mla.feat_extract')):
+        i = 0
+        while f'{ours}_{i}' in p:
+            pre = f'{prefix}{ref}.{i}.conv.'
+            sd[pre + 'weight'] = _conv(p[f'{ours}_{i}']['kernel'])
+            sd[pre + 'bias'] = _t(p[f'{ours}_{i}']['bias'])
+            i += 1
     return sd
 
 
@@ -221,7 +319,17 @@ def _backbone(p: Mapping, prefix: str) -> StateDict:
 
 
 def _head(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
-    return (_segformer if 'fusion_conv' in p else _setr_up)(p, bs, prefix)
+    """Any ported head's subtree, told apart by its leaves as JAX
+    ``convert_any_head`` (l.2281) tells the mmseg layouts apart."""
+    if 'fusion_conv' in p:
+        return _segformer(p, bs, prefix)
+    if 'dec_proj' in p:
+        return _segmenter(p, prefix)
+    if 'up_conv_0_a' in p:
+        return _setr_mla(p, bs, prefix)
+    if 'norm' in p:
+        return _setr_up(p, bs, prefix)
+    return _fcn(p, bs, prefix)
 
 
 def _index_tree(tree, j: int):
@@ -237,6 +345,8 @@ def state_dict_from_jax_variables(variables: Mapping) -> StateDict:
     sd: StateDict = {}
     if 'backbone_m' in params:
         sd.update(_backbone(params['backbone_m'], 'backbone.'))
+    if 'neck_m' in params:
+        sd.update(_mla_neck(params['neck_m'], 'neck.'))
     if 'decode_head_m' in params:
         sd.update(_head(params['decode_head_m'],
                         bs.get('decode_head_m', {}), 'decode_head.'))
@@ -245,14 +355,14 @@ def state_dict_from_jax_variables(variables: Mapping) -> StateDict:
         stacked_b = bs.get('aux_heads', {}).get('head', {})
         n = np.asarray(stacked_p['conv_seg']['bias']).shape[0]
         for j in range(n):
-            sd.update(_setr_up(_index_tree(stacked_p, j),
-                               _index_tree(stacked_b, j),
-                               f'auxiliary_head.{j}.'))
+            sd.update(_head(_index_tree(stacked_p, j),
+                            _index_tree(stacked_b, j),
+                            f'auxiliary_head.{j}.'))
     j = 0
     while f'aux_heads_{j}' in params:   # unfused per-level aux heads
-        sd.update(_setr_up(params[f'aux_heads_{j}'],
-                           bs.get(f'aux_heads_{j}', {}),
-                           f'auxiliary_head.{j}.'))
+        sd.update(_head(params[f'aux_heads_{j}'],
+                        bs.get(f'aux_heads_{j}', {}),
+                        f'auxiliary_head.{j}.'))
         j += 1
     ema = variables.get('ema_params')
     if ema:

@@ -411,6 +411,11 @@ class VisionTransformer(nn.Module):
         super().__init__()
         if isinstance(img_size, int):
             img_size = (img_size, img_size)
+        if any(not -num_layers <= i < num_layers for i in out_indices):
+            # JAX indexes its stacked layer outputs, and jnp clamps an
+            # index past the end to the last layer
+            raise ValueError(f'out_indices {tuple(out_indices)} outside '
+                             f'the {num_layers} layers')
         if output_cls_token and not with_cls_token:
             # mmseg asserts it; the JAX module's pos embed cannot add
             raise ValueError('output_cls_token needs with_cls_token')

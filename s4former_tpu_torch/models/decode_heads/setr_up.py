@@ -47,7 +47,8 @@ def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d,
     channels-last strides, so no copy is made around the conv."""
     b = None if conv.bias is None else conv.bias.to(dtype)
     y = F.conv2d(x.permute(0, 3, 1, 2).to(dtype), conv.weight.to(dtype), b,
-                 stride=conv.stride, padding=conv.padding, groups=conv.groups)
+                 stride=conv.stride, padding=conv.padding,
+                 dilation=conv.dilation, groups=conv.groups)
     return y.permute(0, 2, 3, 1)
 
 
@@ -91,12 +92,17 @@ class BatchNorm(nn.Module):
 
 
 class ConvBNReLU(nn.Module):
+    """Bias-free conv, BN, ReLU (mmcv ``ConvModule``; reference keys
+    ``conv``, ``bn``), 'same' padding at any ``dilation``."""
+
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int = 3, dtype: torch.dtype = torch.float32):
+                 kernel_size: int = 3, dtype: torch.dtype = torch.float32,
+                 dilation: int = 1):
         super().__init__()
         self.dtype = dtype
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
-                              padding=(kernel_size - 1) // 2, bias=False)
+                              padding=dilation * (kernel_size - 1) // 2,
+                              dilation=dilation, bias=False)
         self.bn = BatchNorm(out_channels)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:

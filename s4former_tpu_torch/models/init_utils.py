@@ -3,7 +3,8 @@
 
 Follows flax's default initialisers in kind: dense and conv kernels are
 normal with std 1/sqrt(fan_in) (lecun normal), biases zero, norms identity,
-the ViT ``pos_embed`` normal with std 0.02 and ``cls_token`` zero. The draws
+the ViT ``pos_embed`` and Segmenter's ``cls_emb`` normal with std 0.02 and
+``cls_token`` zero. The draws
 come from an explicit ``torch.Generator`` on the CPU, so one seed gives the
 same weights on every device; they do not reproduce ``jax.random`` streams.
 """
@@ -21,7 +22,7 @@ def init_segmentor_weights(model: nn.Module,
     """Draw every parameter of ``model`` (on the CPU) from ``generator``."""
     for name, p in model.named_parameters():
         leaf = name.rsplit('.', 1)[-1]
-        if name.endswith('pos_embed'):
+        if name.endswith(('pos_embed', 'cls_emb')):
             p.copy_(torch.randn(p.shape, generator=generator) * 0.02)
         elif p.dim() >= 2 and leaf != 'cls_token':
             fan_in = p[0].numel()

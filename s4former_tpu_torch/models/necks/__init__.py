@@ -1,0 +1,2 @@
+"""Necks; importing registers them."""
+from s4former_tpu_torch.models.necks.necks import MLANeck  # noqa: F401

@@ -2,7 +2,7 @@
 ``s4former_tpu/models/segmentors/encoder_decoder.py``; reference:
 mmseg/models/segmentors/encoder_decoder.py).
 
-Holds only the network: backbone, decode head and aux heads. The semi
+Holds only the network: backbone, neck, decode head and aux heads. The semi
 algorithm lives in ``semi/train_step.py``; its EMA teacher is a second copy
 of this module (``apis.inference_with_teacher_pasa`` runs it from a state
 dict instead). The aux heads are plain per-level modules under the
@@ -12,7 +12,9 @@ but runs them only in training. ``train`` selects the training forward
 does; it defaults to eval. ``generator`` carries a train forward's
 randomness (the MiT's drop path, the SegFormer head's dropout) to the
 backbone and the heads, as the JAX methods' ``rngs={'dropout': ...}``
-does. Necks are not ported yet.
+does. A neck (``neck.``) runs after the backbone in ``extract_feat``,
+which passes the backbone's attention maps through (JAX
+encoder_decoder.py:120-138).
 """
 from __future__ import annotations
 
@@ -39,17 +41,17 @@ def _build_module(cfg: Optional[Dict]):
 
 @SEGMENTORS.register_module()
 class EncoderDecoder(nn.Module):
-    """Backbone -> decode head (+ aux heads), built from config dicts."""
+    """Backbone -> (neck) -> decode head (+ aux heads), built from config
+    dicts."""
 
     def __init__(self, backbone: Dict, decode_head: Dict,
                  neck: Optional[Dict] = None,
                  auxiliary_head=None,
                  align_corners: bool = False):
         super().__init__()
-        if neck is not None:
-            raise NotImplementedError('necks are not ported yet')
         self.align_corners = align_corners
         self.backbone = _build_module(backbone)
+        self.neck = _build_module(neck)
         self.decode_head = _build_module(decode_head)
         if isinstance(auxiliary_head, dict):
             auxiliary_head = [auxiliary_head]
@@ -66,10 +68,16 @@ class EncoderDecoder(nn.Module):
                      use_fdrop: bool = False,
                      return_attn: bool = False,
                      generator: Optional[torch.Generator] = None):
-        """Backbone features (tuple of NHWC maps) [, (attns, grid)]."""
-        return self.backbone(img, train=train, attn_bias=attn_bias,
-                             pos_mode=pos_mode, use_fdrop=use_fdrop,
-                             return_attn=return_attn, generator=generator)
+        """Backbone (+ neck) features (tuple of NHWC maps) [, (attns,
+        grid)]."""
+        out = self.backbone(img, train=train, attn_bias=attn_bias,
+                            pos_mode=pos_mode, use_fdrop=use_fdrop,
+                            return_attn=return_attn, generator=generator)
+        if self.neck is None:
+            return out
+        feats, attn = out if return_attn else (out, None)
+        feats = self.neck(feats, train=train)
+        return (feats, attn) if return_attn else feats
 
     def decode_logits(self, feats, *, train: bool = False,
                       patchmix_perm: Optional[torch.Tensor] = None,

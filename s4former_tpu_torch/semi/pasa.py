@@ -13,6 +13,11 @@ and encoder_decoder.py:547-567).
   teacher's image-resolution confidence mask to the bias.
 - ``mit_stage_bias``: the MiT's per-stage bias from the unconfidence pooled
   to that stage's token grid (reference mit.py:464-475).
+- ``require_cls_token``: the ViT bias has a cls row and column, so a ViT
+  built with ``with_cls_token=False`` (SETR-MLA's) cannot take it. The
+  JAX step and teacher-PASA inference build it with the cls row all the
+  same and fail on the shapes; the port refuses such a model with a
+  ValueError, before any forward, rather than build another bias.
 """
 from __future__ import annotations
 
@@ -70,6 +75,16 @@ def pasa_bias_from_conf_mask(conf_mask: torch.Tensor, patch_size: int,
     """[B, H, W] {0,1} confidence mask -> additive bias [B, 1, L+1, L+1]."""
     return build_pasa_bias(patch_unconfidence(conf_mask, patch_size),
                            attn_mask_weight, adaptive, with_cls_token)
+
+
+def require_cls_token(backbone, what: str) -> None:
+    """Raise ValueError if ``backbone`` is a ViT without a cls token."""
+    if getattr(backbone, 'with_cls_token', True):
+        return
+    raise ValueError(
+        f'{what} needs a ViT with with_cls_token=True: the PASA bias has a '
+        f'cls row and column, and this backbone has with_cls_token=False '
+        f'(the JAX package cannot run it either)')
 
 
 def mit_stage_bias(unconf: torch.Tensor, attn_mask_weight: float,

@@ -103,7 +103,8 @@ from s4former_tpu_torch.semi import mixes
 from s4former_tpu_torch.semi.config import SemiConfig
 from s4former_tpu_torch.semi.ema import ema_update_scoped, head_skip_draw
 from s4former_tpu_torch.semi.ncr import ncr_loss
-from s4former_tpu_torch.semi.pasa import pasa_bias_from_conf_mask
+from s4former_tpu_torch.semi.pasa import (pasa_bias_from_conf_mask,
+                                          require_cls_token)
 from s4former_tpu_torch.semi.pseudo import (extract_teacher_info, mask_ratio,
                                             pseudo_ce_loss,
                                             soft_pseudo_ce_loss)
@@ -411,6 +412,9 @@ def make_semi_train_step(model: nn.Module,
     # (JAX train_step.py:527-529)
     fused = (cfg.fuse_unsup_passes and cfg.attn_mask_seperate_head and
              not fdrop and not mit)
+    if (cfg.attn_mask_seperate_head or cfg.use_attn_mask_inline) and not mit:
+        require_cls_token(model.backbone, 'PASA (attn_mask_seperate_head or '
+                          'use_attn_mask_inline)')
     params0 = dict(model.named_parameters())
     lr_mults = build_lr_mult_tree(params0, custom_keys)
     wd_mults = None

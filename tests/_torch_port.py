@@ -133,6 +133,43 @@ TRAIN_MODEL = dict(
                     for i in range(2)])
 
 
+# The zoo slice's tiny models (2-layer ViT of 64, 4 heads of 16, 64²):
+# SETR-MLA (no cls token, the MLA neck to 16 channels, the MLA head with
+# 8 channels a level, four one-conv FCN aux heads) and Segmenter (the
+# mask-transformer head over the last tap). Drop rates are 0, so the steps
+# draw nothing but the injected mixes.
+MLA_MODEL = dict(
+    type='EncoderDecoder',
+    backbone=dict(type='VisionTransformer', img_size=(64, 64), patch_size=16,
+                  embed_dims=64, num_layers=2, num_heads=4,
+                  out_indices=(0, 1, 0, 1), with_cls_token=False,
+                  final_norm=False, interpolate_mode='bilinear'),
+    neck=dict(type='MLANeck', in_channels=[64, 64, 64, 64], out_channels=16,
+              norm_cfg=dict(type='LN', eps=1e-6, requires_grad=True)),
+    decode_head=dict(type='SETRMLAHead', in_channels=(16, 16, 16, 16),
+                     channels=32, in_index=(0, 1, 2, 3), dropout_ratio=0,
+                     mla_channels=8, num_classes=5,
+                     loss_decode=dict(type='CrossEntropyLoss',
+                                      loss_weight=1.0)),
+    auxiliary_head=[dict(type='FCNHead', in_channels=16, channels=16,
+                         in_index=i, dropout_ratio=0, num_convs=0,
+                         kernel_size=1, concat_input=False, num_classes=5,
+                         loss_decode=dict(type='CrossEntropyLoss',
+                                          loss_weight=0.4))
+                    for i in range(4)])
+SEG_MODEL = dict(
+    type='EncoderDecoder',
+    backbone=dict(type='VisionTransformer', img_size=(64, 64), patch_size=16,
+                  embed_dims=64, num_layers=2, num_heads=4,
+                  out_indices=(1,)),
+    decode_head=dict(type='SegmenterMaskTransformerHead', in_channels=64,
+                     channels=64, num_classes=5, num_layers=2, num_heads=4,
+                     embed_dims=64, dropout_ratio=0.0, drop_path_rate=0.0,
+                     in_index=0,
+                     loss_decode=dict(type='CrossEntropyLoss',
+                                      loss_weight=1.0)))
+
+
 def jax_train_model(seed: int = 0, ema: bool = True, cfg=None):
     """(JAX model, JAX TrainState) of TRAIN_MODEL (or ``cfg``, a variant of
     it) with perturbed weights; the EMA teacher gets weights of its own. The
@@ -149,7 +186,8 @@ def jax_train_model(seed: int = 0, ema: bool = True, cfg=None):
     variables = init_segmentor_variables(model, jax.random.PRNGKey(seed),
                                          (1, 64, 64, 3))
     student = perturbed({'params': variables['params'],
-                         'batch_stats': variables['batch_stats']}, seed)
+                         'batch_stats': variables.get('batch_stats', {})},
+                        seed)
     state = create_train_state(jax.tree_util.tree_map(jnp.asarray, student),
                                ema=ema)
     if ema:

@@ -1,0 +1,139 @@
+"""The port's twin of the JAX package's tests/test_config_zoo.py: every
+config under configs/ that has a model loads through the port's
+``_base_`` machinery and either builds a segmentor in the port (on the
+meta device, so no memory is spent) or raises the registry's KeyError
+naming a model type of that config that is not ported yet. The JAX
+package builds each of them.
+
+Then the tiny 64² forward of four base models, held to JAX in f32 from
+perturbed JAX weights through the weight bridge: ``setr_mla.py`` and
+``segmenter_vit-b_mask.py`` (this slice), ``setr_pup.py`` and
+``segformer_mit-b0.py``. The ViT-scale ones are shrunk as JAX's test
+shrinks Segmenter (img_size 64, embed 64, 4 heads; the head to embed 64,
+4 heads, 1 layer), with the taps inside the shrunk depth: JAX indexes
+its stacked layer outputs and jnp clamps an index past the end to the
+last layer (Segmenter's 11 of 2 reads layer 1), where the port refuses
+it. Tolerance 1e-4 of the logits' largest magnitude (f32, sums in
+another order, through the layers and the head; the perturbed weights
+give logits of tens).
+"""
+import copy
+import glob
+import os.path as osp
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import s4former_tpu.models  # noqa: F401
+import s4former_tpu_torch.models  # noqa: F401
+from s4former_tpu.config import Config as JConfig
+from s4former_tpu.models import build_segmentor as j_build_segmentor
+from s4former_tpu.models import init_segmentor_variables
+from s4former_tpu_torch.config import Config
+from s4former_tpu_torch.core.checkpoint import state_dict_from_jax_variables
+from s4former_tpu_torch.models import build_segmentor
+from s4former_tpu_torch.registry import MODELS
+from tests._torch_port import perturbed
+
+REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
+ALL_CONFIGS = sorted(
+    glob.glob(osp.join(REPO, 'configs', '**', '*.py'), recursive=True))
+# the configs with a model (the dataset, schedule and runtime fragments
+# have none); a file's content decides, the same in every worker
+MODEL_CONFIGS = [p for p in ALL_CONFIGS if 'model' in Config.fromfile(p)]
+# what the port builds today; any other config names an unported type
+PORTED_BASES = ('setr_mla.py', 'segmenter_vit-b_mask.py', 'setr_pup.py',
+                'segformer_mit-b0.py')
+ATOL = 1e-4
+
+
+def _types(tree):
+    """The module types of a model config tree (the segmentor, backbone,
+    neck and heads; not the norm, activation, init or loss settings,
+    which the build does not look up)."""
+    if isinstance(tree, dict):
+        own = [tree['type']] if isinstance(tree.get('type'), str) else []
+        return own + [t for k, v in tree.items()
+                      if not (k.endswith('_cfg') or
+                              k in ('norm_layer', 'loss_decode'))
+                      for t in _types(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _types(v)]
+    return []
+
+
+def test_model_configs_found():
+    assert len(MODEL_CONFIGS) == 31
+    assert len(ALL_CONFIGS) - len(MODEL_CONFIGS) == 4
+
+
+@pytest.mark.parametrize('path', MODEL_CONFIGS,
+                         ids=[osp.relpath(p, REPO) for p in MODEL_CONFIGS])
+def test_config_builds_or_names_an_unported_type(path):
+    cfg = Config.fromfile(path)
+    assert j_build_segmentor(JConfig.fromfile(path).model) is not None
+    missing = [t for t in _types(cfg.model) if t not in MODELS]
+    try:
+        with torch.device('meta'):
+            model = build_segmentor(cfg.model)
+    except KeyError as e:
+        assert osp.basename(path) not in PORTED_BASES, (path, str(e))
+        assert missing, f'{path}: KeyError with every type ported: {e}'
+        assert any(f'{t} is not in the models registry' in str(e)
+                   for t in missing), (str(e), missing)
+        return
+    assert not missing, (path, missing)
+    head = cfg.model['decode_head']
+    assert model.num_classes == head['num_classes']
+    assert sum(p.numel() for p in model.parameters()) > 0
+
+
+def _shrunk(name):
+    mc = copy.deepcopy(dict(Config.fromfile(
+        osp.join(REPO, 'configs', '_base_', 'models', name)).model))
+    vit = dict(img_size=(64, 64), embed_dims=64, num_heads=4)
+    if name == 'segmenter_vit-b_mask.py':
+        mc['backbone'].update(vit, num_layers=2, out_indices=(1,))
+        mc['decode_head'].update(in_channels=64, embed_dims=64, num_heads=4,
+                                 num_layers=1, channels=64)
+    elif name == 'setr_mla.py':
+        mc['backbone'].update(vit, num_layers=4, out_indices=(0, 1, 2, 3))
+        mc['neck']['in_channels'] = [64] * 4
+    elif name == 'setr_pup.py':
+        mc['backbone'].update(vit, num_layers=4, out_indices=(0, 1, 2, 3))
+        for head in [mc['decode_head']] + mc['auxiliary_head']:
+            head['in_channels'] = 64
+    return mc
+
+
+@pytest.mark.parametrize('name', PORTED_BASES)
+def test_base_model_tiny_forward_matches_jax(name):
+    mc = _shrunk(name)
+    jcfg = copy.deepcopy(mc)
+    if jcfg['backbone']['type'] == 'VisionTransformer':
+        jcfg['backbone']['use_flash'] = False
+    jmodel = j_build_segmentor(jcfg)
+    # jitted: eagerly, JAX dispatches (and compiles) op by op
+    v = jax.jit(lambda key: init_segmentor_variables(
+        jmodel, key, (1, 64, 64, 3)))(jax.random.PRNGKey(0))
+    v = perturbed({'params': v['params'],
+                   'batch_stats': v.get('batch_stats', {})}, 0)
+    img = np.random.RandomState(0).randn(1, 64, 64, 3).astype(np.float32)
+    want = np.asarray(jax.jit(lambda v, x: jmodel.apply(v, x, train=False))(
+        jax.tree_util.tree_map(jnp.asarray, v), jnp.asarray(img)))
+    model = build_segmentor(mc).eval()
+    model.load_state_dict(state_dict_from_jax_variables(v))
+    with torch.no_grad():
+        got = model(torch.from_numpy(img)).numpy()
+    assert got.shape == want.shape == (1, 64, 64, 19)
+    if name == 'segmenter_vit-b_mask.py':
+        # JAX's test keeps the tap 11 of 2 layers (clamped); the port refuses
+        with pytest.raises(ValueError, match='out_indices'):
+            build_segmentor(dict(mc, backbone=dict(mc['backbone'],
+                                                   out_indices=(11,))))
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=ATOL * np.abs(want).max())

@@ -34,8 +34,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     # the host runtime, the profiler's reader, the test CLI's modules, the
     # SegFormer slice's, the ablation slice's, the UniMatch slice's, the
     # data-parallel slice's, the eval-and-tools slice's (the tools and the
-    # demo package) and the pipeline- and context-parallel slice's are
-    # among the files read
+    # demo package), the pipeline- and context-parallel slice's and the
+    # model zoo's are among the files read
     assert {'native/__init__.py', 'native/build.py', 'core/hooks.py',
             'tools/profile_trace.py', 'utils/palette.py',
             'utils/collect_env.py', 'tools/test.py',
@@ -54,7 +54,10 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             'tools/ensemble_test.py', 'tools/benchmark.py',
             'tools/get_flops.py', 'tools/per_image_eval.py',
             'tools/measure_eval_divergence.py', 'demo/__init__.py',
-            'demo/image_demo.py', 'demo/video_demo.py'} <= {
+            'demo/image_demo.py', 'demo/video_demo.py',
+            'models/necks/necks.py', 'models/decode_heads/misc_heads.py',
+            'models/decode_heads/zoo_heads.py',
+            'models/decode_heads/extra_heads.py'} <= {
         str(p.relative_to(REPO / 's4former_tpu_torch')) for p in files
         if REPO / 's4former_tpu_torch' in p.parents}
     bad = [(str(p.relative_to(REPO)), m) for p in files
