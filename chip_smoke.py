@@ -81,6 +81,19 @@ on the card, then drives the port's paths through its entry points:
   checkpoint holding ``neck.*``, and ``tools.test`` on it against the
   in-loop mIoU; kernels #1 and #2 are held at H = 16 in
   ``kernel_check``;
+- the CNN slice (``cnn_*``; ``cnn_config`` puts each ResNet base of
+  ``configs/_base_/models/`` into ``setr_fixture_voc_mini_fullflag.py``,
+  21 classes, every S4Former flag, the mixes' ``patchsize`` 8; f32, TF32
+  off, no kernel launched): DeepLabV3+ on ResNetV1c-50-D8 serving one
+  512² request in f32 against the CPU, then the 16 fixture JPEGs; one f32
+  step, 1 + 1, against the CPU (the CPU teacher's logits pinned) at
+  ResNetV1c-18 and 512², and at ResNetV1c-50 and 256² against the
+  witness of the CPU's own step on inputs moved by one ulp; the 4 + 4 step at full depth (the
+  first, 3 timed, peak memory); PSPNet, FPN, CCNet and ICNet each serving
+  one image and taking one 2 + 2 step; ``tools.train`` 2 steps of 2 + 2
+  with eval and a checkpoint holding the ResNet's BN statistics, which
+  loads the trained student bit for bit, and ``tools.test`` on it: the
+  trained student's label maps bit for bit and the in-loop mIoU;
 - the ablation flags of the step (``ablation_*``): one f32 step of
   ``..._MT_w_ours.py`` at 4 layers with every flag group whose draws can be
   handed to both devices, against the CPU; three bf16 flag sets at full
@@ -2179,14 +2192,20 @@ def trainer_from_config(cfg, device, paramwise_cfg=None, **semi_over):
     """(state, train_step) of a config through the port's entry points,
     with seeded random weights; ``paramwise_cfg`` turns on the layer-wise
     LR decay."""
-    import dataclasses
     from s4former_tpu_torch.apis import init_segmentor
+    return trainer_of(init_segmentor(cfg, seed=0, device=device).model, cfg,
+                      paramwise_cfg, **semi_over)
+
+
+def trainer_of(model, cfg, paramwise_cfg=None, **semi_over):
+    """(state, train_step) of a built model (``init_segmentor``'s) and its
+    config."""
+    import dataclasses
     from s4former_tpu_torch.semi.config import SemiConfig
     from s4former_tpu_torch.semi.train_step import (create_train_state,
                                                     make_semi_train_step)
     semi = dataclasses.replace(SemiConfig.from_model_cfg(cfg.model),
                                **semi_over)
-    model = init_segmentor(cfg, seed=0, device=device).model
     state = create_train_state(model, ema=semi.ema)
     step = make_semi_train_step(model, semi, model.num_classes,
                                 paramwise_cfg=paramwise_cfg,
@@ -3086,6 +3105,584 @@ def run_zoo(fa, images, gpu_line, root):
         paths[name] = run()
         seconds[name] = time.perf_counter() - t0
     emit({'phase': 'zoo_seconds', **seconds, 'total': sum(seconds.values())})
+    return paths
+
+
+# ------------------------------------------------------------ the CNN slice
+# the ResNet bases of configs/_base_/models/ (ResNetV1c-50; -D8 but FPN)
+CNN_MODELS = {'deeplabv3plus': 'deeplabv3plus_r50-d8.py',
+              'pspnet': 'pspnet_r50-d8.py', 'fpn': 'fpn_r50.py',
+              'ccnet': 'ccnet_r50-d8.py', 'icnet': 'icnet_r50-d8.py'}
+# the mixes' super-patch unit: a -D8 head undoes the PatchShuffle on its
+# 1/8 map in blocks of PatchMix_N features, so the image's super-patches
+# must be 8 * PatchMix_N pixels (at the default 16 the step fails on the
+# shapes, in JAX as in the port)
+CNN_PATCHSIZE = 8
+
+
+def cnn_config(root, which):
+    """``setr_fixture_voc_mini_fullflag.py`` (the fixture run of
+    ``..._MT_w_ours.py``: VOC fixture data, every S4Former flag) with its
+    model replaced by that of ``configs/_base_/models/`` ``CNN_MODELS
+    [which]``, written to ``root`` as ``zoo_config`` writes its config: 21
+    classes on every head, the mixes' ``patchsize`` CNN_PATCHSIZE. PASA
+    stays on (the ResNet ignores the bias, as JAX's does; the PASA pass
+    still runs, in the fused 2B batch), and PatchShuffle with CutMix, NCR
+    and the EMA. The ResNet computes in f32 (JAX's has no dtype). Returns
+    the path."""
+    from s4former_tpu_torch.config import Config
+    model = Config.fromfile(os.path.join(
+        REPO, 'configs', '_base_', 'models', CNN_MODELS[which])).to_dict()[
+            'model']
+    aux = model.get('auxiliary_head') or []
+    for head in [model['decode_head']] + aux:
+        head['num_classes'] = 21
+    over = dict(backbone=dict(model['backbone'], _delete_=True),
+                decode_head=dict(model['decode_head'], _delete_=True),
+                auxiliary_head=aux, patchsize=CNN_PATCHSIZE)
+    if 'neck' in model:
+        over['neck'] = model['neck']
+    path = os.path.join(root, f'{which}_voc_mini_MT_w_ours.py')
+    with open(path, 'w') as f:
+        f.write(f'_base_ = [{FULLFLAG!r}]\nmodel = {over!r}\n')
+    return path
+
+
+def conv_settings():
+    """The cuDNN and matmul settings a phase ran under (the script turns
+    TF32 off in its first f32 phase and leaves it off)."""
+    import torch
+    return {'tf32_matmul': torch.backends.cuda.matmul.allow_tf32,
+            'tf32_cudnn': torch.backends.cudnn.allow_tf32,
+            'cudnn_benchmark': torch.backends.cudnn.benchmark,
+            'cudnn_deterministic': torch.backends.cudnn.deterministic}
+
+
+def phase_cnn_serve_f32(fa, path, image):
+    """DeepLabV3+ at full depth in f32 on the card against the same seeded
+    weights on the CPU, one 512² request; probabilities within
+    TOL_MAIN_F32; no kernel launch. Returns the card's counts."""
+    import torch
+    from s4former_tpu_torch.apis import _prepare_image, init_segmentor
+    from s4former_tpu_torch.config import Config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = Config.fromfile(path)
+    gpu = init_segmentor(cfg, seed=0, device='cuda')
+    cpu = init_segmentor(cfg, seed=0, device='cpu')
+    x, _ = _prepare_image(gpu, image)
+    reset_counts(fa)                               # the main path starts
+    p_gpu = gpu.probs(torch.from_numpy(x).cuda())
+    torch.cuda.synchronize()
+    path_counts = counts(fa)                       # the main path ends
+    t0 = time.perf_counter()
+    p_cpu = cpu.probs(torch.from_numpy(x))
+    cpu_s = time.perf_counter() - t0
+    same = p_gpu.shape == p_cpu.shape == (1, 512, 512, 21)
+    err = (p_gpu.cpu() - p_cpu).abs().max().item() if same else None
+    agree = (p_gpu.cpu().argmax(-1) == p_cpu.argmax(-1)).float().mean() \
+        .item() if same else None
+    emit({'phase': 'cnn_serve_f32_vs_cpu', 'config': os.path.basename(path),
+          'probs_shape': list(p_gpu.shape), 'probs_max_abs_err': err,
+          'tol': TOL_MAIN_F32, 'argmax_agreement': agree,
+          'cpu_forward_s': cpu_s, 'settings': conv_settings(),
+          'launches': path_counts})
+    check(same, f'probs shapes {tuple(p_gpu.shape)}, {tuple(p_cpu.shape)}')
+    check(torch.isfinite(p_gpu).all().item(), 'non-finite f32 probs')
+    check(all_zero(path_counts), f'a CNN request launched {path_counts}')
+    check(err <= TOL_MAIN_F32, f'DeepLabV3+ f32 card vs CPU probs differ '
+          f'by {err}')
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return path_counts
+
+
+def phase_cnn_serve(fa, path, images, gpu_line, name='cnn_serve'):
+    """A CNN config through ``init_segmentor`` and ``inference_segmentor``:
+    one request a fixture JPEG (padded to 512²) after a warm-up, each
+    label map checked; no kernel launch. Returns the counts and the
+    segmentor."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from s4former_tpu_torch.apis import inference_segmentor, init_segmentor
+    seg = init_segmentor(path, seed=0, device='cuda')
+    inference_segmentor(seg, images[0])          # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    latencies, bad = [], []
+    reset_counts(fa)                               # the main path starts
+    for img in images:
+        with Image.open(img) as im:
+            hw = (im.height, im.width)
+        t0 = time.perf_counter()
+        labels = inference_segmentor(seg, img)    # ends in a device->host copy
+        latencies.append((time.perf_counter() - t0) * 1e3)
+        if not (labels.shape == hw and labels.min() >= 0 and
+                labels.max() < 21):
+            bad.append(os.path.basename(img))
+    path_counts = counts(fa)                       # the main path ends
+    lat = np.asarray(latencies)
+    emit({'phase': name, 'config': os.path.basename(path),
+          'requests': len(images),
+          'request_ms': [round(t, 3) for t in latencies],
+          'request_ms_mean': float(lat.mean()),
+          'request_ms_p50': float(np.median(lat)),
+          'peak_mem_bytes': torch.cuda.max_memory_allocated(),
+          'bad_label_maps': bad, 'settings': conv_settings(),
+          'launches': path_counts, 'gpu': gpu_line})
+    check(not bad, f'bad label maps for {bad}')
+    check(all_zero(path_counts), f'CNN serving launched {path_counts}')
+    return path_counts, seg
+
+
+# the f32 step runs twice. Through ResNet-50's ~50 train-mode BN + ReLU
+# pairs two f32 sum orders put a ReLU input that sits within rounding of 0
+# on either side, and its BN's backward spreads the change over its
+# channel (seen on the CPU, tests/test_torch_cnn_step.py): the card's and
+# the CPU's updates of the stem and layer1 part by ~2e-2 of the largest
+# update, and so do the CPU's own on inputs moved by one f32 ulp
+# (``ulp_moved``). So at depth 50 (at CNN_WITNESS_SIZE², where the CPU's
+# two steps take ~4 s each, not ~18 s as at 512²) each parameter's
+# card-vs-CPU distance is held to CNN_WITNESS_MULT x that witness's
+# distance (or TOL_TRAIN_F32 of the largest update), and at
+# ResNetV1c-CNN_F32_DEPTH and 512², where card and CPU agree to 1.4e-4,
+# every update is held to TOL_TRAIN_F32 of the largest.
+CNN_F32_DEPTH = 18
+CNN_WITNESS_SIZE = 256
+CNN_WITNESS_MULT = 4
+
+
+def cnn_f32_cfg(path, depth):
+    """The DeepLabV3+ config at ResNetV1c-``depth`` (below 50 the heads'
+    inputs narrowed to its stages: BasicBlocks keep their width), every
+    head's dropout at 0."""
+    from s4former_tpu_torch.config import Config
+    cfg = Config.fromfile(path)
+    heads = [cfg.model.decode_head] + list(
+        cfg.model.get('auxiliary_head') or [])
+    if depth < 50:
+        cfg.model.backbone.depth = depth
+        base = cfg.model.backbone.get('base_channels', 64)
+        widths = [base * 2 ** i for i in range(4)]   # BasicBlock stages
+        cfg.model.decode_head.in_channels = widths[3]
+        cfg.model.decode_head.c1_in_channels = widths[0]
+        for head in heads[1:]:
+            head.in_channels = widths[head.in_index]
+    for head in heads:
+        head.dropout_ratio = 0.0
+    return cfg
+
+
+def cnn_f32_batch(images, size=512):
+    """1 + 1 fixture images at size², a CutMix box (rows 3/16-11/16,
+    columns 1/4-5/8) and a seeded PatchShuffle permutation (``dbg_*``)."""
+    import numpy as np
+    batch = train_batch(images, 1, 1, size)
+    mask = np.ones((1, size, size), np.float32)
+    mask[0, size * 3 // 16:size * 11 // 16, size // 4:size * 5 // 8] = 0
+    batch['dbg_cutmix_mask'] = mask
+    grid = size // (CNN_PATCHSIZE * 8)             # PatchMix_N 8
+    batch['dbg_patchmix_perm'] = np.random.RandomState(0).permutation(
+        grid * grid)[None].astype(np.int32)
+    return batch
+
+
+def ulp_moved(batch):
+    """``batch`` with every image value moved one f32 ulp up or down
+    (seeded)."""
+    import numpy as np
+    rs = np.random.RandomState(0)
+    out = dict(batch)
+    for k in ('sup_img', 'unsup_teacher_img', 'unsup_student_img'):
+        x = batch[k]
+        to = np.where(rs.rand(*x.shape) < 0.5, -np.inf, np.inf)
+        out[k] = np.nextafter(x, to.astype(np.float32))
+    return out
+
+
+def cnn_f32_threshold(cfg, batch):
+    """``half_confident`` of the card's teacher on the batch."""
+    import torch
+    state, _ = trainer_from_config(cfg, 'cuda')
+    with torch.no_grad():
+        t_logits = state.model.forward_decode_from_img(
+            torch.from_numpy(batch['unsup_teacher_img']).cuda(), train=False)
+    threshold = half_confident(torch.softmax(t_logits.float(), -1).amax(-1))
+    del state, t_logits
+    torch.cuda.empty_cache()
+    return threshold
+
+
+def cnn_f32_step(fa, cfg, batch, threshold, device, hook):
+    """One step of ``cfg`` from the seeded weights on ``device`` under the
+    teacher hook ``hook()``: (logs, parameter updates on the CPU, seconds,
+    launch counts)."""
+    import torch
+    state, step = trainer_from_config(cfg, device, unsup_confidence=threshold)
+    before = {n: p.detach().cpu().clone()
+              for n, p in state.model.named_parameters()}
+    dev_batch = to_device(batch, device)
+    unhook = hook()
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    try:
+        state, logs = step(state, dev_batch,
+                           torch.Generator(device=device).manual_seed(0))
+        if device == 'cuda':
+            torch.cuda.synchronize()
+    finally:
+        unhook()
+    seconds = time.perf_counter() - t0
+    delta = {n: p.detach().cpu() - before[n]
+             for n, p in state.model.named_parameters()}
+    launches = counts(fa)
+    del state, step, dev_batch
+    torch.cuda.empty_cache()
+    return floats(logs), delta, seconds, launches
+
+
+def phase_cnn_train_f32(fa, path, images):
+    """One S4Former step of DeepLabV3+ in f32, 1 + 1 fixture images,
+    dropout 0, the same CutMix box and PatchShuffle permutation, on the CPU
+    and then on the card from the same seeded weights. The threshold
+    (``half_confident``, from the card's teacher) leaves about half of the
+    teacher's pixels confident, so pseudo-CE, NCR and the PASA pass are
+    live; the card's step takes the CPU teacher's logits (``teacher_hook``,
+    pinned: its labels, mask and bias are the CPU's; the labels its own
+    logits would give are counted). At ResNetV1c-CNN_F32_DEPTH and 512²:
+    losses within TOL_TRAIN_F32 relative, updates within TOL_TRAIN_F32 of
+    the largest CPU update. At ResNetV1c-50 (full depth) and
+    CNN_WITNESS_SIZE²: losses as before, and every parameter's update
+    within CNN_WITNESS_MULT x the
+    witness's distance from the CPU's (the CPU step on ``ulp_moved``
+    inputs, the teacher pinned to the CPU's) or TOL_TRAIN_F32 of the
+    largest CPU update. No kernel launch. Returns the card's counts."""
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cnn_f32_cfg(path, CNN_F32_DEPTH)
+    batch = cnn_f32_batch(images)
+    threshold = cnn_f32_threshold(cfg, batch)
+    record, stats = [], []
+    lc, dc, sc, cc = cnn_f32_step(fa, cfg, batch, threshold, 'cpu',
+                                  lambda: teacher_hook(record=record))
+    lg, dg, sg, cg = cnn_f32_step(
+        fa, cfg, batch, threshold, 'cuda',
+        lambda: teacher_hook(reference=record, pin=True, stats=stats))
+    same_keys = sorted(lg) == sorted(lc)
+    loss_err = {k: abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-6) for k in lc
+                if k in lg}
+    scale = max(d.abs().max().item() for d in dc.values())
+    by_param = sorted(((dg[n] - dc[n]).abs().max().item(), n) for n in dc)
+    upd_err = by_param[-1][0]
+
+    # ResNetV1c-50 against the witness
+    cfg50 = cnn_f32_cfg(path, 50)
+    batch50 = cnn_f32_batch(images, CNN_WITNESS_SIZE)
+    threshold50 = cnn_f32_threshold(cfg50, batch50)
+    record50, stats50, stats50w = [], [], []
+    lc50, dc50, sc50, cc50 = cnn_f32_step(
+        fa, cfg50, batch50, threshold50, 'cpu',
+        lambda: teacher_hook(record=record50))
+    lw50, dw50, sw50, cw50 = cnn_f32_step(
+        fa, cfg50, ulp_moved(batch50), threshold50, 'cpu',
+        lambda: teacher_hook(reference=record50, pin=True, stats=stats50w))
+    lg50, dg50, sg50, cg50 = cnn_f32_step(
+        fa, cfg50, batch50, threshold50, 'cuda',
+        lambda: teacher_hook(reference=record50, pin=True, stats=stats50))
+    loss_err50 = {k: abs(lg50[k] - lc50[k]) / max(abs(lc50[k]), 1e-6)
+                  for k in lc50 if k in lg50}
+    scale50 = max(d.abs().max().item() for d in dc50.values())
+    leaves = []
+    for n in dc50:
+        err = (dg50[n] - dc50[n]).abs().max().item()
+        wit = (dw50[n] - dc50[n]).abs().max().item()
+        leaves.append((err / max(CNN_WITNESS_MULT * wit,
+                                 TOL_TRAIN_F32 * scale50), n, err, wit,
+                       dc50[n].abs().max().item()))
+    leaves.sort()
+    emit({'phase': 'cnn_train_f32_vs_cpu', 'config': os.path.basename(path),
+          'cut': f'ResNetV1c-{CNN_F32_DEPTH}, dropout 0',
+          'batch': f'1 sup + 1 unsup at 512², unsup_confidence {threshold} '
+                   f'(half of the teacher\'s pixels confident)',
+          'mask_ratio': lc.get('mask_ratio'), 'losses_card': lg,
+          'losses_cpu': lc, 'loss_rel_err': loss_err,
+          'update_max_abs_err': upd_err, 'update_max_abs_cpu': scale,
+          'update_err_largest': by_param[-3:], 'tol': TOL_TRAIN_F32,
+          'teacher_pinned': stats,
+          'card_step_s': sg, 'cpu_step_s': sc,
+          'depth50': {
+              'batch': f'1 sup + 1 unsup at {CNN_WITNESS_SIZE}², '
+                       f'unsup_confidence {threshold50}',
+              'mask_ratio': lc50.get('mask_ratio'),
+              'loss_rel_err': loss_err50,
+              'update_max_abs_cpu': scale50,
+              'witness_mult': CNN_WITNESS_MULT,
+              # (err / allowed, name, |card - CPU|, |witness - CPU|,
+              #  largest CPU update of the parameter)
+              'update_err_worst': leaves[-4:],
+              'update_err_abs_max': max(r[2] for r in leaves),
+              'witness_abs_max': max(r[3] for r in leaves),
+              'teacher_pinned': stats50, 'witness_teacher': stats50w,
+              'card_step_s': sg50, 'cpu_step_s': sc50,
+              'witness_step_s': sw50},
+          'settings': conv_settings(), 'launches': add_counts(cg, cg50)})
+    check(same_keys and sorted(lg50) == sorted(lc50),
+          f'log keys differ: {sorted(lg)} vs {sorted(lc)}')
+    check(all(all_zero(c) for c in (cg, cc, cg50, cc50, cw50)),
+          f'a CNN step launched {cg}, {cc}, {cg50}, {cc50}, {cw50}')
+    for logs in (lc, lc50):
+        check(0 < logs['mask_ratio'] < 1, f'mask_ratio {logs["mask_ratio"]}')
+        check(logs['unsup.loss_seg_unsup'] > 0 and
+              logs['unsup.loss_ncr_unsup'] > 0 and
+              logs['unsup.loss_seg_unsup_attn_mask'] > 0,
+              'the unsup losses are not live')
+    check(all(np.isfinite(v) for v in list(lg.values()) +
+              list(lg50.values())), 'non-finite losses')
+    check(max(loss_err.values()) <= TOL_TRAIN_F32,
+          f'DeepLabV3+ f32 losses, card vs CPU: {loss_err}')
+    check(upd_err <= TOL_TRAIN_F32 * scale, f'DeepLabV3+ f32 parameter '
+          f'updates differ by {upd_err} (max {scale})')
+    check(max(loss_err50.values()) <= TOL_TRAIN_F32,
+          f'ResNetV1c-50 DeepLabV3+ f32 losses, card vs CPU: {loss_err50}')
+    check(leaves[-1][0] <= 1, f'ResNetV1c-50 DeepLabV3+ f32 updates beyond '
+          f'the witness: {leaves[-4:]}')
+    return add_counts(cg, cg50)
+
+
+def phase_cnn_train(fa, path, images, gpu_line):
+    """The DeepLabV3+ step at full depth, f32, dropout as configured, 4 +
+    4 fixture images at 512²: the first step, 3 timed; peak memory; finite
+    logs; no kernel launch. Returns the counts of the 4 steps."""
+    import numpy as np
+    import torch
+    from s4former_tpu_torch.apis import init_segmentor
+    from s4former_tpu_torch.config import Config
+    cfg = Config.fromfile(path)
+    state, step = trainer_of(init_segmentor(cfg, seed=0,
+                                            device='cuda').model, cfg)
+    batch = to_device(train_batch(images, 4, 4), 'cuda')
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa)                               # the main path starts
+    state, logs, ms = timed_steps(state, step, batch, gen, 4)
+    path_counts = counts(fa)                       # the main path ends
+    lg = floats(logs)
+    emit({'phase': 'cnn_train', 'config': os.path.basename(path),
+          'batch': '4 + 4 at 512², f32', 'first_step_ms': ms[0],
+          'step_ms': ms[1:], 'step_ms_mean': float(np.mean(ms[1:])),
+          'img_per_s': 8 / (np.mean(ms[1:]) / 1e3),
+          'peak_mem_bytes': torch.cuda.max_memory_allocated(),
+          'logs': lg, 'settings': conv_settings(), 'launches': path_counts,
+          'gpu': gpu_line})
+    check(all(np.isfinite(v) for v in lg.values()), f'non-finite logs {lg}')
+    check(all_zero(path_counts), f'the DeepLabV3+ step launched '
+          f'{path_counts}')
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return path_counts
+
+
+def phase_cnn_bases(fa, root, images, gpu_line):
+    """PSPNet, FPN, CCNet and ICNet at full width (their base models in the
+    fixture config, as ``cnn_config`` writes them): one request each
+    through ``inference_segmentor`` after a warm-up, then one 2 + 2 step
+    at 512² from the served weights; finite losses, step ms, peak memory;
+    no kernel launch. Returns the counts."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from s4former_tpu_torch.apis import inference_segmentor, init_segmentor
+    from s4former_tpu_torch.config import Config
+    batch = to_device(train_batch(images, 2, 2), 'cuda')
+    results, total = {}, {n: 0 for n in KERNELS}
+    for which in ('pspnet', 'fpn', 'ccnet', 'icnet'):
+        path = cnn_config(root, which)
+        cfg = Config.fromfile(path)
+        seg = init_segmentor(cfg, seed=0, device='cuda')
+        inference_segmentor(seg, images[0])      # warm-up (cuDNN plans)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fa)                           # the main path starts
+        t0 = time.perf_counter()
+        labels = inference_segmentor(seg, images[1])
+        request_ms = (time.perf_counter() - t0) * 1e3
+        with Image.open(images[1]) as im:
+            hw = [im.height, im.width]
+        state, step = trainer_of(seg.model, cfg)
+        gen = torch.Generator(device='cuda').manual_seed(0)
+        state, logs, ms = timed_steps(state, step, batch, gen, 1)
+        path_counts = counts(fa)                   # the main path ends
+        results[which] = {
+            'request_ms': request_ms, 'label_shape': list(labels.shape),
+            'image_hw': hw,
+            'labels_in_range': bool(labels.min() >= 0 and
+                                    labels.max() < 21),
+            'step_ms': ms[0], 'logs': floats(logs),
+            'peak_mem_bytes': torch.cuda.max_memory_allocated(),
+            'parameters': sum(p.numel() for p in seg.model.parameters()),
+            'launches': path_counts}
+        total = add_counts(total, path_counts)
+        del seg, state, step
+        torch.cuda.empty_cache()
+    emit({'phase': 'cnn_bases', 'batch': '2 + 2 at 512², f32, one step '
+          '(its first: cuDNN picks its algorithms in it)',
+          'models': results, 'settings': conv_settings(), 'gpu': gpu_line})
+    for which, r in results.items():
+        check(r['label_shape'] == r['image_hw'] and r['labels_in_range'],
+              f'{which}: bad label map {r["label_shape"]}')
+        check(all(np.isfinite(v) for v in r['logs'].values()),
+              f'{which}: non-finite logs {r["logs"]}')
+        check(all_zero(r['launches']), f'{which} launched {r["launches"]}')
+    return total
+
+
+def phase_cnn_train_cli(fa, gpu_line, root, path):
+    """``tools.train`` on the DeepLabV3+ config (ResNetV1c-50 at full
+    depth, f32, seeded weights), 2 steps of 2 + 2 through the fixture
+    pipelines, eval and a checkpoint at 2; the checkpoint holds the
+    ResNet's BN statistics (student and teacher), and the model that
+    ``tools.test``'s loader (``init_segmentor``) builds from it holds every
+    parameter and buffer of the trained student bit for bit; ``tools.test
+    --out`` on ``iter_2`` gives the label maps that the in-loop eval's
+    ``iter_predictions`` gives on the trained student, bit for bit, and
+    an mIoU within TOL_MIOU of the in-loop one (a seeded model's mIoU is
+    near 0, so that check alone would pass a wrong checkpoint); no kernel
+    launch. Returns the counts of both runs."""
+    import pickle
+
+    import numpy as np
+    import torch
+    from s4former_tpu_torch.apis import init_segmentor
+    from s4former_tpu_torch.config import Config
+    from s4former_tpu_torch.core.runner import iter_predictions
+    from s4former_tpu_torch.data import build_dataset
+    from s4former_tpu_torch.tools import test as test_cli
+    from s4former_tpu_torch.tools import train as train_cli
+    wd = os.path.join(root, 'cnn_work')
+    reset_counts(fa)                               # the main path starts
+    t0 = time.perf_counter()
+    state = train_cli.main([path, '--work-dir', wd, '--max-iters', '2',
+                            '--cfg-options', 'evaluation.interval=2',
+                            'checkpoint_config.interval=2',
+                            'log_config.interval=1',
+                            'samples_per_gpu_sup=2',
+                            'samples_per_gpu_unsup=2'])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_counts = counts(fa)
+    steps = int(state.step)
+    ckpt = os.path.join(wd, 'iter_2')
+    cfg = Config.fromfile(path)
+    test_cfg = cfg.model.get('test_cfg') or {}
+    dataset = build_dataset(cfg.data['test'])
+    with torch.no_grad():
+        trained_maps = dict(iter_predictions(
+            state.model, dataset, mode=test_cfg.get('mode', 'whole'),
+            crop_size=tuple(test_cfg.get('crop_size',
+                                         cfg.get('crop_size', (512, 512)))),
+            stride=tuple(test_cfg.get('stride', (341, 341)))))
+    trained = state.model.state_dict()
+    loaded = init_segmentor(cfg, checkpoint=ckpt, device='cuda').model \
+        .state_dict()
+    differ = sorted(k for k in trained if k not in loaded or
+                    not torch.equal(trained[k], loaded[k]))
+    n_tensors = len(trained)
+    del state, trained, loaded
+    torch.cuda.empty_cache()
+    saved = torch.load(os.path.join(ckpt, 'state.pt'), map_location='cpu',
+                       weights_only=True, mmap=True)
+    bn = {part: sum(1 for k in saved[part] if k.startswith('backbone.') and
+                    k.endswith(('running_mean', 'running_var')))
+          for part in ('model', 'ema_model')}
+    del saved
+    records = read_jsonl(os.path.join(wd, 'metrics.jsonl'))
+    train = [r for r in records if r['prefix'] == 'train']
+    val = {r['step']: r for r in records if r['prefix'] == 'val'}
+    out = os.path.join(root, 'cnn_test_preds.pkl')
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    results = test_cli.main([path, ckpt, '--out', out])
+    test_s = time.perf_counter() - t0
+    test_counts = counts(fa)                       # the main path ends
+    with open(out, 'rb') as f:
+        offline = pickle.load(f)
+    maps_differ = [i for i, m in enumerate(offline)
+                   if not np.array_equal(m, trained_maps.get(i))]
+    classes = sorted({int(c) for m in offline for c in np.unique(m)})
+    gap = abs(results['mIoU'] - val[2]['mIoU']) if 2 in val else None
+    emit({'phase': 'cnn_train_cli', 'config': os.path.basename(path),
+          'batch': '2 + 2 at 512², f32 ResNetV1c-50',
+          'steps': steps, 'losses': {r['step']: r['loss'] for r in train},
+          'step_ms_windows': [r['step_ms'] for r in train],
+          'data_wait_ms_windows': [r['data_wait_ms'] for r in train],
+          'eval_s': val.get(2, {}).get('eval_s'),
+          'in_loop_miou_iter_2': val.get(2, {}).get('mIoU'),
+          'in_loop_aacc_iter_2': val.get(2, {}).get('aAcc'),
+          'test_miou': results['mIoU'], 'test_aacc': results['aAcc'],
+          'miou_gap': gap, 'tol': TOL_MIOU,
+          'loaded_tensors_differing': differ, 'tensors': n_tensors,
+          'label_maps': len(offline), 'label_maps_differing': maps_differ,
+          'classes_predicted': classes,
+          'checkpoint_backbone_bn_buffers': bn, 'train_run_s': train_s,
+          'test_run_s': test_s, 'settings': conv_settings(),
+          'launches': {'train': train_counts, 'test': test_counts},
+          'gpu': gpu_line})
+    check(steps == 2, f'trained to step {steps}')
+    check([r['step'] for r in train] == [1, 2] and sorted(val) == [2],
+          f'logged steps {[(r["prefix"], r["step"]) for r in records]}')
+    check(all(np.isfinite(r['loss']) for r in train), f'losses {train}')
+    # ResNet-50 V1c: the stem's 3 BNs, 16 blocks x 3, 4 shortcuts; 2 each
+    check(bn == {'model': 110, 'ema_model': 110},
+          f'the checkpoint holds {bn} backbone BN statistics')
+    check(not differ, f'the checkpoint loads {len(differ)} of {n_tensors} '
+          f'tensors other than trained: {differ[:5]}')
+    check(len(offline) == len(dataset) == len(trained_maps) > 0 and
+          not maps_differ, f'tools.test label maps {maps_differ} differ '
+          f'from the trained student\'s ({len(offline)} maps)')
+    check(all_zero(train_counts) and all_zero(test_counts),
+          f'the CNN CLI launched {train_counts}, {test_counts}')
+    check(gap is not None and gap <= TOL_MIOU, f'offline mIoU '
+          f'{results["mIoU"]} vs in-loop {val.get(2, {}).get("mIoU")}: '
+          f'{gap} > {TOL_MIOU}')
+    shutil.rmtree(wd, ignore_errors=True)
+    return add_counts(train_counts, test_counts)
+
+
+def run_cnn(fa, images, gpu_line, root):
+    """The CNN slice: DeepLabV3+ on ResNetV1c-50-D8 through serving (f32
+    against the CPU, the 16 fixture JPEGs), training (f32 against the CPU,
+    the 4 + 4 step, the CLI and tools.test), and PSPNet, FPN, CCNet and
+    ICNet each serving and taking a step; prints 'cnn_seconds'. Returns the
+    launch counts by path (all zero: no kernel runs on a CNN)."""
+    import torch
+    torch.cuda.empty_cache()
+    paths, seconds = {}, {}
+    path = cnn_config(root, 'deeplabv3plus')
+
+    def serve():
+        counts_, seg = phase_cnn_serve(fa, path, images, gpu_line)
+        del seg
+        torch.cuda.empty_cache()
+        return counts_
+    for name, run in (
+            ('cnn_serve_f32', lambda: phase_cnn_serve_f32(fa, path,
+                                                          images[0])),
+            ('cnn_serve', serve),
+            ('cnn_train_f32', lambda: phase_cnn_train_f32(fa, path, images)),
+            ('cnn_train', lambda: phase_cnn_train(fa, path, images,
+                                                  gpu_line)),
+            ('cnn_bases', lambda: phase_cnn_bases(fa, root, images,
+                                                  gpu_line)),
+            ('cnn_train_cli', lambda: phase_cnn_train_cli(fa, gpu_line, root,
+                                                          path))):
+        t0 = time.perf_counter()
+        paths[name] = run()
+        seconds[name] = time.perf_counter() - t0
+    emit({'phase': 'cnn_seconds', **seconds, 'total': sum(seconds.values())})
     return paths
 
 
@@ -5495,6 +6092,8 @@ def main() -> int:
               time.perf_counter() - t0})
         # the ViT model zoo: SETR-MLA (ViT-L, H = 16) and Segmenter
         paths.update(run_zoo(fa, images, gpu_line, root))
+        # the CNN slice: DeepLabV3+ and the other ResNet bases (no kernel)
+        paths.update(run_cnn(fa, images, gpu_line, root))
         # the ablation slice: the rest of the step's flags
         paths.update(run_ablation(fa, images, gpu_line, root))
         # the UniMatch slice and the ViT's remat

@@ -13,7 +13,15 @@ The port's modules carry the reference (mmseg) parameter names, so its
   SETR-MLA and Segmenter heads it inverts JAX's ``convert_*`` functions
   (l.283, 1657, 911, 959, 1680, 1609), which
   ``convert_mmseg_checkpoint`` applies. (JAX's export writes no neck,
-  and of those heads only ``conv_seg``.)
+  and of those heads only ``conv_seg``.) Likewise for the CNN slice: the
+  ResNets (``convert_resnet_backbone``, l.503; the shortcut lands at
+  ``downsample.0``/``.1``: the JAX tree does not tell V1d's, whose
+  reference keys are ``.1``/``.2``, from V1c's, and no config uses V1d), ICNet
+  (l.1412), the PSP (l.998), DeepLabV3+ (``convert_aspp_head``, l.1074),
+  FPN (l.1787) and CC (l.1591) heads and the FPN (l.1772) and IC (l.1756)
+  necks. The aux heads that JAX builds one by one in ``aux_logits``
+  (identical heads on levels of different shapes, ICNet's) arrive as
+  ``{Type}_{j}`` and land at ``auxiliary_head.{j}.``.
 - ``load_reference_state_dict(path)``: an mmseg/S4Former ``.pth``, or a
   backbone-only DeiT file with bare OpenMMLab or timm keys
   (``normalize_backbone_keys``, applied to ViT-layout backbones only: a MiT
@@ -106,16 +114,84 @@ def _vit(p: Mapping, prefix: str) -> StateDict:
     return sd
 
 
-def _convbn(c: Mapping, stats: Mapping, pre: str) -> StateDict:
-    """A JAX ``ConvBNReLU`` (``conv`` kernel, ``bn`` scale/bias; its BN
-    statistics, if any) -> mmcv ``ConvModule`` keys under ``pre``."""
-    sd = {pre + 'conv.weight': _conv(c['conv']['kernel']),
-          pre + 'bn.weight': _t(c['bn']['scale']),
-          pre + 'bn.bias': _t(c['bn']['bias'])}
+def _conv_bn_pair(c: Mapping, stats: Mapping, conv_key: str,
+                  bn_key: str) -> StateDict:
+    """A JAX ``ConvBNReLU`` / ``ConvBN`` (``conv`` kernel, ``bn``
+    scale/bias; its BN statistics, if any) -> the conv's and the BN's
+    reference keys."""
+    sd = {conv_key + '.weight': _conv(c['conv']['kernel']),
+          bn_key + '.weight': _t(c['bn']['scale']),
+          bn_key + '.bias': _t(c['bn']['bias'])}
     stats = stats.get('bn', {})
     if stats:
-        sd[pre + 'bn.running_mean'] = _t(stats['mean'])
-        sd[pre + 'bn.running_var'] = _t(stats['var'])
+        sd[bn_key + '.running_mean'] = _t(stats['mean'])
+        sd[bn_key + '.running_var'] = _t(stats['var'])
+    return sd
+
+
+def _convbn(c: Mapping, stats: Mapping, pre: str) -> StateDict:
+    """A JAX ``ConvBNReLU`` -> mmcv ``ConvModule`` keys under ``pre``."""
+    return _conv_bn_pair(c, stats, pre + 'conv', pre + 'bn')
+
+
+def _sepconv(c: Mapping, stats: Mapping, pre: str) -> StateDict:
+    """JAX ``SepConvBNReLU`` -> mmcv ``DepthwiseSeparableConvModule`` keys
+    (the inverse of JAX ``_sepconvmodule``)."""
+    sd = {}
+    for conv, bn, ref in (('depthwise', 'dw_bn', 'depthwise_conv'),
+                          ('pointwise', 'pw_bn', 'pointwise_conv')):
+        sd.update(_convbn({'conv': c[conv], 'bn': c[bn]},
+                          {'bn': stats.get(bn, {})}, f'{pre}{ref}.'))
+    return sd
+
+
+def _resnet(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
+    """JAX ResNet(V1c/V1d) -> the mmseg layout (the inverse of JAX
+    ``convert_resnet_backbone``): ``stem{n}`` -> ``stem.{0,3,6}`` convs and
+    ``stem.{1,4,7}`` BNs, or ``stem`` -> ``conv1``/``bn1``;
+    ``layer{s}_{j}`` -> ``layer{s}.{j}.conv{c}``/``bn{c}`` and the
+    shortcut at ``downsample.0``/``.1``."""
+    sd: StateDict = {}
+    if 'stem1' in p:
+        for n in (1, 2, 3):
+            sd.update(_conv_bn_pair(p[f'stem{n}'], bs.get(f'stem{n}', {}),
+                                    f'{prefix}stem.{3 * n - 3}',
+                                    f'{prefix}stem.{3 * n - 2}'))
+    elif 'stem' in p:
+        sd.update(_conv_bn_pair(p['stem'], bs.get('stem', {}),
+                                prefix + 'conv1', prefix + 'bn1'))
+    for name, blk in p.items():
+        m = re.fullmatch(r'layer(\d+)_(\d+)', name)
+        if m is None:
+            continue
+        pre = f'{prefix}layer{m.group(1)}.{m.group(2)}.'
+        stats = bs.get(name, {})
+        for c in (1, 2, 3):
+            if f'conv{c}' in blk:
+                sd.update(_conv_bn_pair(blk[f'conv{c}'],
+                                        stats.get(f'conv{c}', {}),
+                                        f'{pre}conv{c}', f'{pre}bn{c}'))
+        if 'downsample' in blk:
+            sd.update(_conv_bn_pair(blk['downsample'],
+                                    stats.get('downsample', {}),
+                                    f'{pre}downsample.0',
+                                    f'{pre}downsample.1'))
+    return sd
+
+
+def _icnet(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
+    """JAX cnn_zoo.ICNet -> the mmseg layout (the inverse of JAX
+    ``convert_icnet_backbone``, l.1412)."""
+    sd = _resnet(p['backbone'], bs.get('backbone', {}), prefix + 'backbone.')
+    for ours, ref in ([(f'conv_sub1_{i}', f'conv_sub1.{i}') for i in range(3)]
+                      + [('conv_sub2', 'conv_sub2'), ('conv_sub4', 'conv_sub4'),
+                         ('psp_bottleneck', 'psp_bottleneck')]):
+        sd.update(_convbn(p[ours], bs.get(ours, {}), f'{prefix}{ref}.'))
+    i = 0
+    while f'psp_{i}' in p:
+        sd.update(_convbn(p[f'psp_{i}'], bs.get(f'psp_{i}', {}),
+                          f'{prefix}psp_modules.{i}.1.'))
+        i += 1
     return sd
 
 
@@ -150,6 +226,101 @@ def _fcn(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
         sd.update(_convbn(p[name], bs.get(name, {}), f'{prefix}{key}.'))
     sd.update(_conv_seg(p, prefix))
     return sd
+
+
+def _psp(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
+    """JAX misc_heads.PSPHead -> the mmseg layout (the inverse of JAX
+    ``convert_psp_head``, l.998)."""
+    sd: StateDict = {}
+    i = 0
+    while f'pool_conv_{i}' in p:
+        sd.update(_convbn(p[f'pool_conv_{i}'], bs.get(f'pool_conv_{i}', {}),
+                          f'{prefix}psp_modules.{i}.1.'))
+        i += 1
+    sd.update(_convbn(p['bottleneck'], bs.get('bottleneck', {}),
+                      prefix + 'bottleneck.'))
+    sd.update(_conv_seg(p, prefix))
+    return sd
+
+
+def _aspp(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
+    """JAX zoo_heads.DepthwiseSeparableASPPHead -> the mmseg layout (the
+    inverse of JAX ``convert_aspp_head``, l.1074)."""
+    sd: StateDict = {}
+    names = [('image_pool', 'image_pool.1'), ('bottleneck', 'bottleneck'),
+             ('c1_bottleneck', 'c1_bottleneck')]
+    names += [(f'aspp_{i}', f'aspp_modules.{i}') for i in range(len(p))]
+    names += [(f'sep_fuse_{j}', f'sep_bottleneck.{j}') for j in (0, 1)]
+    for ours, ref in names:
+        if ours not in p:
+            continue
+        put = _sepconv if 'depthwise' in p[ours] else _convbn
+        sd.update(put(p[ours], bs.get(ours, {}), f'{prefix}{ref}.'))
+    sd.update(_conv_seg(p, prefix))
+    return sd
+
+
+def _fpn_head(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
+    """JAX extra_heads.FPNHead -> the mmseg layout (the inverse of JAX
+    ``convert_fpn_head``, l.1787): ``scale_heads_{i}_{k}`` ->
+    ``scale_heads.{i}.{2k}``. A level's k-th conv sits at 2k between the
+    upsamples; a level without upsamples (the finest) has one conv, at
+    0."""
+    sd: StateDict = {}
+    for name, c in p.items():
+        m = re.fullmatch(r'scale_heads_(\d+)_(\d+)', name)
+        if m is not None:
+            sd.update(_convbn(c, bs.get(name, {}), f'{prefix}scale_heads.'
+                              f'{m.group(1)}.{2 * int(m.group(2))}.'))
+    sd.update(_conv_seg(p, prefix))
+    return sd
+
+
+def _cc(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
+    """JAX extra_heads.CCHead -> the mmseg layout (the inverse of JAX
+    ``convert_cc_head``, l.1591): the FCN keys and ``cca.{query,key,
+    value}_conv``, ``cca.gamma.scale`` (0-dimensional)."""
+    sd = _fcn(p, bs, prefix)
+    cca = p['cca']
+    for name in ('query', 'key', 'value'):
+        sd[f'{prefix}cca.{name}_conv.weight'] = _conv(cca[name]['kernel'])
+        sd[f'{prefix}cca.{name}_conv.bias'] = _t(cca[name]['bias'])
+    sd[f'{prefix}cca.gamma.scale'] = _t(np.asarray(cca['gamma'],
+                                                   np.float32).reshape(()))
+    return sd
+
+
+def _fpn_neck(p: Mapping, prefix: str) -> StateDict:
+    """JAX necks.FPN -> the mmseg layout (the inverse of JAX
+    ``convert_fpn_neck``, l.1772)."""
+    sd: StateDict = {}
+    for ours, ref in (('lateral', 'lateral_convs'), ('fpn', 'fpn_convs')):
+        i = 0
+        while f'{ours}_{i}' in p:
+            pre = f'{prefix}{ref}.{i}.conv.'
+            sd[pre + 'weight'] = _conv(p[f'{ours}_{i}']['kernel'])
+            sd[pre + 'bias'] = _t(p[f'{ours}_{i}']['bias'])
+            i += 1
+    return sd
+
+
+def _ic_neck(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
+    """JAX necks.ICNeck -> the mmseg layout (the inverse of JAX
+    ``convert_ic_neck``, l.1756)."""
+    sd: StateDict = {}
+    for cff in ('cff_24', 'cff_12'):
+        for sub in ('conv_low', 'conv_high'):
+            sd.update(_convbn(p[cff][sub], bs.get(cff, {}).get(sub, {}),
+                              f'{prefix}{cff}.{sub}.'))
+    return sd
+
+
+def _neck(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
+    if 'cff_24' in p:
+        return _ic_neck(p, bs, prefix)
+    if 'lateral_0' in p:
+        return _fpn_neck(p, prefix)
+    return _mla_neck(p, prefix)
 
 
 def _setr_mla(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
@@ -314,8 +485,14 @@ def _segformer(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
     return sd
 
 
-def _backbone(p: Mapping, prefix: str) -> StateDict:
-    return _mit(p, prefix) if 'patch_embed_0' in p else _vit(p, prefix)
+def _backbone(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
+    if 'patch_embed_0' in p:
+        return _mit(p, prefix)
+    if 'conv_sub1_0' in p:
+        return _icnet(p, bs, prefix)
+    if 'layer1_0' in p:
+        return _resnet(p, bs, prefix)
+    return _vit(p, prefix)
 
 
 def _head(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
@@ -329,6 +506,14 @@ def _head(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
         return _setr_mla(p, bs, prefix)
     if 'norm' in p:
         return _setr_up(p, bs, prefix)
+    if 'image_pool' in p or 'sep_fuse_0' in p:
+        return _aspp(p, bs, prefix)
+    if 'pool_conv_0' in p:
+        return _psp(p, bs, prefix)
+    if 'scale_heads_0_0' in p:
+        return _fpn_head(p, bs, prefix)
+    if 'cca' in p:
+        return _cc(p, bs, prefix)
     return _fcn(p, bs, prefix)
 
 
@@ -344,9 +529,10 @@ def state_dict_from_jax_variables(variables: Mapping) -> StateDict:
     bs = variables.get('batch_stats', {})
     sd: StateDict = {}
     if 'backbone_m' in params:
-        sd.update(_backbone(params['backbone_m'], 'backbone.'))
+        sd.update(_backbone(params['backbone_m'], bs.get('backbone_m', {}),
+                            'backbone.'))
     if 'neck_m' in params:
-        sd.update(_mla_neck(params['neck_m'], 'neck.'))
+        sd.update(_neck(params['neck_m'], bs.get('neck_m', {}), 'neck.'))
     if 'decode_head_m' in params:
         sd.update(_head(params['decode_head_m'],
                         bs.get('decode_head_m', {}), 'decode_head.'))
@@ -358,17 +544,19 @@ def state_dict_from_jax_variables(variables: Mapping) -> StateDict:
             sd.update(_head(_index_tree(stacked_p, j),
                             _index_tree(stacked_b, j),
                             f'auxiliary_head.{j}.'))
-    j = 0
-    while f'aux_heads_{j}' in params:   # unfused per-level aux heads
-        sd.update(_head(params[f'aux_heads_{j}'],
-                        bs.get(f'aux_heads_{j}', {}),
-                        f'auxiliary_head.{j}.'))
-        j += 1
+    for name in params:
+        # unfused per-level aux heads: the config's list (aux_heads_{j}),
+        # or identical heads on levels of different shapes ({Type}_{j})
+        m = re.fullmatch(r'(?:aux_heads|[A-Za-z]+Head)_(\d+)', name)
+        if m is not None:
+            sd.update(_head(params[name], bs.get(name, {}),
+                            f'auxiliary_head.{m.group(1)}.'))
     ema = variables.get('ema_params')
     if ema:
         ebs = variables.get('ema_batch_stats', {})
         if 'backbone_m' in ema:
-            sd.update(_backbone(ema['backbone_m'], 'backbone_ema.'))
+            sd.update(_backbone(ema['backbone_m'],
+                                ebs.get('backbone_m', {}), 'backbone_ema.'))
         if 'decode_head_m' in ema:
             sd.update(_head(ema['decode_head_m'],
                             ebs.get('decode_head_m', {}),

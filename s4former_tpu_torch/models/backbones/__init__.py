@@ -1,3 +1,6 @@
 """Backbones; importing registers them."""
 from s4former_tpu_torch.models.backbones.vit import VisionTransformer  # noqa: F401
 from s4former_tpu_torch.models.backbones.mit import MixVisionTransformer  # noqa: F401
+from s4former_tpu_torch.models.backbones.resnet import (  # noqa: F401
+    ResNet, ResNetV1c, ResNetV1d)
+from s4former_tpu_torch.models.backbones.cnn_zoo import ICNet  # noqa: F401

@@ -1,7 +1,9 @@
 """Decode heads; importing registers them."""
 from s4former_tpu_torch.models.decode_heads.setr_up import SETRUPHead  # noqa: F401
 from s4former_tpu_torch.models.decode_heads.segformer import SegformerHead  # noqa: F401
+from s4former_tpu_torch.models.decode_heads.zoo_heads import (  # noqa: F401
+    DepthwiseSeparableASPPHead)
 from s4former_tpu_torch.models.decode_heads.misc_heads import (  # noqa: F401
-    FCNHead, SETRMLAHead)
+    FCNHead, PSPHead, SETRMLAHead)
 from s4former_tpu_torch.models.decode_heads.extra_heads import (  # noqa: F401
-    SegmenterMaskTransformerHead)
+    CCHead, FPNHead, SegmenterMaskTransformerHead)

@@ -48,6 +48,15 @@ def unshuffle_tokens(tokens: torch.Tensor, perm: torch.Tensor,
     p = int(round(float(l) ** 0.5))
     n = patchmix_n
     g = p // n
+    if g * n != p or perm.shape[-1] != g * g:
+        # JAX fails on the shapes here: the image's super-patches
+        # (patchsize * PatchMix_N pixels) must tile this grid in blocks of
+        # patchmix_n (a stride-8 CNN's map takes patchsize 8)
+        raise ValueError(
+            f'a PatchShuffle permutation of {perm.shape[-1]} super-patches '
+            f'does not tile a {p} x {p} feature map in blocks of '
+            f'{n} x {n}: set the mixes\' patchsize to the image pixels a '
+            f'feature of this map covers')
     x = tokens.reshape(b, g, n, g, n, c).permute(0, 1, 3, 2, 4, 5)
     x = x.reshape(b, g * g, n * n, c)
     inv = invert_permutation(perm).long()

@@ -1,6 +1,6 @@
-"""FCN and SETR-MLA decode heads (counterpart of
-``s4former_tpu/models/decode_heads/misc_heads.py``, l.41-129; reference:
-mmseg/models/decode_heads/fcn_head.py, setr_mla_head.py).
+"""FCN, SETR-MLA and PSP decode heads (counterpart of
+``s4former_tpu/models/decode_heads/misc_heads.py``, l.41-177; reference:
+mmseg/models/decode_heads/fcn_head.py, setr_mla_head.py, psp_head.py).
 
 NHWC, in f32 as the JAX heads (``zoo_heads.HeadBase``); the conv blocks
 are the SETR-PUP head's ``ConvBNReLU`` (bias-free conv, SyncBN over the
@@ -13,6 +13,10 @@ data group, ReLU). Parameter names follow the reference layout:
   ``ConvBNReLU``s to ``mla_channels``), then a bilinear x``up_scale``; the
   levels concatenated; ``conv_seg``. Each level's PatchShuffle is undone
   before its convs.
+- ``PSPHead``: the pyramid pooling branches ``psp_modules.{i}.1`` (an
+  adaptive average pool to s x s, a 1x1 ``ConvBNReLU``, bilinear back),
+  the input first in the concatenation, ``bottleneck``, ``conv_seg``; the
+  PatchShuffle undone on its input.
 """
 from __future__ import annotations
 
@@ -23,7 +27,8 @@ from torch import nn
 
 from s4former_tpu_torch.models.decode_heads.base import unshuffle_feature_map
 from s4former_tpu_torch.models.decode_heads.setr_up import ConvBNReLU
-from s4former_tpu_torch.models.decode_heads.zoo_heads import HeadBase
+from s4former_tpu_torch.models.decode_heads.zoo_heads import (HeadBase,
+                                                              PooledConv)
 from s4former_tpu_torch.ops.resize import resize_bilinear
 from s4former_tpu_torch.registry import HEADS
 
@@ -100,3 +105,34 @@ class SETRMLAHead(HeadBase):
                 y, (y.shape[1] * self.up_scale, y.shape[2] * self.up_scale),
                 self.align_corners))
         return self._cls(torch.cat(outs, dim=-1), train, generator)
+
+
+@HEADS.register_module()
+class PSPHead(HeadBase):
+    """Pyramid pooling module + a 3x3 bottleneck + the classifier."""
+
+    def __init__(self, in_channels: int = 2048, channels: int = 512,
+                 num_classes: int = 21,
+                 pool_scales: Sequence[int] = (1, 2, 3, 6),
+                 in_index: Union[int, Sequence[int]] = -1,
+                 input_transform: Optional[str] = None, **kwargs):
+        super().__init__(num_classes, in_index, input_transform,
+                         cls_channels=channels, **kwargs)
+        self.psp_modules = nn.ModuleList([
+            PooledConv(s, ConvBNReLU(in_channels, channels, 1))
+            for s in pool_scales])
+        self.bottleneck = ConvBNReLU(
+            in_channels + len(pool_scales) * channels, channels, 3)
+
+    def forward(self, inputs, *, train: bool = False,
+                patchmix_perm: Optional[torch.Tensor] = None,
+                patchmix_n: int = 0,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        x = self._pick(inputs, patchmix_perm, patchmix_n).float()
+        hw = tuple(x.shape[1:3])
+        branches = [x] + [resize_bilinear(m(x, train), hw,
+                                          self.align_corners)
+                          for m in self.psp_modules]
+        y = self.bottleneck(torch.cat(branches, dim=-1), train)
+        return self._cls(y, train, generator)

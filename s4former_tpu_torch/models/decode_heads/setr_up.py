@@ -43,10 +43,18 @@ from s4former_tpu_torch.registry import HEADS
 
 def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d,
               dtype: torch.dtype) -> torch.Tensor:
-    """flax ``Conv(dtype=...)`` on an NHWC map: the NCHW view keeps the
-    channels-last strides, so no copy is made around the conv."""
+    """flax ``Conv(dtype=...)`` on an NHWC map: on the card the NCHW view
+    keeps the channels-last strides, so no copy is made around the conv.
+    On the CPU the view is copied to NCHW first: PyTorch's CPU kernels for
+    channels-last convolutions have crashed (SIGSEGV in the backward of a
+    stride-2 1x1 conv from 8 to 16 channels on a batch of 3 or more) and
+    returned a weight gradient far from the NCHW convolution's in builds
+    this port is tested on."""
     b = None if conv.bias is None else conv.bias.to(dtype)
-    y = F.conv2d(x.permute(0, 3, 1, 2).to(dtype), conv.weight.to(dtype), b,
+    xin = x.permute(0, 3, 1, 2).to(dtype)
+    if xin.device.type == 'cpu':
+        xin = xin.contiguous()
+    y = F.conv2d(xin, conv.weight.to(dtype), b,
                  stride=conv.stride, padding=conv.padding,
                  dilation=conv.dilation, groups=conv.groups)
     return y.permute(0, 2, 3, 1)
@@ -91,22 +99,36 @@ class BatchNorm(nn.Module):
         return ((xf - mean) * mul + self.bias).to(x.dtype)
 
 
+def conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: BatchNorm, train: bool,
+            relu: bool = True,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Conv (``conv_nhwc`` in ``dtype``), BN, ReLU unless ``relu=False``:
+    ``ConvBNReLU``'s forward, and JAX's ResNet ``ConvBN`` (f32), whose
+    pair the reference keeps as two attributes of its block (``conv1``,
+    ``bn1``)."""
+    y = bn(conv_nhwc(x, conv, dtype), train)
+    return F.relu(y) if relu else y
+
+
 class ConvBNReLU(nn.Module):
     """Bias-free conv, BN, ReLU (mmcv ``ConvModule``; reference keys
-    ``conv``, ``bn``), 'same' padding at any ``dilation``."""
+    ``conv``, ``bn``), 'same' padding at any ``dilation``, any ``stride``
+    and ``groups``; ``relu=False`` stops after the BN."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, dtype: torch.dtype = torch.float32,
-                 dilation: int = 1):
+                 dilation: int = 1, stride: int = 1, groups: int = 1):
         super().__init__()
         self.dtype = dtype
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
+                              stride=stride,
                               padding=dilation * (kernel_size - 1) // 2,
-                              dilation=dilation, bias=False)
+                              dilation=dilation, groups=groups, bias=False)
         self.bn = BatchNorm(out_channels)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        return F.relu(self.bn(conv_nhwc(x, self.conv, self.dtype), train))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                relu: bool = True) -> torch.Tensor:
+        return conv_bn(x, self.conv, self.bn, train, relu, self.dtype)
 
 
 @HEADS.register_module()

@@ -1,6 +1,8 @@
-"""The shared base of the zoo's decode heads (counterpart of
-``s4former_tpu/models/decode_heads/zoo_heads.py:_HeadBase``, l.38-65;
-reference: mmseg/models/decode_heads/decode_head.py:35-105).
+"""The shared base of the zoo's decode heads and DeepLabV3+'s head
+(counterpart of ``s4former_tpu/models/decode_heads/zoo_heads.py``:
+``_HeadBase`` l.38-65, ``SepConvBNReLU`` l.87,
+``DepthwiseSeparableASPPHead`` l.154; reference:
+mmseg/models/decode_heads/decode_head.py:35-105, sep_aspp_head.py).
 
 ``HeadBase`` holds the ``BaseDecodeHead`` config surface every zoo head
 accepts (``dropout_ratio``, ``align_corners``, ``loss_decode``,
@@ -15,6 +17,17 @@ and two steps:
 
 The JAX heads carry no ``dtype``: flax promotes their bf16 inputs with the
 f32 parameters, so they compute in f32, and so do these.
+
+``PooledConv`` is the reference's ``Sequential(AdaptiveAvgPool2d(s),
+ConvModule)`` (the conv under ``1``): PSPNet's and ICNet's pyramid
+branches and the ASPP image pool. ``SepConvBNReLU`` is mmcv's
+``DepthwiseSeparableConvModule`` (``depthwise_conv``, ``pointwise_conv``).
+``DepthwiseSeparableASPPHead``: the image pool (``image_pool.1``), a 1x1
+and separable dilated 3x3 branches (``aspp_modules.{i}``), ``bottleneck``;
+then the low-level skip (``c1_bottleneck``) and two separable 3x3s
+(``sep_bottleneck.{0,1}``). Its main input has the PatchShuffle undone;
+the ``c1`` skip is read from the raw ``inputs[c1_index]`` (JAX
+l.188-190), so it stays shuffled.
 """
 from __future__ import annotations
 
@@ -25,8 +38,11 @@ from torch import nn
 
 from s4former_tpu_torch.models.decode_heads.base import (
     transform_inputs, unshuffle_feature_map)
-from s4former_tpu_torch.models.decode_heads.setr_up import conv_nhwc
+from s4former_tpu_torch.models.decode_heads.setr_up import (ConvBNReLU,
+                                                            conv_nhwc)
 from s4former_tpu_torch.models.dropout import dropout
+from s4former_tpu_torch.ops.resize import adaptive_avg_pool, resize_bilinear
+from s4former_tpu_torch.registry import HEADS
 
 
 class HeadBase(nn.Module):
@@ -70,3 +86,91 @@ class HeadBase(nn.Module):
         if train and self.dropout_ratio > 0:
             x = dropout(x, self.dropout_ratio, generator)
         return conv_nhwc(x, self.conv_seg, torch.float32)
+
+
+class PooledConv(nn.Module):
+    """Adaptive average pool to ``scale`` x ``scale``, then a
+    ``ConvBNReLU`` under the key ``1``."""
+
+    def __init__(self, scale: int, conv: ConvBNReLU):
+        super().__init__()
+        self.scale = scale
+        self.add_module('1', conv)
+
+    @property
+    def conv(self) -> ConvBNReLU:
+        return getattr(self, '1')
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.conv(adaptive_avg_pool(x, (self.scale, self.scale)),
+                         train)
+
+
+class SepConvBNReLU(nn.Module):
+    """Depthwise k x k conv + BN (+ ReLU unless ``dw_act=False``), then
+    a pointwise 1x1 conv + BN + ReLU."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, dilation: int = 1,
+                 dw_act: bool = True):
+        super().__init__()
+        self.dw_act = dw_act
+        self.depthwise_conv = ConvBNReLU(in_channels, in_channels,
+                                         kernel_size, dilation=dilation,
+                                         groups=in_channels)
+        self.pointwise_conv = ConvBNReLU(in_channels, out_channels, 1)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = self.depthwise_conv(x, train, relu=self.dw_act)
+        return self.pointwise_conv(x, train)
+
+
+@HEADS.register_module()
+class DepthwiseSeparableASPPHead(HeadBase):
+    """DeepLabV3+: separable ASPP + the low-level (c1) skip fusion."""
+
+    def __init__(self, in_channels: int = 2048, channels: int = 512,
+                 num_classes: int = 21,
+                 dilations: Sequence[int] = (1, 12, 24, 36),
+                 c1_in_channels: int = 256, c1_channels: int = 48,
+                 c1_index: int = 0,
+                 in_index: Union[int, Sequence[int]] = -1,
+                 input_transform: Optional[str] = None, **kwargs):
+        super().__init__(num_classes, in_index, input_transform,
+                         cls_channels=channels, **kwargs)
+        self.c1_index = c1_index
+        self.image_pool = PooledConv(1, ConvBNReLU(in_channels, channels, 1))
+        self.aspp_modules = nn.ModuleList([
+            ConvBNReLU(in_channels, channels, 1) if d == 1 else
+            SepConvBNReLU(in_channels, channels, 3, d) for d in dilations])
+        self.bottleneck = ConvBNReLU((len(dilations) + 1) * channels,
+                                     channels, 3)
+        self.c1_bottleneck = ConvBNReLU(c1_in_channels, c1_channels, 1) \
+            if c1_in_channels > 0 else None
+        fuse_in = channels + (c1_channels if c1_in_channels > 0 else 0)
+        self.sep_bottleneck = nn.ModuleList([
+            SepConvBNReLU(fuse_in, channels, 3),
+            SepConvBNReLU(channels, channels, 3)])
+
+    def forward(self, inputs, *, train: bool = False,
+                patchmix_perm: Optional[torch.Tensor] = None,
+                patchmix_n: int = 0,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        x = self._pick(inputs, patchmix_perm, patchmix_n).float()
+        b, h, w, _ = x.shape
+        # the image pool's 1 x 1 map bilinearly resized to h x w is that
+        # map repeated (both bilinear taps read its one pixel)
+        pooled = self.image_pool.conv(x.mean(dim=(1, 2), keepdim=True),
+                                      train)
+        branches = [pooled.expand(b, h, w, pooled.shape[-1])]
+        branches += [m(x, train) for m in self.aspp_modules]
+        y = self.bottleneck(torch.cat(branches, dim=-1), train)
+        if isinstance(inputs, (list, tuple)) and \
+                self.c1_bottleneck is not None:
+            c1 = self.c1_bottleneck(inputs[self.c1_index].float(), train)
+            y = resize_bilinear(y, tuple(c1.shape[1:3]), self.align_corners)
+            y = torch.cat([y, c1], dim=-1)
+        for sep in self.sep_bottleneck:
+            y = sep(y, train)
+        return self._cls(y, train, generator)

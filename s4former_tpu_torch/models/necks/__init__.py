@@ -1,2 +1,3 @@
 """Necks; importing registers them."""
-from s4former_tpu_torch.models.necks.necks import MLANeck  # noqa: F401
+from s4former_tpu_torch.models.necks.necks import (  # noqa: F401
+    FPN, ICNeck, MLANeck)

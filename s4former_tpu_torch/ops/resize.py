@@ -3,7 +3,8 @@ in NHWC (counterpart of ``s4former_tpu/ops/resize.py``).
 
 - bilinear, align_corners=False: half-pixel centres, clamped;
 - bilinear, align_corners=True: src = dst * (in-1)/(out-1);
-- nearest: torch's legacy ``floor(dst * in/out)`` rule.
+- nearest: torch's legacy ``floor(dst * in/out)`` rule;
+- adaptive average pooling: torch ``AdaptiveAvgPool2d``'s windows.
 
 The 2-tap bilinear weights come from float64 host coordinates, as in the JAX
 package. The JAX package applies them as two matmuls (the TPU's matrix unit
@@ -62,6 +63,37 @@ def interp_matrix_np(in_size: int, out_size: int,
     np.add.at(m, (rows, lo), 1.0 - w)
     np.add.at(m, (rows, hi), w)
     return m
+
+
+def adaptive_pool_matrix_np(in_size: int, out_size: int) -> np.ndarray:
+    """[out_size, in_size] float32 row-averaging matrix of
+    ``torch.nn.AdaptiveAvgPool2d``'s windows: output cell i averages input
+    rows [floor(i*in/out), ceil((i+1)*in/out)), so every input row is
+    covered when in_size % out_size != 0 (JAX ``ops/resize.py:86``)."""
+    m = np.zeros((out_size, in_size), np.float32)
+    for i in range(out_size):
+        start = (i * in_size) // out_size
+        end = -((-(i + 1) * in_size) // out_size)   # ceil
+        m[i, start:end] = 1.0 / (end - start)
+    return m
+
+
+def adaptive_avg_pool(x: torch.Tensor, out_hw: Tuple[int, int]
+                      ) -> torch.Tensor:
+    """Adaptive average pool of an NHWC tensor to ``out_hw``, as two
+    constant matmuls in f32 (JAX ``adaptive_avg_pool``, l.101; also the
+    windows of JAX ``zoo_heads.py:_adaptive_pool``, which ICNet uses);
+    output in the input's dtype."""
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    _, h, w, _ = x.shape
+    xf = x.float()
+    if oh != h:
+        m_h = torch.from_numpy(adaptive_pool_matrix_np(h, oh)).to(x.device)
+        xf = torch.einsum('oh,nhwc->nowc', m_h, xf)
+    if ow != w:
+        m_w = torch.from_numpy(adaptive_pool_matrix_np(w, ow)).to(x.device)
+        xf = torch.einsum('pw,nhwc->nhpc', m_w, xf)
+    return xf.to(x.dtype)
 
 
 def resize_bilinear_np(x: np.ndarray, out_hw: Tuple[int, int],

@@ -199,6 +199,100 @@ def jax_train_model(seed: int = 0, ema: bool = True, cfg=None):
     return model, state
 
 
+def shaped_variables(init_fn, seed: int = 0):
+    """Seeded numpy variables {'params', 'batch_stats'} of a JAX module
+    made from the shapes of ``init_fn()`` (``jax.eval_shape``: traced, not
+    compiled; a jitted init of a tiny ResNet-50 segmentor takes many
+    seconds to compile on the CPU): kernels normal with std 1/sqrt(fan_in) (flax's
+    lecun normal), every other leaf moved off its init by seeded noise of
+    std 0.1 (BN scales 1 + noise, variances 1 * exp(noise), biases, means
+    and CCNet's ``gamma`` noise). The kernels keep their scale, so a deep
+    CNN's eval-mode activations do not blow up as with ``perturbed``
+    (which adds 0.1 to kernels of std 0.03-0.1) and its logits leave the
+    softmax unsaturated."""
+    import jax
+    shapes = jax.eval_shape(init_fn)
+    rs = np.random.RandomState(seed)
+
+    def leaf(path, x):
+        key = getattr(path[-1], 'key', None)
+        noise = rs.normal(0.0, 0.1, x.shape).astype(np.float32)
+        if key == 'kernel':
+            fan_in = int(np.prod(x.shape[:-1]))
+            return (rs.normal(0.0, 1.0, x.shape) /
+                    np.sqrt(fan_in)).astype(np.float32)
+        if key == 'scale':
+            return 1.0 + noise
+        if key == 'var':
+            return np.exp(noise)
+        return noise
+    tree = {'params': dict(shapes['params']),
+            'batch_stats': dict(shapes.get('batch_stats', {}))}
+    return jax.tree_util.tree_map_with_path(leaf, tree)
+
+
+def cnn_model(depth: int = 50, num_classes: int = 5) -> dict:
+    """The CNN slice's tiny DeepLabV3+ (``deeplabv3plus_r50-d8.py`` at
+    ``stem_channels`` 16, ``base_channels`` 8, head ``channels`` 16, 64²
+    crops: the -D8 strides and dilations, so stage 4 is 8 x 8): the
+    separable ASPP (dilations 1, 2, 3: small enough to reach across an
+    8 x 8 map) with the c1 skip, one FCN aux head on stage 3.
+    Dropout 0, so a step draws nothing but the injected mixes. Below depth
+    50 ``base_channels`` is 16: PyTorch's CPU build 2.13 crashes (SIGSEGV)
+    in the backward of a stride-2 1x1 conv from 8 to 16 channels on a
+    channels-last batch of 3 or more."""
+    base = 8 if depth >= 50 else 16
+    widths = [base * (4 if depth >= 50 else 1) * 2 ** i for i in range(4)]
+    ce = dict(type='CrossEntropyLoss', loss_weight=1.0)
+    return dict(
+        type='EncoderDecoder',
+        backbone=dict(type='ResNetV1c', depth=depth, stem_channels=16,
+                      base_channels=base, num_stages=4,
+                      out_indices=(0, 1, 2, 3), dilations=(1, 1, 2, 4),
+                      strides=(1, 2, 1, 1), contract_dilation=True),
+        decode_head=dict(type='DepthwiseSeparableASPPHead',
+                         in_channels=widths[3], in_index=3, channels=16,
+                         dilations=(1, 2, 3), c1_in_channels=widths[0],
+                         c1_channels=8, c1_index=0, dropout_ratio=0.0,
+                         num_classes=num_classes, loss_decode=ce),
+        auxiliary_head=[dict(type='FCNHead', in_channels=widths[2],
+                             in_index=2, channels=16, num_convs=1,
+                             concat_input=False, dropout_ratio=0.0,
+                             num_classes=num_classes,
+                             loss_decode=dict(ce, loss_weight=0.4))])
+
+
+LOGIT_GAIN = 8.0
+
+
+def jax_cnn_train_model(cfg, seed: int = 0):
+    """(JAX model, JAX TrainState) of a CNN segmentor config, weights from
+    ``shaped_variables``; the EMA teacher gets weights of its own."""
+    import copy
+    import jax
+    import jax.numpy as jnp
+    from s4former_tpu.models import build_segmentor, init_segmentor_variables
+    from s4former_tpu.semi.train_step import create_train_state
+    model = build_segmentor(copy.deepcopy(cfg))
+    student = shaped_variables(lambda: init_segmentor_variables(
+        model, jax.random.PRNGKey(0), (1, 64, 64, 3)), seed)
+    # classifiers x LOGIT_GAIN: logits with a spread, so neither the
+    # teacher's max softmax nor the student's argmax (acc_seg) sits in
+    # near-ties, and the softmax is not saturated
+    for head in student['params'].values():
+        if isinstance(head, dict) and 'conv_seg' in head:
+            head['conv_seg']['kernel'] = head['conv_seg']['kernel'] * \
+                LOGIT_GAIN
+    teacher = perturbed(student, seed + 1, std=0.01)
+    state = create_train_state(jax.tree_util.tree_map(jnp.asarray, student),
+                               ema=True)
+    state = state.replace(
+        ema_params=jax.tree_util.tree_map(jnp.asarray, teacher['params']),
+        ema_batch_stats=jax.tree_util.tree_map(jnp.asarray,
+                                               teacher['batch_stats']))
+    return model, state
+
+
 def torch_train_model(cfg=None):
     """The port's TRAIN_MODEL, or ``cfg`` (weights to be loaded through the
     bridge)."""

@@ -5,10 +5,16 @@ meta device, so no memory is spent) or raises the registry's KeyError
 naming a model type of that config that is not ported yet. The JAX
 package builds each of them.
 
-Then the tiny 64² forward of four base models, held to JAX in f32 from
+Then the tiny 64² forward of nine base models, held to JAX in f32 from
 perturbed JAX weights through the weight bridge: ``setr_mla.py`` and
-``segmenter_vit-b_mask.py`` (this slice), ``setr_pup.py`` and
-``segformer_mit-b0.py``. The ViT-scale ones are shrunk as JAX's test
+``segmenter_vit-b_mask.py``, ``setr_pup.py`` and ``segformer_mit-b0.py``,
+and the five ResNet bases (``deeplabv3plus_r50-d8.py``,
+``pspnet_r50-d8.py``, ``fpn_r50.py``, ``ccnet_r50-d8.py``,
+``icnet_r50-d8.py``), narrowed through ``stem_channels`` /
+``base_channels`` and the heads' ``channels`` at depth 50, their
+weights made from the JAX init's shapes
+(``tests/_torch_port.py:shaped_variables``; a jitted init of a ResNet-50
+takes many seconds to compile). The ViT-scale ones are shrunk as JAX's test
 shrinks Segmenter (img_size 64, embed 64, 4 heads; the head to embed 64,
 4 heads, 1 layer), with the taps inside the shrunk depth: JAX indexes
 its stacked layer outputs and jnp clamps an index past the end to the
@@ -36,7 +42,7 @@ from s4former_tpu_torch.config import Config
 from s4former_tpu_torch.core.checkpoint import state_dict_from_jax_variables
 from s4former_tpu_torch.models import build_segmentor
 from s4former_tpu_torch.registry import MODELS
-from tests._torch_port import perturbed
+from tests._torch_port import perturbed, shaped_variables
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 ALL_CONFIGS = sorted(
@@ -46,7 +52,10 @@ ALL_CONFIGS = sorted(
 MODEL_CONFIGS = [p for p in ALL_CONFIGS if 'model' in Config.fromfile(p)]
 # what the port builds today; any other config names an unported type
 PORTED_BASES = ('setr_mla.py', 'segmenter_vit-b_mask.py', 'setr_pup.py',
-                'segformer_mit-b0.py')
+                'segformer_mit-b0.py', 'deeplabv3plus_r50-d8.py',
+                'pspnet_r50-d8.py', 'fpn_r50.py', 'ccnet_r50-d8.py',
+                'icnet_r50-d8.py')
+CNN_BASES = PORTED_BASES[4:]
 ATOL = 1e-4
 
 
@@ -106,6 +115,29 @@ def _shrunk(name):
         mc['backbone'].update(vit, num_layers=4, out_indices=(0, 1, 2, 3))
         for head in [mc['decode_head']] + mc['auxiliary_head']:
             head['in_channels'] = 64
+    elif name in CNN_BASES:
+        # ResNet-50 at stem 16, base 8: stages of 32, 64, 128, 256
+        narrow = dict(stem_channels=16, base_channels=8)
+        heads = [mc['decode_head']] + mc.get('auxiliary_head', [])
+        if name == 'icnet_r50-d8.py':
+            mc['backbone']['backbone_cfg'].update(narrow)
+            mc['backbone'].update(layer_channels=(64, 256),
+                                  light_branch_middle_channels=8,
+                                  psp_out_channels=16, out_channels=(8, 16, 16))
+            mc['neck'].update(in_channels=(8, 16, 16), out_channels=16)
+            for head in heads:
+                head.update(in_channels=16, channels=16)
+        elif name == 'fpn_r50.py':
+            mc['backbone'].update(narrow)
+            mc['neck'].update(in_channels=[32, 64, 128, 256], out_channels=16)
+            mc['decode_head'].update(in_channels=[16] * 4, channels=16)
+        else:
+            mc['backbone'].update(narrow)
+            mc['decode_head'].update(in_channels=256, channels=16)
+            if name == 'deeplabv3plus_r50-d8.py':
+                mc['decode_head'].update(c1_in_channels=32, c1_channels=8)
+            for head in mc['auxiliary_head']:
+                head.update(in_channels=128, channels=16)
     return mc
 
 
@@ -116,11 +148,15 @@ def test_base_model_tiny_forward_matches_jax(name):
     if jcfg['backbone']['type'] == 'VisionTransformer':
         jcfg['backbone']['use_flash'] = False
     jmodel = j_build_segmentor(jcfg)
-    # jitted: eagerly, JAX dispatches (and compiles) op by op
-    v = jax.jit(lambda key: init_segmentor_variables(
-        jmodel, key, (1, 64, 64, 3)))(jax.random.PRNGKey(0))
-    v = perturbed({'params': v['params'],
-                   'batch_stats': v.get('batch_stats', {})}, 0)
+    if name in CNN_BASES:
+        v = shaped_variables(lambda: init_segmentor_variables(
+            jmodel, jax.random.PRNGKey(0), (1, 64, 64, 3)), 0)
+    else:
+        # jitted: eagerly, JAX dispatches (and compiles) op by op
+        v = jax.jit(lambda key: init_segmentor_variables(
+            jmodel, key, (1, 64, 64, 3)))(jax.random.PRNGKey(0))
+        v = perturbed({'params': v['params'],
+                       'batch_stats': v.get('batch_stats', {})}, 0)
     img = np.random.RandomState(0).randn(1, 64, 64, 3).astype(np.float32)
     want = np.asarray(jax.jit(lambda v, x: jmodel.apply(v, x, train=False))(
         jax.tree_util.tree_map(jnp.asarray, v), jnp.asarray(img)))

@@ -34,8 +34,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     # the host runtime, the profiler's reader, the test CLI's modules, the
     # SegFormer slice's, the ablation slice's, the UniMatch slice's, the
     # data-parallel slice's, the eval-and-tools slice's (the tools and the
-    # demo package), the pipeline- and context-parallel slice's and the
-    # model zoo's are among the files read
+    # demo package), the pipeline- and context-parallel slice's, the
+    # model zoo's and the CNN slice's are among the files read
     assert {'native/__init__.py', 'native/build.py', 'core/hooks.py',
             'tools/profile_trace.py', 'utils/palette.py',
             'utils/collect_env.py', 'tools/test.py',
@@ -57,7 +57,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             'demo/image_demo.py', 'demo/video_demo.py',
             'models/necks/necks.py', 'models/decode_heads/misc_heads.py',
             'models/decode_heads/zoo_heads.py',
-            'models/decode_heads/extra_heads.py'} <= {
+            'models/decode_heads/extra_heads.py',
+            'models/backbones/resnet.py', 'models/backbones/cnn_zoo.py',
+            'models/decode_heads/base.py'} <= {
         str(p.relative_to(REPO / 's4former_tpu_torch')) for p in files
         if REPO / 's4former_tpu_torch' in p.parents}
     bad = [(str(p.relative_to(REPO)), m) for p in files
