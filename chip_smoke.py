@@ -17,7 +17,7 @@ on the card, then drives the port's paths through its entry points:
   and profiled), one step each of ``..._MT.py`` and ``..._sup.py``, and
   supervised steps at 768² crops (L = 2305 tokens: the two-kernel
   backward), the first, 3 timed and 1 profiled; 4 + 4 steps of
-  ``..._MT_w_ours.py`` from one batch (5 timed, 1 profiled), the CLI's
+  ``..._MT_w_ours.py`` from one batch (3 timed, 1 profiled), the CLI's
   step without its loader;
 - the native host library (``s4former_tpu_torch/native``, built with g++
   beside the nvcc builds): which functions are native (decode only where
@@ -31,9 +31,9 @@ on the card, then drives the port's paths through its entry points:
   12 steps of 4 + 4 fixture images through the port's pipelines, loader,
   runner, exact in-loop eval at iters 6 and 12 and checkpoints;
   ``--auto-resume`` on to 15; ``tools.test`` on ``iter_12`` against the
-  in-loop mIoU; then 9-step runs from the same backbone in the timm
-  layout, on the native and on the plain host functions in turns, the
-  last 3 steps of two of them traced (``--profile``) and read by
+  in-loop mIoU; then two 9-step runs from the same backbone in the timm
+  layout, on the native and then the plain host functions, the last 3
+  steps of each traced (``--profile``) and read by
   ``tools/profile_trace.py``;
 - test: ``tools.test`` on ``iter_12`` with ``--aug-test --show-dir``
   (six ratios and flip over the 16 fixture images) and with
@@ -52,11 +52,11 @@ on the card, then drives the port's paths through its entry points:
   classes, seeded weights, frames and labels made from a seed with
   numpy), which launches none of the kernels: ``..._sup.py`` serving one
   2048x1024 frame by slide inference (768² windows at stride 512) in f32
-  at depth [1, 1, 2, 1] against the CPU, then in bf16 at full depth over 8
+  at depth [1, 1, 2, 1] against the CPU, then in bf16 at full depth over 4
   PNGs (one request each, one profiled); one f32 step of
   ``..._MT_w_ours.py`` at depth [1, 1, 1, 1], 1 + 1 at 768², drop rates 0,
   against the CPU; the bf16 step at full depth and the config's 4 + 4,
-  drop path and dropout live (the first, 3 timed, 1 profiled by operator
+  drop path and dropout live (the first, 2 timed, 1 profiled by operator
   class); ``tools.train`` on a seeded Cityscapes tree (4 steps, slide eval
   and checkpoints at 2 and 4), ``--auto-resume`` to 5, and ``tools.test``
   (``--eval mIoU`` against the in-loop mIoU, ``--format-only``);
@@ -94,10 +94,20 @@ on the card, then drives the port's paths through its entry points:
   with eval and a checkpoint holding the ResNet's BN statistics, which
   loads the trained student bit for bit, and ``tools.test`` on it: the
   trained student's label maps bit for bit and the in-loop mIoU;
+  DeepLabV3+ on ResNeXt-50 (32x4d) and on ResNeSt-50 one request each
+  against the CPU;
+- the Swin/HRNet slice (``upernet_swin_*``, ``ocrnet_*``; ``cnn_config``
+  with ``upernet_swin.py``, ``patchsize`` 16, or ``ocrnet_hr18.py``, the
+  cascade, ``patchsize`` 4; f32, TF32 off, no kernel launched): each model
+  one request against the CPU, 8 requests, the 2 + 2 step on crops scaled
+  to cover 512², one step at 1 + 1, 256² against the CPU's and its
+  one-ulp witness (OCRNet's comparisons from BN statistics set from their
+  inputs); ``tools.train`` on OCRNet with eval, a checkpoint loading the
+  trained student bit for bit, ``--auto-resume`` and ``tools.test``;
 - the ablation flags of the step (``ablation_*``): one f32 step of
   ``..._MT_w_ours.py`` at 4 layers with every flag group whose draws can be
   handed to both devices, against the CPU; three bf16 flag sets at full
-  width and 6 layers, 4 + 4 at 512² (strong mixes; adaptive CutMix, PatchShuffle +
+  width and 4 layers, 4 + 4 at 512² (strong mixes; adaptive CutMix, PatchShuffle +
   ClassMix and the supervised mixes; dropout, drop path, head dropout,
   fdrop, EMA head dropout, supervised NCR, ``sup_ema``, layer decay and a
   sigmoid aux CE), each step's launches checked against the passes its
@@ -109,7 +119,7 @@ on the card, then drives the port's paths through its entry points:
   [1, 1, 1, 1], 1 + 1 at 768²), the streams' boxes and permutations
   injected; the bf16 UniMatch step at full depth, 8 + 8 at 512² with its
   mix stream (timed, profiled); the flagship and the UniMatch 8 + 8 steps
-  at 6 layers with remat off, 'dots' and 'full' (losses and updates
+  at 4 layers with remat off, 'dots' and 'full' (losses and updates
   against remat off, step time, peak memory); ``tools.train`` on a
   UniMatch variant of the fixture config (``UniSemiDataset``,
   three-branch pipelines with RandomGrayscale and GaussianBlur), 3 steps,
@@ -138,11 +148,12 @@ on the card, then drives the port's paths through its entry points:
   #1-#4 held at H = 6 and 3, the heads of a tensor-parallel rank; the f32
   step at 4 layers split as data 1 x model 2 (2 ranks, gloo on cuda:0)
   and data 2 x model 2 with ZeRO-3 (4 ranks; NCCL with 4 cards) against
-  one process, within the data-parallel bounds; the bf16 flagship at 6
+  one process, within the data-parallel bounds; the bf16 flagship at 4
   layers on one global 4 + 4 batch in one process, 1 x 2 and 2 x 2 with
   ZeRO-3 (step and device ms, peak memory, the floats and heads a rank);
-  ``tools.train --model-parallel 2 --zero3`` on 4 ranks, 2 steps with
-  eval and a checkpoint (the layout of ``train_cli``'s), resumed to 3, and
+  ``tools.train --model-parallel 2 --zero3`` on 4 ranks at 4 layers, 2
+  steps with eval and a checkpoint (the layout of ``train_cli``'s first 4
+  layers), resumed to 3, and
   ``tools.test`` on it against the in-loop mIoU;
 - pipeline and context parallelism (``parallel/pp.py``,
   ``parallel/ring_attention.py``), 4 ranks (gloo on one card) for every
@@ -174,6 +185,7 @@ import glob
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -307,9 +319,15 @@ def graph_time_ms(fn, iters=20) -> float:
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
+    # captured on the side stream: ``torch.cuda.graph``'s context also
+    # empties the caching allocator (and in some versions collects
+    # garbage) first, a fifth of a second a capture
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.stream(side):
+        graph.capture_begin()
         fn()
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
     ms = cuda_time_ms(graph.replay, iters=iters, warmup=2)
     del graph
     return ms
@@ -1026,12 +1044,27 @@ def phase_main_bf16(fa, images, p_f32, gpu_line):
     return seg, path_counts
 
 
+def device_rows(prof):
+    """(device µs, name, calls) of each kernel, copy or fill of a finished
+    torch.profiler run, largest first, summed from the trace's raw device
+    events (``key_averages`` would first build and walk the tree of every
+    host operator: seconds for a training step)."""
+    from torch.autograd import DeviceType
+    by_name = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA and ev.duration_ns() > 0:
+            row = by_name.setdefault(ev.name(), [0.0, 0])
+            row[0] += ev.duration_ns() / 1e3
+            row[1] += 1
+    return sorted(((us, k, n) for k, (us, n) in by_name.items()),
+                  reverse=True)
+
+
 def device_profile(fn, n_top):
     """Run ``fn()`` once under torch.profiler: (its result, the wall time,
     the device time by kernel and the device's busy share of the wall
-    time)."""
+    time), the device's events by ``device_rows``."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1039,10 +1072,7 @@ def device_profile(fn, n_top):
         out = fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
-                   for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA and
-                   ev.self_device_time_total > 0), reverse=True)
+    rows = device_rows(prof)
     device_us = sum(r[0] for r in rows)
     return out, {'wall_us': wall_us, 'device_us': device_us,
                  'device_busy_share': device_us / wall_us,
@@ -1058,10 +1088,11 @@ def phase_profile(seg, images):
     emit({'phase': 'profile_bf16_request', **prof})
 
 
-def fixture_arrays(images, size):
+def fixture_arrays(images, size, cover=False):
     """Normalised NHWC images and their label maps, padded bottom/right to
     size x size (image 0, label 255) as the configs' Pad does, or cropped
-    top-left where larger."""
+    top-left where larger; with ``cover`` first scaled (PIL bilinear,
+    labels nearest) so that the shorter side is ``size``: no padding."""
     import numpy as np
     from PIL import Image
     from s4former_tpu_torch.apis import _DEFAULT_NORM
@@ -1070,10 +1101,16 @@ def fixture_arrays(images, size):
     xs, ys = [], []
     for path in images:
         stem = os.path.splitext(os.path.basename(path))[0]
-        with Image.open(path) as im:
-            x = (np.asarray(im.convert('RGB'), np.float32) - mean) / std
-        with Image.open(os.path.join(LABELS, stem + '.png')) as im:
-            y = np.asarray(im).astype(np.int64)
+        with Image.open(path) as im, \
+                Image.open(os.path.join(LABELS, stem + '.png')) as lab:
+            im = im.convert('RGB')
+            if cover:
+                scale = size / min(im.size)
+                hw = (round(im.width * scale), round(im.height * scale))
+                im = im.resize(hw, Image.BILINEAR)
+                lab = lab.resize(hw, Image.NEAREST)
+            x = (np.asarray(im, np.float32) - mean) / std
+            y = np.asarray(lab).astype(np.int64)
         x, y = x[:size, :size], y[:size, :size]
         h, w = y.shape
         xs.append(np.pad(x, ((0, size - h), (0, size - w), (0, 0))))
@@ -1082,11 +1119,11 @@ def fixture_arrays(images, size):
     return np.stack(xs), np.stack(ys)
 
 
-def train_batch(images, n_sup, n_unsup, size=512):
+def train_batch(images, n_sup, n_unsup, size=512, cover=False):
     """The step's batch: sup images + labels, and unsup images for the
     teacher and the student (the same views: the augmentation pipelines
-    are not ported)."""
-    x, y = fixture_arrays(images[:n_sup + n_unsup], size)
+    are not ported); ``cover`` as ``fixture_arrays``'."""
+    x, y = fixture_arrays(images[:n_sup + n_unsup], size, cover)
     batch = {'sup_img': x[:n_sup], 'sup_gt': y[:n_sup]}
     if n_unsup:
         batch['unsup_teacher_img'] = x[n_sup:]
@@ -1427,7 +1464,7 @@ def phase_native(images, library, gpu_line):
                         y if isinstance(y, list) else [y])
         for key in ('img', 'gt_semantic_seg'))
     ms = {}
-    for kind in ('plain', 'native', 'native', 'plain'):   # in turns
+    for kind in ('plain', 'native'):
         with host_functions(kind):
             for n_threads, n in ((1, 4), (threads, 2 * threads)):
                 ms.setdefault(f'{kind}_{n_threads}_threads', []).append(
@@ -1667,10 +1704,10 @@ def checkpoint_layout(path):
 def phase_train_cli_host(fa, gpu_line, root, deit, n_backbone, windows,
                          no_loader):
     """9-step CLI runs of the same config from the timm-layout DeiT-B
-    file, no eval, logs every 3, on the native and on the plain host
-    functions in turns (native, plain, plain, native); the first two trace
-    steps 7-9 (``--profile 7 3``), read by ``tools/profile_trace.py``
-    beside the no-loader step's trace ``no_loader``. Each run's log must
+    file, no eval, logs every 3, on the native and then the plain host
+    functions; each traces steps 7-9 (``--profile 7 3``), read by
+    ``tools/profile_trace.py`` beside the no-loader step's trace
+    ``no_loader``. Each run's log must
     report every backbone tensor loaded. Returns the runs' counts."""
     import numpy as np
     from s4former_tpu_torch.tools import profile_trace
@@ -1680,15 +1717,14 @@ def phase_train_cli_host(fa, gpu_line, root, deit, n_backbone, windows,
     loaded = f'({n_backbone} of {n_backbone} backbone tensors)'
     total = None
     runs = []
-    for i, kind in enumerate(('native', 'plain', 'plain', 'native')):
+    for i, kind in enumerate(('native', 'plain')):
         wd = os.path.join(root, f'host_{i}_{kind}')
-        traced = i < 2
         reset_counts(fa)
         with host_functions(kind):
             state = train_cli.main(
                 [FULLFLAG, '--work-dir', wd, '--max-iters', '9',
-                 '--no-validate', '--load-from', deit] +
-                (['--profile', '7', '3'] if traced else []) + opts)
+                 '--no-validate', '--load-from', deit, '--profile', '7',
+                 '3'] + opts)
         run_counts = counts(fa)
         check(int(state.step) == 9, f'{kind} run ended at {int(state.step)}')
         del state
@@ -1701,22 +1737,18 @@ def phase_train_cli_host(fa, gpu_line, root, deit, n_backbone, windows,
               f'9 {kind} steps launched {run_counts}')
         train = [r for r in read_jsonl(os.path.join(wd, 'metrics.jsonl'))
                  if r['prefix'] == 'train']
-        run = {'host': kind, 'traced_steps': '7-9' if traced else None,
+        run = {'host': kind, 'traced_steps': '7-9',
                'step_ms_windows': [r['step_ms'] for r in train],
-               'data_wait_ms_windows': [r['data_wait_ms'] for r in train]}
-        if traced:
-            run['trace'] = profile_trace.analyze(profile_trace.load_events(
-                os.path.join(wd, 'profile')), steps=3)
-            print(f'trace of the {kind} run, steps 7-9:\n' +
-                  profile_trace.report(run['trace']), flush=True)
+               'data_wait_ms_windows': [r['data_wait_ms'] for r in train],
+               'trace': profile_trace.analyze(profile_trace.load_events(
+                   os.path.join(wd, 'profile')), steps=3)}
+        print(f'trace of the {kind} run, steps 7-9:\n' +
+              profile_trace.report(run['trace']), flush=True)
         runs.append(run)
         total = run_counts if total is None else add_counts(total, run_counts)
         shutil.rmtree(wd, ignore_errors=True)
-    # untraced windows: 2 of the traced runs, 2-3 of the others
-    steady = {kind: [ms for r in runs if r['host'] == kind
-                     for ms in r['step_ms_windows'][1:2 if r['traced_steps']
-                                                   else 3]]
-              for kind in ('native', 'plain')}
+    # the untraced window after the first: steps 4-6
+    steady = {r['host']: r['step_ms_windows'][1:2] for r in runs}
     emit({'phase': 'train_cli_host', 'config': os.path.basename(FULLFLAG),
           'pretrained': f'{os.path.basename(deit)}: {loaded} loaded',
           'runs': runs,
@@ -1900,7 +1932,7 @@ def phase_tools_cli(fa, gpu_line, wd, root, images, test_miou):
               f'{name} launched {launches[name]}, not {want_fwd} forward')
         return result
 
-    bench_iters, bench_warmup = 100, 10
+    bench_iters, bench_warmup = 50, 5
     for b in (1, 8):
         r = run(f'benchmark_b{b}', 12 * (bench_iters + bench_warmup),
                 lambda: benchmark.main([CONFIGS['sup'], '--batch', str(b),
@@ -2188,13 +2220,17 @@ def phase_mit_serve_bf16(fa, images, gpu_line):
     return path_counts
 
 
-def trainer_from_config(cfg, device, paramwise_cfg=None, **semi_over):
+def trainer_from_config(cfg, device, paramwise_cfg=None, weights=None,
+                        **semi_over):
     """(state, train_step) of a config through the port's entry points,
-    with seeded random weights; ``paramwise_cfg`` turns on the layer-wise
-    LR decay."""
+    with seeded random weights (overlaid by the state dict ``weights`` if
+    given: the student's and the EMA teacher's); ``paramwise_cfg`` turns
+    on the layer-wise LR decay."""
     from s4former_tpu_torch.apis import init_segmentor
-    return trainer_of(init_segmentor(cfg, seed=0, device=device).model, cfg,
-                      paramwise_cfg, **semi_over)
+    model = init_segmentor(cfg, seed=0, device=device).model
+    if weights is not None:
+        model.load_state_dict(weights)
+    return trainer_of(model, cfg, paramwise_cfg, **semi_over)
 
 
 def trainer_of(model, cfg, paramwise_cfg=None, **semi_over):
@@ -2284,25 +2320,25 @@ def phase_mit_train_f32_vs_cpu(fa):
     return cg
 
 
-def device_time_by_class(averages):
-    """Device time (µs) of a profiled run (its ``key_averages()``) by
-    operator class: each CPU
-    operator's own kernels (``self_device_time_total``) summed over the
-    classes of OP_CLASSES, the rest as 'elementwise, reductions, copies
-    (incl. BN, GELU, losses, SGD)'. The MixFFN's depthwise 3x3 conv is
-    split from the other convs by its cuDNN kernels' names (grouped /
-    one-channel-a-group kernels)."""
+def device_time_by_class(prof):
+    """Device time (µs) of a profiled run by operator class: each CPU
+    operator's own kernels (the kernels it launched, not its children's:
+    ``key_averages``' ``self_device_time_total``, without walking the
+    tree for every operator) summed over the classes of OP_CLASSES, the
+    rest as 'elementwise, reductions, copies (incl. BN, GELU, losses,
+    SGD)'. The MixFFN's depthwise 3x3 conv is split from the other convs
+    by its cuDNN kernels' names (grouped / one-channel-a-group
+    kernels)."""
     import re
     from torch.autograd import DeviceType
     out = {}
-    depthwise = 0.0
-    for ev in averages:
-        us = ev.self_device_time_total
-        if us <= 0:
+    depthwise = sum(us for us, name, _ in device_rows(prof)
+                    if re.search(r'grouped|depthwise|_c1_k1', name))
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CPU or ev.is_async:
             continue
-        if ev.device_type == DeviceType.CUDA:
-            if re.search(r'grouped|depthwise|_c1_k1', ev.key):
-                depthwise += us
+        us = sum(k.duration for k in ev.kernels)
+        if us <= 0:
             continue
         cls = next((c for c, ops in OP_CLASSES if ev.key in ops),
                    'elementwise, reductions, copies (incl. BN, GELU, '
@@ -2317,11 +2353,10 @@ def device_time_by_class(averages):
 def phase_mit_train_bf16(fa, gpu_line, n_sup, n_unsup):
     """``..._MT_w_ours.py`` at full depth in bf16, drop path and head
     dropout live, from one fixed batch of seeded scenes at 768²: the first
-    step, 3 timed, 1 profiled (device time by kernel and by operator
+    step, 2 timed, 1 profiled (device time by kernel and by operator
     class). Returns the launch counts."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     cfg = load_mit_config('ours', 'bfloat16')
     state, step = trainer_from_config(cfg, 'cuda')
@@ -2330,7 +2365,7 @@ def phase_mit_train_bf16(fa, gpu_line, n_sup, n_unsup):
     gen = torch.Generator(device='cuda').manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
     reset_counts(fa)                               # the main path starts
-    state, logs, ms = timed_steps(state, step, batch, gen, 4)
+    state, logs, ms = timed_steps(state, step, batch, gen, 3)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2339,12 +2374,10 @@ def phase_mit_train_bf16(fa, gpu_line, n_sup, n_unsup):
         wall_us = (time.perf_counter() - t0) * 1e6
     path_counts = counts(fa)                       # the main path ends
     peak = torch.cuda.max_memory_allocated()
-    averages = prof.key_averages()
-    by_class = device_time_by_class(averages)
-    kernels = [ev for ev in averages if ev.device_type == DeviceType.CUDA]
-    device_us = sum(ev.self_device_time_total for ev in kernels)
-    top = sorted(((ev.self_device_time_total, ev.key[:100], ev.count)
-                  for ev in kernels), reverse=True)[:15]
+    by_class = device_time_by_class(prof)
+    rows = device_rows(prof)
+    device_us = sum(r[0] for r in rows)
+    top = [(us, k[:100], n) for us, k, n in rows[:15]]
     lg = floats(logs)
     timed = np.asarray(ms[1:])
     emit({'phase': 'mit_train_bf16', 'config': 'ours',
@@ -3112,37 +3145,62 @@ def run_zoo(fa, images, gpu_line, root):
 # the ResNet bases of configs/_base_/models/ (ResNetV1c-50; -D8 but FPN)
 CNN_MODELS = {'deeplabv3plus': 'deeplabv3plus_r50-d8.py',
               'pspnet': 'pspnet_r50-d8.py', 'fpn': 'fpn_r50.py',
-              'ccnet': 'ccnet_r50-d8.py', 'icnet': 'icnet_r50-d8.py'}
+              'ccnet': 'ccnet_r50-d8.py', 'icnet': 'icnet_r50-d8.py',
+              'upernet_swin': 'upernet_swin.py', 'ocrnet': 'ocrnet_hr18.py'}
 # the mixes' super-patch unit: a -D8 head undoes the PatchShuffle on its
 # 1/8 map in blocks of PatchMix_N features, so the image's super-patches
 # must be 8 * PatchMix_N pixels (at the default 16 the step fails on the
-# shapes, in JAX as in the port)
+# shapes, in JAX as in the port); OCRNet's first stage undoes it on its
+# 1/4 map (4); no head of UPerNet-Swin undoes it (the default 16)
 CNN_PATCHSIZE = 8
+PATCHSIZE = {'upernet_swin': 16, 'ocrnet': 4}
+# the backbones put in DeepLabV3+'s place (``cnn_config``'s ``backbone``):
+# ResNeXt-50 (32x4d) and ResNeSt-50 with their defaults and the -D8
+# stages of the ResNetV1c they replace
+CNN_BACKBONES = {'resnext': dict(type='ResNeXt', groups=32, base_width=4),
+                 'resnest': dict(type='ResNeSt', stem_channels=64, radix=2,
+                                 reduction_factor=4, avg_down_stride=True)}
 
 
-def cnn_config(root, which):
+def model_heads(model):
+    """Every head config of a model config: the decode head (a cascade's
+    stages) and the aux heads."""
+    head = model['decode_head']
+    return (list(head) if isinstance(head, (list, tuple)) else [head]) + \
+        list(model.get('auxiliary_head') or [])
+
+
+def cnn_config(root, which, backbone=None):
     """``setr_fixture_voc_mini_fullflag.py`` (the fixture run of
     ``..._MT_w_ours.py``: VOC fixture data, every S4Former flag) with its
     model replaced by that of ``configs/_base_/models/`` ``CNN_MODELS
-    [which]``, written to ``root`` as ``zoo_config`` writes its config: 21
-    classes on every head, the mixes' ``patchsize`` CNN_PATCHSIZE. PASA
-    stays on (the ResNet ignores the bias, as JAX's does; the PASA pass
-    still runs, in the fused 2B batch), and PatchShuffle with CutMix, NCR
-    and the EMA. The ResNet computes in f32 (JAX's has no dtype). Returns
-    the path."""
+    [which]`` (its segmentor type too: OCRNet's cascade), its backbone's
+    keys updated by ``CNN_BACKBONES[backbone]`` if given, written to
+    ``root`` as ``zoo_config`` writes its config: 21 classes on every
+    head, the mixes' ``patchsize`` PATCHSIZE's (else CNN_PATCHSIZE). PASA
+    stays on (the CNNs and Swin ignore the bias, as JAX's do; the PASA
+    pass still runs, in the fused 2B batch), and PatchShuffle with CutMix,
+    NCR and the EMA. The backbones compute in f32 (JAX's have no dtype).
+    Returns the path."""
     from s4former_tpu_torch.config import Config
     model = Config.fromfile(os.path.join(
         REPO, 'configs', '_base_', 'models', CNN_MODELS[which])).to_dict()[
             'model']
-    aux = model.get('auxiliary_head') or []
-    for head in [model['decode_head']] + aux:
+    for head in model_heads(model):
         head['num_classes'] = 21
-    over = dict(backbone=dict(model['backbone'], _delete_=True),
-                decode_head=dict(model['decode_head'], _delete_=True),
-                auxiliary_head=aux, patchsize=CNN_PATCHSIZE)
-    if 'neck' in model:
-        over['neck'] = model['neck']
-    path = os.path.join(root, f'{which}_voc_mini_MT_w_ours.py')
+    head = model['decode_head']
+    over = dict(type=model['type'],
+                backbone=dict(model['backbone'],
+                              **CNN_BACKBONES.get(backbone, {}),
+                              _delete_=True),
+                decode_head=head if isinstance(head, list) else
+                dict(head, _delete_=True),
+                auxiliary_head=model.get('auxiliary_head') or [],
+                patchsize=PATCHSIZE.get(which, CNN_PATCHSIZE))
+    for key in ('neck', 'num_stages'):
+        if key in model:
+            over[key] = model[key]
+    path = os.path.join(root, f'{backbone or which}_voc_mini_MT_w_ours.py')
     with open(path, 'w') as f:
         f.write(f'_base_ = [{FULLFLAG!r}]\nmodel = {over!r}\n')
     return path
@@ -3158,10 +3216,34 @@ def conv_settings():
             'cudnn_deterministic': torch.backends.cudnn.deterministic}
 
 
-def phase_cnn_serve_f32(fa, path, image):
-    """DeepLabV3+ at full depth in f32 on the card against the same seeded
-    weights on the CPU, one 512² request; probabilities within
-    TOL_MAIN_F32; no kernel launch. Returns the card's counts."""
+def calibrate_bn(model, x):
+    """Set each BN's running statistics to those of its input in one
+    eval forward of ``x`` (a forward pre-hook writes them before the BN
+    runs, so each sees the calibrated layers before it), as a trained
+    model's statistics fit its data."""
+    import torch
+    from s4former_tpu_torch.models.decode_heads.setr_up import BatchNorm
+
+    def pre(bn, args):
+        v = args[0].float()
+        dims = tuple(range(v.dim() - 1))
+        bn.running_mean.copy_(v.mean(dims))
+        bn.running_var.copy_(v.var(dims, unbiased=False))
+    hooks = [m.register_forward_pre_hook(pre) for m in model.modules()
+             if isinstance(m, BatchNorm)]
+    with torch.no_grad():
+        model(x)
+    for h in hooks:
+        h.remove()
+
+
+def phase_cnn_serve_f32(fa, path, image, name='cnn_serve_f32_vs_cpu',
+                        calibrate=False):
+    """The config (DeepLabV3+'s) at full depth in f32 on the card against
+    the same seeded weights on the CPU, one 512² request; probabilities
+    within TOL_MAIN_F32; no kernel launch. With ``calibrate`` the BN
+    statistics are first set on the CPU from the request (``calibrate_bn``)
+    and copied to the card. Returns the card's counts."""
     import torch
     from s4former_tpu_torch.apis import _prepare_image, init_segmentor
     from s4former_tpu_torch.config import Config
@@ -3171,6 +3253,9 @@ def phase_cnn_serve_f32(fa, path, image):
     gpu = init_segmentor(cfg, seed=0, device='cuda')
     cpu = init_segmentor(cfg, seed=0, device='cpu')
     x, _ = _prepare_image(gpu, image)
+    if calibrate:
+        calibrate_bn(cpu.model, torch.from_numpy(x))
+        gpu.model.load_state_dict(cpu.model.state_dict())
     reset_counts(fa)                               # the main path starts
     p_gpu = gpu.probs(torch.from_numpy(x).cuda())
     torch.cuda.synchronize()
@@ -3182,7 +3267,7 @@ def phase_cnn_serve_f32(fa, path, image):
     err = (p_gpu.cpu() - p_cpu).abs().max().item() if same else None
     agree = (p_gpu.cpu().argmax(-1) == p_cpu.argmax(-1)).float().mean() \
         .item() if same else None
-    emit({'phase': 'cnn_serve_f32_vs_cpu', 'config': os.path.basename(path),
+    emit({'phase': name, 'config': os.path.basename(path),
           'probs_shape': list(p_gpu.shape), 'probs_max_abs_err': err,
           'tol': TOL_MAIN_F32, 'argmax_agreement': agree,
           'cpu_forward_s': cpu_s, 'settings': conv_settings(),
@@ -3190,7 +3275,7 @@ def phase_cnn_serve_f32(fa, path, image):
     check(same, f'probs shapes {tuple(p_gpu.shape)}, {tuple(p_cpu.shape)}')
     check(torch.isfinite(p_gpu).all().item(), 'non-finite f32 probs')
     check(all_zero(path_counts), f'a CNN request launched {path_counts}')
-    check(err <= TOL_MAIN_F32, f'DeepLabV3+ f32 card vs CPU probs differ '
+    check(err <= TOL_MAIN_F32, f'{name}: f32 card vs CPU probs differ '
           f'by {err}')
     del gpu, cpu
     torch.cuda.empty_cache()
@@ -3253,15 +3338,14 @@ CNN_WITNESS_SIZE = 256
 CNN_WITNESS_MULT = 4
 
 
-def cnn_f32_cfg(path, depth):
-    """The DeepLabV3+ config at ResNetV1c-``depth`` (below 50 the heads'
-    inputs narrowed to its stages: BasicBlocks keep their width), every
+def cnn_f32_cfg(path, depth=None):
+    """The config (DeepLabV3+'s at ResNetV1c-``depth``: below 50 the heads'
+    inputs narrowed to its stages, BasicBlocks keep their width), every
     head's dropout at 0."""
     from s4former_tpu_torch.config import Config
     cfg = Config.fromfile(path)
-    heads = [cfg.model.decode_head] + list(
-        cfg.model.get('auxiliary_head') or [])
-    if depth < 50:
+    heads = model_heads(cfg.model)
+    if depth is not None and depth < 50:
         cfg.model.backbone.depth = depth
         base = cfg.model.backbone.get('base_channels', 64)
         widths = [base * 2 ** i for i in range(4)]   # BasicBlock stages
@@ -3274,15 +3358,16 @@ def cnn_f32_cfg(path, depth):
     return cfg
 
 
-def cnn_f32_batch(images, size=512):
+def cnn_f32_batch(images, size=512, patchsize=CNN_PATCHSIZE):
     """1 + 1 fixture images at size², a CutMix box (rows 3/16-11/16,
-    columns 1/4-5/8) and a seeded PatchShuffle permutation (``dbg_*``)."""
+    columns 1/4-5/8) and a seeded PatchShuffle permutation of the
+    super-patches of ``patchsize`` * PatchMix_N (8) pixels (``dbg_*``)."""
     import numpy as np
     batch = train_batch(images, 1, 1, size)
     mask = np.ones((1, size, size), np.float32)
     mask[0, size * 3 // 16:size * 11 // 16, size // 4:size * 5 // 8] = 0
     batch['dbg_cutmix_mask'] = mask
-    grid = size // (CNN_PATCHSIZE * 8)             # PatchMix_N 8
+    grid = size // (patchsize * 8)                 # PatchMix_N 8
     batch['dbg_patchmix_perm'] = np.random.RandomState(0).permutation(
         grid * grid)[None].astype(np.int32)
     return batch
@@ -3301,10 +3386,11 @@ def ulp_moved(batch):
     return out
 
 
-def cnn_f32_threshold(cfg, batch):
-    """``half_confident`` of the card's teacher on the batch."""
+def cnn_f32_threshold(cfg, batch, weights=None):
+    """``half_confident`` of the card's teacher on the batch (from
+    ``weights`` if given)."""
     import torch
-    state, _ = trainer_from_config(cfg, 'cuda')
+    state, _ = trainer_from_config(cfg, 'cuda', weights=weights)
     with torch.no_grad():
         t_logits = state.model.forward_decode_from_img(
             torch.from_numpy(batch['unsup_teacher_img']).cuda(), train=False)
@@ -3314,12 +3400,13 @@ def cnn_f32_threshold(cfg, batch):
     return threshold
 
 
-def cnn_f32_step(fa, cfg, batch, threshold, device, hook):
-    """One step of ``cfg`` from the seeded weights on ``device`` under the
-    teacher hook ``hook()``: (logs, parameter updates on the CPU, seconds,
-    launch counts)."""
+def cnn_f32_step(fa, cfg, batch, threshold, device, hook, weights=None):
+    """One step of ``cfg`` from the seeded weights (or ``weights``) on
+    ``device`` under the teacher hook ``hook()``: (logs, parameter updates
+    on the CPU, seconds, launch counts)."""
     import torch
-    state, step = trainer_from_config(cfg, device, unsup_confidence=threshold)
+    state, step = trainer_from_config(cfg, device, weights=weights,
+                                      unsup_confidence=threshold)
     before = {n: p.detach().cpu().clone()
               for n, p in state.model.named_parameters()}
     dev_batch = to_device(batch, device)
@@ -3340,6 +3427,84 @@ def cnn_f32_step(fa, cfg, batch, threshold, device, hook):
     del state, step, dev_batch
     torch.cuda.empty_cache()
     return floats(logs), delta, seconds, launches
+
+
+def f32_step_vs_witness(fa, cfg, batch, calibrate=False):
+    """One S4Former step of ``cfg`` (f32) from the seeded weights on the
+    CPU, again on the CPU on ``ulp_moved`` inputs (the witness), and on the
+    card, the teacher of each pinned to the CPU's (``teacher_hook``), the
+    threshold ``half_confident`` of the card's teacher. With ``calibrate``
+    the weights' BN statistics are first set on the CPU from the batch's
+    sup and teacher images (``calibrate_bn``), the same for every step.
+    Returns the line's fields and the launches of the three steps;
+    ``check_witness`` holds them."""
+    import numpy as np
+    import torch
+    weights = None
+    if calibrate:
+        from s4former_tpu_torch.apis import init_segmentor
+        model = init_segmentor(cfg, seed=0, device='cpu').model
+        calibrate_bn(model, torch.from_numpy(np.concatenate(
+            [batch['sup_img'], batch['unsup_teacher_img']])))
+        weights = model.state_dict()
+    threshold = cnn_f32_threshold(cfg, batch, weights)
+    record, stats, stats_w = [], [], []
+    lc, dc, sc, cc = cnn_f32_step(fa, cfg, batch, threshold, 'cpu',
+                                  lambda: teacher_hook(record=record),
+                                  weights)
+    lw, dw, sw, cw = cnn_f32_step(
+        fa, cfg, ulp_moved(batch), threshold, 'cpu',
+        lambda: teacher_hook(reference=record, pin=True, stats=stats_w),
+        weights)
+    lg, dg, sg, cg = cnn_f32_step(
+        fa, cfg, batch, threshold, 'cuda',
+        lambda: teacher_hook(reference=record, pin=True, stats=stats),
+        weights)
+    scale = max(d.abs().max().item() for d in dc.values())
+    leaves = []
+    for n in dc:
+        err = (dg[n] - dc[n]).abs().max().item()
+        wit = (dw[n] - dc[n]).abs().max().item()
+        leaves.append((err / max(CNN_WITNESS_MULT * wit,
+                                 TOL_TRAIN_F32 * scale), n, err, wit,
+                       dc[n].abs().max().item()))
+    leaves.sort()
+    return {
+        'batch': f'1 sup + 1 unsup at {batch["sup_img"].shape[1]}², '
+                 f'unsup_confidence {threshold}',
+        'mask_ratio': lc.get('mask_ratio'), 'losses_card': lg,
+        'losses_cpu': lc,
+        'loss_rel_err': {k: abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-6)
+                         for k in lc if k in lg},
+        'update_max_abs_cpu': scale, 'witness_mult': CNN_WITNESS_MULT,
+        # (err / allowed, name, |card - CPU|, |witness - CPU|, largest CPU
+        #  update of the parameter)
+        'update_err_worst': leaves[-4:],
+        'update_err_abs_max': max(r[2] for r in leaves),
+        'witness_abs_max': max(r[3] for r in leaves),
+        'teacher_pinned': stats, 'witness_teacher': stats_w,
+        'card_step_s': sg, 'cpu_step_s': sc, 'witness_step_s': sw,
+        'log_keys_same': sorted(lg) == sorted(lc)}, (cg, cc, cw)
+
+
+def check_witness(name, r, launches):
+    """``f32_step_vs_witness``'s bounds: the same log keys, live unsup
+    losses, finite losses within TOL_TRAIN_F32 relative, every parameter
+    within its allowed distance, no kernel launch."""
+    import numpy as np
+    lc = r['losses_cpu']
+    check(r['log_keys_same'], f'{name}: log keys differ')
+    check(all(all_zero(c) for c in launches), f'{name} launched {launches}')
+    check(0 < lc['mask_ratio'] < 1, f'{name}: mask_ratio {lc["mask_ratio"]}')
+    check(lc['unsup.loss_seg_unsup'] > 0 and lc['unsup.loss_ncr_unsup'] > 0
+          and lc['unsup.loss_seg_unsup_attn_mask'] > 0,
+          f'{name}: the unsup losses are not live')
+    check(all(np.isfinite(v) for v in r['losses_card'].values()),
+          f'{name}: non-finite losses')
+    check(max(r['loss_rel_err'].values()) <= TOL_TRAIN_F32,
+          f'{name}: f32 losses, card vs CPU: {r["loss_rel_err"]}')
+    check(r['update_err_worst'][-1][0] <= 1, f'{name}: f32 updates beyond '
+          f'the witness: {r["update_err_worst"]}')
 
 
 def phase_cnn_train_f32(fa, path, images):
@@ -3379,30 +3544,8 @@ def phase_cnn_train_f32(fa, path, images):
     upd_err = by_param[-1][0]
 
     # ResNetV1c-50 against the witness
-    cfg50 = cnn_f32_cfg(path, 50)
-    batch50 = cnn_f32_batch(images, CNN_WITNESS_SIZE)
-    threshold50 = cnn_f32_threshold(cfg50, batch50)
-    record50, stats50, stats50w = [], [], []
-    lc50, dc50, sc50, cc50 = cnn_f32_step(
-        fa, cfg50, batch50, threshold50, 'cpu',
-        lambda: teacher_hook(record=record50))
-    lw50, dw50, sw50, cw50 = cnn_f32_step(
-        fa, cfg50, ulp_moved(batch50), threshold50, 'cpu',
-        lambda: teacher_hook(reference=record50, pin=True, stats=stats50w))
-    lg50, dg50, sg50, cg50 = cnn_f32_step(
-        fa, cfg50, batch50, threshold50, 'cuda',
-        lambda: teacher_hook(reference=record50, pin=True, stats=stats50))
-    loss_err50 = {k: abs(lg50[k] - lc50[k]) / max(abs(lc50[k]), 1e-6)
-                  for k in lc50 if k in lg50}
-    scale50 = max(d.abs().max().item() for d in dc50.values())
-    leaves = []
-    for n in dc50:
-        err = (dg50[n] - dc50[n]).abs().max().item()
-        wit = (dw50[n] - dc50[n]).abs().max().item()
-        leaves.append((err / max(CNN_WITNESS_MULT * wit,
-                                 TOL_TRAIN_F32 * scale50), n, err, wit,
-                       dc50[n].abs().max().item()))
-    leaves.sort()
+    depth50, launches50 = f32_step_vs_witness(
+        fa, cnn_f32_cfg(path), cnn_f32_batch(images, CNN_WITNESS_SIZE))
     emit({'phase': 'cnn_train_f32_vs_cpu', 'config': os.path.basename(path),
           'cut': f'ResNetV1c-{CNN_F32_DEPTH}, dropout 0',
           'batch': f'1 sup + 1 unsup at 512², unsup_confidence {threshold} '
@@ -3412,50 +3555,31 @@ def phase_cnn_train_f32(fa, path, images):
           'update_max_abs_err': upd_err, 'update_max_abs_cpu': scale,
           'update_err_largest': by_param[-3:], 'tol': TOL_TRAIN_F32,
           'teacher_pinned': stats,
-          'card_step_s': sg, 'cpu_step_s': sc,
-          'depth50': {
-              'batch': f'1 sup + 1 unsup at {CNN_WITNESS_SIZE}², '
-                       f'unsup_confidence {threshold50}',
-              'mask_ratio': lc50.get('mask_ratio'),
-              'loss_rel_err': loss_err50,
-              'update_max_abs_cpu': scale50,
-              'witness_mult': CNN_WITNESS_MULT,
-              # (err / allowed, name, |card - CPU|, |witness - CPU|,
-              #  largest CPU update of the parameter)
-              'update_err_worst': leaves[-4:],
-              'update_err_abs_max': max(r[2] for r in leaves),
-              'witness_abs_max': max(r[3] for r in leaves),
-              'teacher_pinned': stats50, 'witness_teacher': stats50w,
-              'card_step_s': sg50, 'cpu_step_s': sc50,
-              'witness_step_s': sw50},
-          'settings': conv_settings(), 'launches': add_counts(cg, cg50)})
-    check(same_keys and sorted(lg50) == sorted(lc50),
-          f'log keys differ: {sorted(lg)} vs {sorted(lc)}')
-    check(all(all_zero(c) for c in (cg, cc, cg50, cc50, cw50)),
-          f'a CNN step launched {cg}, {cc}, {cg50}, {cc50}, {cw50}')
-    for logs in (lc, lc50):
-        check(0 < logs['mask_ratio'] < 1, f'mask_ratio {logs["mask_ratio"]}')
-        check(logs['unsup.loss_seg_unsup'] > 0 and
-              logs['unsup.loss_ncr_unsup'] > 0 and
-              logs['unsup.loss_seg_unsup_attn_mask'] > 0,
-              'the unsup losses are not live')
-    check(all(np.isfinite(v) for v in list(lg.values()) +
-              list(lg50.values())), 'non-finite losses')
+          'card_step_s': sg, 'cpu_step_s': sc, 'depth50': depth50,
+          'settings': conv_settings(),
+          'launches': add_counts(cg, launches50[0])})
+    check(same_keys, f'log keys differ: {sorted(lg)} vs {sorted(lc)}')
+    check(all_zero(cg) and all_zero(cc), f'a CNN step launched {cg}, {cc}')
+    check(0 < lc['mask_ratio'] < 1, f'mask_ratio {lc["mask_ratio"]}')
+    check(lc['unsup.loss_seg_unsup'] > 0 and lc['unsup.loss_ncr_unsup'] > 0
+          and lc['unsup.loss_seg_unsup_attn_mask'] > 0,
+          'the unsup losses are not live')
+    check(all(np.isfinite(v) for v in lg.values()), 'non-finite losses')
     check(max(loss_err.values()) <= TOL_TRAIN_F32,
           f'DeepLabV3+ f32 losses, card vs CPU: {loss_err}')
     check(upd_err <= TOL_TRAIN_F32 * scale, f'DeepLabV3+ f32 parameter '
           f'updates differ by {upd_err} (max {scale})')
-    check(max(loss_err50.values()) <= TOL_TRAIN_F32,
-          f'ResNetV1c-50 DeepLabV3+ f32 losses, card vs CPU: {loss_err50}')
-    check(leaves[-1][0] <= 1, f'ResNetV1c-50 DeepLabV3+ f32 updates beyond '
-          f'the witness: {leaves[-4:]}')
-    return add_counts(cg, cg50)
+    check_witness('ResNetV1c-50 DeepLabV3+', depth50, launches50)
+    return add_counts(cg, launches50[0])
 
 
-def phase_cnn_train(fa, path, images, gpu_line):
-    """The DeepLabV3+ step at full depth, f32, dropout as configured, 4 +
-    4 fixture images at 512²: the first step, 3 timed; peak memory; finite
-    logs; no kernel launch. Returns the counts of the 4 steps."""
+def phase_cnn_train(fa, path, images, gpu_line, n=4, timed=3,
+                    name='cnn_train', cover=False):
+    """The config's step (DeepLabV3+'s) at full depth, f32, dropout as
+    configured, ``n`` + ``n`` fixture images at 512² (``cover``: scaled to
+    cover it, ``fixture_arrays``): the first step, ``timed`` timed; peak
+    memory; finite logs; no kernel launch. Returns the counts of the
+    steps."""
     import numpy as np
     import torch
     from s4former_tpu_torch.apis import init_segmentor
@@ -3463,24 +3587,25 @@ def phase_cnn_train(fa, path, images, gpu_line):
     cfg = Config.fromfile(path)
     state, step = trainer_of(init_segmentor(cfg, seed=0,
                                             device='cuda').model, cfg)
-    batch = to_device(train_batch(images, 4, 4), 'cuda')
+    batch = to_device(train_batch(images, n, n, cover=cover), 'cuda')
     gen = torch.Generator(device='cuda').manual_seed(0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(fa)                               # the main path starts
-    state, logs, ms = timed_steps(state, step, batch, gen, 4)
+    state, logs, ms = timed_steps(state, step, batch, gen, 1 + timed)
     path_counts = counts(fa)                       # the main path ends
     lg = floats(logs)
-    emit({'phase': 'cnn_train', 'config': os.path.basename(path),
-          'batch': '4 + 4 at 512², f32', 'first_step_ms': ms[0],
+    emit({'phase': name, 'config': os.path.basename(path),
+          'batch': f'{n} + {n} at 512²' + (', scaled to cover it' if cover
+                                           else '') + ', f32',
+          'first_step_ms': ms[0],
           'step_ms': ms[1:], 'step_ms_mean': float(np.mean(ms[1:])),
-          'img_per_s': 8 / (np.mean(ms[1:]) / 1e3),
+          'img_per_s': 2 * n / (np.mean(ms[1:]) / 1e3),
           'peak_mem_bytes': torch.cuda.max_memory_allocated(),
           'logs': lg, 'settings': conv_settings(), 'launches': path_counts,
           'gpu': gpu_line})
     check(all(np.isfinite(v) for v in lg.values()), f'non-finite logs {lg}')
-    check(all_zero(path_counts), f'the DeepLabV3+ step launched '
-          f'{path_counts}')
+    check(all_zero(path_counts), f'{name} launched {path_counts}')
     del state, step, batch
     torch.cuda.empty_cache()
     return path_counts
@@ -3540,11 +3665,13 @@ def phase_cnn_bases(fa, root, images, gpu_line):
     return total
 
 
-def phase_cnn_train_cli(fa, gpu_line, root, path):
-    """``tools.train`` on the DeepLabV3+ config (ResNetV1c-50 at full
+def phase_cnn_train_cli(fa, gpu_line, root, path, name='cnn_train_cli',
+                        bn_buffers=110, resume=False):
+    """``tools.train`` on the config (DeepLabV3+'s: ResNetV1c-50 at full
     depth, f32, seeded weights), 2 steps of 2 + 2 through the fixture
-    pipelines, eval and a checkpoint at 2; the checkpoint holds the
-    ResNet's BN statistics (student and teacher), and the model that
+    pipelines, eval and a checkpoint at 2 (with ``resume`` then
+    ``--auto-resume`` to 3); the checkpoint holds the backbone's
+    ``bn_buffers`` BN statistics (student and teacher), and the model that
     ``tools.test``'s loader (``init_segmentor``) builds from it holds every
     parameter and buffer of the trained student bit for bit; ``tools.test
     --out`` on ``iter_2`` gives the label maps that the in-loop eval's
@@ -3562,15 +3689,14 @@ def phase_cnn_train_cli(fa, gpu_line, root, path):
     from s4former_tpu_torch.data import build_dataset
     from s4former_tpu_torch.tools import test as test_cli
     from s4former_tpu_torch.tools import train as train_cli
-    wd = os.path.join(root, 'cnn_work')
+    wd = os.path.join(root, f'{name}_work')
+    opts = ['--cfg-options', 'evaluation.interval=2',
+            'checkpoint_config.interval=2', 'log_config.interval=1',
+            'samples_per_gpu_sup=2', 'samples_per_gpu_unsup=2']
     reset_counts(fa)                               # the main path starts
     t0 = time.perf_counter()
-    state = train_cli.main([path, '--work-dir', wd, '--max-iters', '2',
-                            '--cfg-options', 'evaluation.interval=2',
-                            'checkpoint_config.interval=2',
-                            'log_config.interval=1',
-                            'samples_per_gpu_sup=2',
-                            'samples_per_gpu_unsup=2'])
+    state = train_cli.main([path, '--work-dir', wd, '--max-iters', '2'] +
+                           opts)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     train_counts = counts(fa)
@@ -3602,21 +3728,28 @@ def phase_cnn_train_cli(fa, gpu_line, root, path):
     records = read_jsonl(os.path.join(wd, 'metrics.jsonl'))
     train = [r for r in records if r['prefix'] == 'train']
     val = {r['step']: r for r in records if r['prefix'] == 'val'}
-    out = os.path.join(root, 'cnn_test_preds.pkl')
+    out = os.path.join(root, f'{name}_test_preds.pkl')
     reset_counts(fa)
     t0 = time.perf_counter()
     results = test_cli.main([path, ckpt, '--out', out])
     test_s = time.perf_counter() - t0
-    test_counts = counts(fa)                       # the main path ends
+    test_counts = counts(fa)
+    resumed = None
+    if resume:
+        resumed = int(train_cli.main([path, '--work-dir', wd,
+                                      '--auto-resume', '--max-iters', '3'] +
+                                     opts).step)
+        test_counts = add_counts(test_counts, counts(fa))
+    log = read_logs(wd)                            # the main path ends
     with open(out, 'rb') as f:
         offline = pickle.load(f)
     maps_differ = [i for i, m in enumerate(offline)
                    if not np.array_equal(m, trained_maps.get(i))]
     classes = sorted({int(c) for m in offline for c in np.unique(m)})
     gap = abs(results['mIoU'] - val[2]['mIoU']) if 2 in val else None
-    emit({'phase': 'cnn_train_cli', 'config': os.path.basename(path),
-          'batch': '2 + 2 at 512², f32 ResNetV1c-50',
-          'steps': steps, 'losses': {r['step']: r['loss'] for r in train},
+    emit({'phase': name, 'config': os.path.basename(path),
+          'batch': '2 + 2 at 512², f32', 'steps': steps,
+          'resumed_to': resumed, 'losses': {r['step']: r['loss'] for r in train},
           'step_ms_windows': [r['step_ms'] for r in train],
           'data_wait_ms_windows': [r['data_wait_ms'] for r in train],
           'eval_s': val.get(2, {}).get('eval_s'),
@@ -3635,8 +3768,7 @@ def phase_cnn_train_cli(fa, gpu_line, root, path):
     check([r['step'] for r in train] == [1, 2] and sorted(val) == [2],
           f'logged steps {[(r["prefix"], r["step"]) for r in records]}')
     check(all(np.isfinite(r['loss']) for r in train), f'losses {train}')
-    # ResNet-50 V1c: the stem's 3 BNs, 16 blocks x 3, 4 shortcuts; 2 each
-    check(bn == {'model': 110, 'ema_model': 110},
+    check(bn == {'model': bn_buffers, 'ema_model': bn_buffers},
           f'the checkpoint holds {bn} backbone BN statistics')
     check(not differ, f'the checkpoint loads {len(differ)} of {n_tensors} '
           f'tensors other than trained: {differ[:5]}')
@@ -3644,7 +3776,10 @@ def phase_cnn_train_cli(fa, gpu_line, root, path):
           not maps_differ, f'tools.test label maps {maps_differ} differ '
           f'from the trained student\'s ({len(offline)} maps)')
     check(all_zero(train_counts) and all_zero(test_counts),
-          f'the CNN CLI launched {train_counts}, {test_counts}')
+          f'{name} launched {train_counts}, {test_counts}')
+    check(not resume or (resumed == 3 and
+                         f'resumed from {ckpt} (iter 2)' in log),
+          f'{name}: resumed to {resumed}')
     check(gap is not None and gap <= TOL_MIOU, f'offline mIoU '
           f'{results["mIoU"]} vs in-loop {val.get(2, {}).get("mIoU")}: '
           f'{gap} > {TOL_MIOU}')
@@ -3655,9 +3790,11 @@ def phase_cnn_train_cli(fa, gpu_line, root, path):
 def run_cnn(fa, images, gpu_line, root):
     """The CNN slice: DeepLabV3+ on ResNetV1c-50-D8 through serving (f32
     against the CPU, the 16 fixture JPEGs), training (f32 against the CPU,
-    the 4 + 4 step, the CLI and tools.test), and PSPNet, FPN, CCNet and
-    ICNet each serving and taking a step; prints 'cnn_seconds'. Returns the
-    launch counts by path (all zero: no kernel runs on a CNN)."""
+    the 4 + 4 step, the CLI and tools.test), PSPNet, FPN, CCNet and ICNet
+    each serving and taking a step, and DeepLabV3+ on ResNeXt-50 (32x4d)
+    and on ResNeSt-50 serving one request in f32 against the CPU; prints
+    'cnn_seconds'. Returns the launch counts by path (all zero: no kernel
+    runs on a CNN)."""
     import torch
     torch.cuda.empty_cache()
     paths, seconds = {}, {}
@@ -3677,12 +3814,97 @@ def run_cnn(fa, images, gpu_line, root):
                                                   gpu_line)),
             ('cnn_bases', lambda: phase_cnn_bases(fa, root, images,
                                                   gpu_line)),
+            # ResNeXt-50 and ResNeSt-50 in DeepLabV3+'s place
+            ('resnext_serve_f32', lambda: phase_cnn_serve_f32(
+                fa, cnn_config(root, 'deeplabv3plus', 'resnext'), images[0],
+                'resnext_serve_f32_vs_cpu')),
+            ('resnest_serve_f32', lambda: phase_cnn_serve_f32(
+                fa, cnn_config(root, 'deeplabv3plus', 'resnest'), images[0],
+                'resnest_serve_f32_vs_cpu')),
             ('cnn_train_cli', lambda: phase_cnn_train_cli(fa, gpu_line, root,
                                                           path))):
         t0 = time.perf_counter()
         paths[name] = run()
         seconds[name] = time.perf_counter() - t0
     emit({'phase': 'cnn_seconds', **seconds, 'total': sum(seconds.values())})
+    return paths
+
+
+# ------------------------------------------------ Swin and HRNet (OCRNet)
+# the Swin/HRNet slice's models in the fixture config (``cnn_config``):
+# UPerNet on Swin-T and the OCRNet cascade on HRNet-W18
+SWIN_HRNET = ('upernet_swin', 'ocrnet')
+
+
+def run_swin_hrnet(fa, images, gpu_line, root):
+    """UPerNet-Swin-T and OCRNet-HRNet-18 at full width and depth, f32,
+    TF32 off, every S4Former flag (``cnn_config``: 21 classes, the mixes'
+    ``patchsize`` 16 and 4): each serving a 500x375 request against the
+    CPU (probabilities within TOL_MAIN_F32; OCRNet's BN statistics first
+    set from the request, ``calibrate_bn``: with the seeded ones, mean 0
+    and variance 1, HRNet's eval-mode features grow to ~7e3 and its logits
+    to ~1.1e3, the softmax saturates, and pixels whose two largest logits
+    lie within f32 rounding of each other flip between the devices: 10 of
+    262144 on an H100, a probability error of 0.98), 8 requests
+    (the mean ms), the
+    2 + 2 step from one batch (the first and 2 timed; img/s, peak memory;
+    the fixture images scaled to cover 512², as no zero padding: with the
+    seeded zero biases a zero-padded image patch is an exact zero token,
+    whose LayerNorms have no variance, and on the CPU the first step at
+    512² then moves Swin's patch-embedding bias by 5.0e23, the second is
+    NaN),
+    and one step at 1 + 1, 256², against the CPU's and the witness's
+    (``f32_step_vs_witness``; OCRNet's BN statistics set from the batch
+    first, as for its request: with the seeded ones its eval-mode teacher
+    is certain of every pixel, so no threshold leaves any unconfident and
+    the unsup losses are dead); then ``tools.train`` on OCRNet (2 steps,
+    eval, checkpoint, ``--auto-resume`` to 3) and ``tools.test``, the
+    checkpoint's tensors and label maps bit for bit the trained
+    student's. None launches a kernel (Swin's 32-wide heads run plain, as
+    JAX's). Prints 'swin_hrnet_seconds'. Returns the counts by path."""
+    import torch
+    paths, seconds = {}, {}
+
+    def serve(which, path):
+        path_counts, seg = phase_cnn_serve(fa, path, images[:8], gpu_line,
+                                           f'{which}_serve')
+        del seg
+        torch.cuda.empty_cache()
+        return path_counts
+
+    def train_f32(which, path):
+        r, launches = f32_step_vs_witness(
+            fa, cnn_f32_cfg(path),
+            cnn_f32_batch(images, CNN_WITNESS_SIZE, PATCHSIZE[which]),
+            calibrate=which == 'ocrnet')
+        emit({'phase': f'{which}_train_f32_vs_cpu',
+              'config': os.path.basename(path), **r,
+              'tol': TOL_TRAIN_F32, 'settings': conv_settings(),
+              'launches': launches[0]})
+        check_witness(which, r, launches)
+        return launches[0]
+    for which in SWIN_HRNET:
+        path = cnn_config(root, which)
+        for name, run in (
+                ('serve_f32', lambda: phase_cnn_serve_f32(
+                    fa, path, images[0], f'{which}_serve_f32_vs_cpu',
+                    calibrate=which == 'ocrnet')),
+                ('serve', lambda: serve(which, path)),
+                ('train', lambda: phase_cnn_train(
+                    fa, path, images, gpu_line, n=2, timed=2,
+                    name=f'{which}_train', cover=True)),
+                ('train_f32', lambda: train_f32(which, path))):
+            t0 = time.perf_counter()
+            paths[f'{which}_{name}'] = run()
+            seconds[f'{which}_{name}'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # HRNet-W18: 305 BNs
+    paths['ocrnet_train_cli'] = phase_cnn_train_cli(
+        fa, gpu_line, root, cnn_config(root, 'ocrnet'), 'ocrnet_train_cli',
+        bn_buffers=610, resume=True)
+    seconds['ocrnet_train_cli'] = time.perf_counter() - t0
+    emit({'phase': 'swin_hrnet_seconds', **seconds,
+          'total': sum(seconds.values())})
     return paths
 
 
@@ -3709,8 +3931,8 @@ ABLATION_RATES = dict(drop_rate=0.1, drop_path_rate=0.1, attn_drop_rate=0.1)
 ABLATION_DROPOUT_RATIO = 0.1
 ABLATION_LAYER_DECAY = dict(num_layers=12, decay_rate=0.65)
 # ablation_train_bf16's depth: the flags' passes and launches at the
-# flagship's width, the 12 layers cut to 6
-ABLATION_BF16_LAYERS = 6
+# flagship's width, the 12 layers cut to 4 (one tap a layer)
+ABLATION_BF16_LAYERS = 4
 # ablation_f32_vs_cpu: every group of the ablation tests whose draws
 # chip_smoke can hand both devices (fdrop's masks are drawn in the model;
 # 'sup_only' and sup_ClassMix exclude 'both' and sup_cutmix)
@@ -3877,7 +4099,7 @@ def phase_ablation_train_bf16(fa, images, gpu_line):
     """``..._MT_w_ours.py`` in bf16 at full width, depth cut to
     ABLATION_BF16_LAYERS, 4 + 4 fixture images at 512² from one batch, once
     for each of ABLATION_SETS ((c) with its rates, head dropout, sigmoid
-    aux CE and layer decay over those layers): the first step, 3
+    aux CE and layer decay over those layers): the first step, 2
     timed (mean, p50), 1 profiled; the flash launches of every step checked
     against the flags' predicted passes; peak memory; finite losses.
     Returns the launch counts of the three sets summed."""
@@ -3901,7 +4123,7 @@ def phase_ablation_train_bf16(fa, images, gpu_line):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts(fa)                           # the main path starts
-        state, logs, ms = timed_steps(state, step, batch, gen, 4)
+        state, logs, ms = timed_steps(state, step, batch, gen, 3)
         (state, logs), prof = device_profile(
             lambda: step(state, batch, gen), 12)
         path_counts = counts(fa)                   # the main path ends
@@ -3925,8 +4147,8 @@ def phase_ablation_train_bf16(fa, images, gpu_line):
               'launches_per_step_predicted': expect, 'gpu': gpu_line})
         check(all(np.isfinite(v) for v in lg.values()),
               f'{name}: non-finite logs {lg}')
-        check(path_counts == {k: 5 * v for k, v in expect.items()},
-              f'{name}: 5 steps launched {path_counts}, not {expect} a step')
+        check(path_counts == {k: 4 * v for k, v in expect.items()},
+              f'{name}: 4 steps launched {path_counts}, not {expect} a step')
         total = path_counts if total is None else add_counts(total,
                                                              path_counts)
         del state, step
@@ -4090,8 +4312,8 @@ REMAT = {'off': dict(remat_layers=False),
 # loss and to the largest update. Two runs without remat are compared too.
 TOL_REMAT_BF16 = 2e-2
 # remat_train_bf16's depth: remat off, 'dots' and 'full' compared at the
-# same depth, the flagship's 12 layers cut to 6
-REMAT_LAYERS = 6
+# same depth, the flagship's 12 layers cut to 4 (one tap a layer)
+REMAT_LAYERS = 4
 
 
 def unimatch_batch(images, n_sup, n_unsup, size=512):
@@ -4278,7 +4500,7 @@ def remat_config(name, remat, num_layers=None):
 def phase_unimatch_train_bf16(fa, images, gpu_line):
     """UniMatch on ``..._MT_w_ours.py`` in bf16 at full depth, 8 + 8 at
     512² (bench.py's batch) from one fixed batch with its mix stream, the
-    streams PatchShuffled: the first step, 3 timed (mean, p50), 1 profiled;
+    streams PatchShuffled: the first step, 2 timed (mean, p50), 1 profiled;
     every step's launches against predicted_launches (72 + 48); peak
     memory. Returns the launch counts."""
     import dataclasses
@@ -4298,7 +4520,7 @@ def phase_unimatch_train_bf16(fa, images, gpu_line):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(fa)                               # the main path starts
-    state, logs, ms = timed_steps(state, step, batch, gen, 4)
+    state, logs, ms = timed_steps(state, step, batch, gen, 3)
     (state, logs), prof = device_profile(lambda: step(state, batch, gen), 14)
     path_counts = counts(fa)                       # the main path ends
     peak = torch.cuda.max_memory_allocated()
@@ -4316,8 +4538,8 @@ def phase_unimatch_train_bf16(fa, images, gpu_line):
     check(all(np.isfinite(v) for v in lg.values()), f'non-finite logs {lg}')
     check({'unsup.loss_seg_unsup_attn_mask', 'unsup.loss_seg_unsup_1',
            'unsup.loss_seg_unsup_2'} <= set(lg), f'UniMatch logs {sorted(lg)}')
-    check(path_counts == {k: 5 * v for k, v in expect.items()},
-          f'5 UniMatch steps launched {path_counts}, not {expect} a step')
+    check(path_counts == {k: 4 * v for k, v in expect.items()},
+          f'4 UniMatch steps launched {path_counts}, not {expect} a step')
     del state, step, batch
     torch.cuda.empty_cache()
     return path_counts
@@ -4328,7 +4550,7 @@ def phase_remat_train_bf16(fa, images, gpu_line):
     step (bf16, DeiT-B width, depth cut to REMAT_LAYERS, one fixed batch),
     each with remat off, 'dots' and 'full': the first step's losses and
     parameter updates against remat off's (and a second run without
-    remat) within TOL_REMAT_BF16; then 3 steps timed and 1 profiled, with
+    remat) within TOL_REMAT_BF16; then 2 steps timed and 1 profiled, with
     peak memory; launches against predicted_launches with remat (5 + 2 and
     10 + 4 a layer). Returns the counts summed."""
     import dataclasses
@@ -4365,7 +4587,7 @@ def phase_remat_train_bf16(fa, images, gpu_line):
                       f'launched {path_counts}, not {expect}')
                 break
             torch.cuda.reset_peak_memory_stats()
-            state, _, timed = timed_steps(state, step, batch, gen, 3)
+            state, _, timed = timed_steps(state, step, batch, gen, 2)
             (state, _), prof = device_profile(
                 lambda: step(state, batch, gen), 6)
             path_counts = counts(fa)               # the main path ends
@@ -4392,8 +4614,8 @@ def phase_remat_train_bf16(fa, images, gpu_line):
                   'launches_per_step_predicted': expect, 'gpu': gpu_line})
             check(all(np.isfinite(v) for v in lg.values()),
                   f'{regime} {remat}: non-finite logs {lg}')
-            check(path_counts == {k: 5 * v for k, v in expect.items()},
-                  f'{regime} {remat}: 5 steps launched {path_counts}, not '
+            check(path_counts == {k: 4 * v for k, v in expect.items()},
+                  f'{regime} {remat}: 4 steps launched {path_counts}, not '
                   f'{expect} a step')
             check(max(loss_err.values()) <= TOL_REMAT_BF16,
                   f'{regime} {remat}: losses vs remat off {loss_err}')
@@ -4584,6 +4806,8 @@ def run_unimatch(fa, images, gpu_line, root):
 TOL_DP_F32 = 1e-3
 DP_ULPS = 2
 DP_RANKS = 2
+# dp_train_bf16's timed steps a rank (after one warm-up)
+DP_TIMED = 3
 
 
 def dp_global_batches(images, n, steps):
@@ -4717,7 +4941,7 @@ def dp_rank_step_f32(fa, spec, device):
 
 def dp_rank_train_bf16(fa, spec, device):
     """One rank of dp_train_bf16: the flagship as written, this rank's
-    4 + 4 of the global batch; 2 warm-up steps, 5 timed. The gradient
+    4 + 4 of the global batch; a warm-up step, DP_TIMED timed. The gradient
     all-reduce is timed inside each step (synchronised before and after,
     so it includes waiting for the other rank) and alone after a barrier
     on a bucket of the same size."""
@@ -4731,7 +4955,7 @@ def dp_rank_train_bf16(fa, spec, device):
     state = mesh.replicate_state(state)
     batch = mesh.shard_batch(load_batch(spec['batches'][0], device))
     gen = torch.Generator(device=device).manual_seed(0)
-    state, _, warm_ms = timed_steps(state, step, batch, gen, 2)
+    state, _, warm_ms = timed_steps(state, step, batch, gen, 1)
     reduce_ms = []
 
     def timed_reduce(grads, *args):
@@ -4744,7 +4968,7 @@ def dp_rank_train_bf16(fa, spec, device):
     ts.all_reduce_grads = timed_reduce
     torch.cuda.reset_peak_memory_stats(device)
     reset_counts(fa)                               # the main path starts
-    state, logs, ms = timed_steps(state, step, batch, gen, 5)
+    state, logs, ms = timed_steps(state, step, batch, gen, DP_TIMED)
     launches = counts(fa)                          # the main path ends
     ts.all_reduce_grads = mesh.all_reduce_grads
     peak = torch.cuda.max_memory_allocated(device)
@@ -5533,12 +5757,12 @@ def phase_dp_train_bf16(fa, images, gpu_line, root, n, on_one_card):
           'gpu': gpu_line})
     for r in ranks:
         check(r['same'], 'the ranks\' states differ')
-        check(r['launches'] == {'flash_attn_fwd': 36 * 5,
-                                'flash_attn_bwd_fused': 24 * 5,
+        check(r['launches'] == {'flash_attn_fwd': 36 * DP_TIMED,
+                                'flash_attn_bwd_fused': 24 * DP_TIMED,
                                 'flash_attn_bwd_dkv': 0,
                                 'flash_attn_bwd_dq': 0},
-              f'a rank launched {r["launches"]} in 5 steps, not 36 forward '
-              f'and 24 fused a step')
+              f'a rank launched {r["launches"]} in {DP_TIMED} steps, not 36 '
+              f'forward and 24 fused a step')
         check(all(np.isfinite(v) for v in ranks[0]['logs'].values()),
               f'non-finite logs {ranks[0]["logs"]}')
     return sum_counts(ranks)
@@ -5631,11 +5855,11 @@ def phase_dp_train_cli(fa, gpu_line, root):
 
 
 # tp_train_bf16's timed steps, after one warm-up step, in one process and
-# on each grid's ranks; its depth (the flagship's 12 layers cut to 6, the
-# taps the first 6: over gloo on one card these steps show equality,
-# memory and launches, not speed)
+# on each grid's ranks; its depth and tp_train_cli's (the 12 layers cut to
+# 4, one tap a layer: over gloo on one card these runs show equality,
+# layout, memory and launches, not speed)
 TP_TIMED = 2
-TP_LAYERS = 6
+TP_LAYERS = 4
 
 
 def one_process_4x4(fa, images):
@@ -5724,10 +5948,12 @@ def phase_tp_train_cli(fa, gpu_line, root):
     """``torch.distributed.run --nproc_per_node 4`` of ``tools.train
     --launcher env --model-parallel 2 --zero3`` (data 2 x model 2; NCCL one
     rank a card with 4 cards, else gloo with every rank on cuda:0) on
-    ``setr_fixture_voc_mini_fullflag.py``, 1 + 1 a rank (the global 4 + 4
-    of one process, 2 + 2 a data index): 2 steps with eval and a checkpoint
-    at 2, then ``--auto-resume`` to 3; the checkpoint has train_cli's
-    names, shapes and dtypes; ``tools.test`` (one process) on ``iter_2``
+    ``setr_fixture_voc_mini_fullflag.py`` with its depth cut to
+    TP_LAYERS, 1 + 1 a rank (the global 4 + 4 of one process, 2 + 2 a
+    data index): 2 steps with eval and a checkpoint at 2, then
+    ``--auto-resume`` to 3; the checkpoint has train_cli's names, shapes
+    and dtypes, less its deeper layers; ``tools.test`` (one process) on
+    ``iter_2``
     gives the in-loop mIoU within TOL_MIOU. Under ZeRO-3 every rank runs
     every eval forward. Returns the launches of every rank and run, and
     the test's, summed."""
@@ -5738,10 +5964,13 @@ def phase_tp_train_cli(fa, gpu_line, root):
     grid = ['--model-parallel', '2', '--zero3'] + (
         [] if nccl else ['--backend', 'gloo', '--device', 'cuda:0'])
     wd = os.path.join(root, 'tp_work')
+    depth = [f'model.backbone.num_layers={TP_LAYERS}',
+             f'model.backbone.out_indices={tuple(range(TP_LAYERS))}'
+             .replace(' ', '')]
     opts = ['--cfg-options', 'evaluation.interval=2',
             'checkpoint_config.interval=2', 'log_config.interval=1',
-            'samples_per_gpu_sup=1', 'samples_per_gpu_unsup=1']
-    per_eval = 12 * -(-16 // 4)
+            'samples_per_gpu_sup=1', 'samples_per_gpu_unsup=1'] + depth
+    per_eval = TP_LAYERS * -(-16 // 4)
     runs = {}
     plan = (('train', ['--max-iters', '2'], 2, 1),
             ('resume', ['--auto-resume', '--max-iters', '3'], 1, 0))
@@ -5752,8 +5981,9 @@ def phase_tp_train_cli(fa, gpu_line, root):
     for (name, argv, steps, evals), ranks in zip(plan, results):
         runs[name] = (ranks, max(r['seconds'] for r in ranks))
         for r in ranks:
-            want = {'flash_attn_fwd': 36 * steps + per_eval * evals,
-                    'flash_attn_bwd_fused': 24 * steps,
+            want = {'flash_attn_fwd': 3 * TP_LAYERS * steps +
+                    per_eval * evals,
+                    'flash_attn_bwd_fused': 2 * TP_LAYERS * steps,
                     'flash_attn_bwd_dkv': 0, 'flash_attn_bwd_dq': 0}
             check(r['launches'] == want, f'tp_train_cli {name}: a rank '
                   f'launched {r["launches"]}, not {want}')
@@ -5763,8 +5993,12 @@ def phase_tp_train_cli(fa, gpu_line, root):
                  f'resumed from {os.path.join(wd, "iter_2")} (iter 2)'):
         check(line in text, f'tp_train_cli: no "{line}" in the log')
     layout = checkpoint_layout(os.path.join(wd, 'iter_2'))
-    check(layout == CHECKPOINT_LAYOUT, 'the sharded checkpoint differs from '
-          'train_cli\'s in names, shapes or dtypes')
+    kept = {key: {n: v for n, v in part.items()
+                  if int((re.match(r'backbone\.layers\.(\d+)\.', n) or
+                          [0, 0])[1]) < TP_LAYERS}
+            for key, part in CHECKPOINT_LAYOUT.items()}
+    check(layout == kept, 'the sharded checkpoint differs from train_cli\'s '
+          f'first {TP_LAYERS} layers in names, shapes or dtypes')
     records = read_jsonl(os.path.join(wd, 'metrics.jsonl'))
     val = {r['step']: r for r in records if r['prefix'] == 'val'}
     losses = {r['step']: r['loss'] for r in records
@@ -5773,14 +6007,16 @@ def phase_tp_train_cli(fa, gpu_line, root):
                                      losses.values()),
           f'tp_train_cli records {records}')
     reset_counts(fa)
-    results = test_cli.main([FULLFLAG, os.path.join(wd, 'iter_2')])
+    results = test_cli.main([FULLFLAG, os.path.join(wd, 'iter_2'),
+                             '--cfg-options'] + depth)
     test_counts = counts(fa)
     gap = abs(results['mIoU'] - val[2]['mIoU'])
     emit({'phase': 'tp_train_cli', 'config': os.path.basename(FULLFLAG),
           'ranks': n, 'grid': 'data 2 x model 2, zero3',
           'backend': 'nccl, one rank a card' if nccl else
           'gloo, every rank on cuda:0',
-          'batch': '1 + 1 a rank, 4 + 4 global at 512², bf16, 12 layers',
+          'batch': f'1 + 1 a rank, 4 + 4 global at 512², bf16, '
+                   f'{TP_LAYERS} layers',
           'losses': losses, 'in_loop_miou_iter_2': val[2]['mIoU'],
           'eval_s': val[2]['eval_s'], 'test_miou': results['mIoU'],
           'miou_gap': gap, 'tol': TOL_MIOU,
@@ -6044,7 +6280,7 @@ def main() -> int:
         paths['train_bf16_4x4'], no_loader = phase_train_one_step(
             fa, images, 'train_bf16_4x4', 'ours', 4, 4,
             {'flash_attn_fwd': 36, 'flash_attn_bwd_fused': 24,
-             'flash_attn_bwd_dkv': 0, 'flash_attn_bwd_dq': 0}, timed=5,
+             'flash_attn_bwd_dkv': 0, 'flash_attn_bwd_dq': 0}, timed=3,
             trace_dir=os.path.join(root, 'trace_4x4'))
         deit, n_backbone = write_deit_files(root)
         wd = os.path.join(root, 'work')
@@ -6072,7 +6308,7 @@ def main() -> int:
         for name, run in (
                 ('mit_serve_f32', lambda: phase_mit_serve_f32(fa, frames[0])),
                 ('mit_serve_bf16',
-                 lambda: phase_mit_serve_bf16(fa, frames, gpu_line)),
+                 lambda: phase_mit_serve_bf16(fa, frames[:4], gpu_line)),
                 ('mit_train_f32', lambda: phase_mit_train_f32_vs_cpu(fa)),
                 ('mit_train_bf16',
                  lambda: phase_mit_train_bf16(fa, gpu_line, *mit_batch)),
@@ -6094,6 +6330,8 @@ def main() -> int:
         paths.update(run_zoo(fa, images, gpu_line, root))
         # the CNN slice: DeepLabV3+ and the other ResNet bases (no kernel)
         paths.update(run_cnn(fa, images, gpu_line, root))
+        # UPerNet-Swin-T and OCRNet-HRNet-18 (no kernel)
+        paths.update(run_swin_hrnet(fa, images, gpu_line, root))
         # the ablation slice: the rest of the step's flags
         paths.update(run_ablation(fa, images, gpu_line, root))
         # the UniMatch slice and the ViT's remat

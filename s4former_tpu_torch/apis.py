@@ -89,11 +89,13 @@ def init_segmentor(config, checkpoint: Optional[str] = None,
                                                     overlay_state_dict)
     from s4former_tpu_torch.models import (build_segmentor,
                                            init_segmentor_weights)
+    from s4former_tpu_torch.models.init_utils import skip_default_init
     from s4former_tpu_torch.utils.logger import get_root_logger
 
     if isinstance(config, str):
         config = Config.fromfile(config)
-    model = build_segmentor(config.model)
+    with skip_default_init():
+        model = build_segmentor(config.model)
     init_segmentor_weights(model, torch.Generator().manual_seed(seed))
     if checkpoint and osp.isdir(checkpoint):
         model.load_state_dict(load_model_state_dict(checkpoint))
@@ -189,9 +191,18 @@ def inference_with_teacher_pasa(segmentor: Segmentor, img,
         if model.neck is not None:
             feats = functional_call(model.neck, _strip(teacher, 'neck.'),
                                     (feats,), strict=True)
-        t_logits = functional_call(
-            model.decode_head, _strip(teacher, 'decode_head.'), (feats,),
-            strict=True)
+        if isinstance(model.decode_head, torch.nn.ModuleList):
+            # a cascade: each stage on the features and the last's logits
+            t_logits = None
+            for i, head in enumerate(model.decode_head):
+                t_logits = functional_call(
+                    head, _strip(teacher, f'decode_head.{i}.'),
+                    (feats if i == 0 else list(feats) + [t_logits],),
+                    strict=True)
+        else:
+            t_logits = functional_call(
+                model.decode_head, _strip(teacher, 'decode_head.'),
+                (feats,), strict=True)
         max_prob = torch.softmax(t_logits.float(), dim=-1).amax(dim=-1)
         bsz, hh, ww = max_prob.shape
         # pool the confidence map to the backbone token grid

@@ -19,9 +19,14 @@ The port's modules carry the reference (mmseg) parameter names, so its
   reference keys are ``.1``/``.2``, from V1c's, and no config uses V1d), ICNet
   (l.1412), the PSP (l.998), DeepLabV3+ (``convert_aspp_head``, l.1074),
   FPN (l.1787) and CC (l.1591) heads and the FPN (l.1772) and IC (l.1756)
-  necks. The aux heads that JAX builds one by one in ``aux_logits``
-  (identical heads on levels of different shapes, ICNet's) arrive as
-  ``{Type}_{j}`` and land at ``auxiliary_head.{j}.``.
+  necks; and for the Swin/HRNet slice: ResNeXt (ResNet's keys), ResNeSt
+  (l.560), Swin (l.364; PatchMerging's 4C axis back to mmseg's
+  channel-major order, and a shrunk window's table at the centre of the
+  window's), HRNet (l.694), the UPer (l.1019) and OCR (l.2225) heads and a
+  cascade's stages (``cascade_heads_{i}`` -> ``decode_head.{i}.``). The
+  aux heads that JAX builds one by one in ``aux_logits`` (identical heads
+  on levels of different shapes, ICNet's) arrive as ``{Type}_{j}`` and
+  land at ``auxiliary_head.{j}.``.
 - ``load_reference_state_dict(path)``: an mmseg/S4Former ``.pth``, or a
   backbone-only DeiT file with bare OpenMMLab or timm keys
   (``normalize_backbone_keys``, applied to ViT-layout backbones only: a MiT
@@ -162,20 +167,186 @@ def _resnet(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
                                 prefix + 'conv1', prefix + 'bn1'))
     for name, blk in p.items():
         m = re.fullmatch(r'layer(\d+)_(\d+)', name)
+        if m is not None:
+            sd.update(_block(blk, bs.get(name, {}),
+                             f'{prefix}layer{m.group(1)}.{m.group(2)}.'))
+    return sd
+
+
+def _block(blk: Mapping, stats: Mapping, pre: str) -> StateDict:
+    """A JAX ResNet block (``conv{c}`` ConvBNs, ``downsample``) -> the
+    reference's ``conv{c}``/``bn{c}`` and ``downsample.0``/``.1``."""
+    sd: StateDict = {}
+    for c in (1, 2, 3):
+        if f'conv{c}' in blk:
+            sd.update(_conv_bn_pair(blk[f'conv{c}'], stats.get(f'conv{c}', {}),
+                                    f'{pre}conv{c}', f'{pre}bn{c}'))
+    if 'downsample' in blk:
+        sd.update(_conv_bn_pair(blk['downsample'], stats.get('downsample', {}),
+                                f'{pre}downsample.0', f'{pre}downsample.1'))
+    return sd
+
+
+def _norm(p: Mapping, key: str, stats: Optional[Mapping] = None
+          ) -> StateDict:
+    """A flax LayerNorm or bare BatchNorm (scale, bias; a BN's statistics,
+    if any) -> ``weight``, ``bias`` (``running_mean``, ``running_var``)."""
+    sd = {key + '.weight': _t(p['scale']), key + '.bias': _t(p['bias'])}
+    if stats:
+        sd[key + '.running_mean'] = _t(stats['mean'])
+        sd[key + '.running_var'] = _t(stats['var'])
+    return sd
+
+
+def _resnest(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
+    """JAX cnn_zoo.ResNeSt -> the mmseg layout (the inverse of JAX
+    ``convert_resnest_backbone``, l.560): ResNet's stem and ``conv1``/
+    ``conv3``; the split attention's ``conv2`` kernel, ``bn0``, ``fc1``,
+    ``bn1``, ``fc2`` under ``conv2.``; the V1d shortcut at
+    ``downsample.1``/``.2``."""
+    sd = _resnet({k: v for k, v in p.items() if k.startswith('stem')}, bs,
+                 prefix)
+    for name, blk in p.items():
+        m = re.fullmatch(r'layer(\d+)_(\d+)', name)
         if m is None:
             continue
         pre = f'{prefix}layer{m.group(1)}.{m.group(2)}.'
         stats = bs.get(name, {})
-        for c in (1, 2, 3):
-            if f'conv{c}' in blk:
-                sd.update(_conv_bn_pair(blk[f'conv{c}'],
-                                        stats.get(f'conv{c}', {}),
-                                        f'{pre}conv{c}', f'{pre}bn{c}'))
+        for c in (1, 3):
+            sd.update(_conv_bn_pair(blk[f'conv{c}'], stats.get(f'conv{c}', {}),
+                                    f'{pre}conv{c}', f'{pre}bn{c}'))
+        sd[pre + 'conv2.conv.weight'] = _conv(blk['conv2']['kernel'])
+        for b in ('bn0', 'bn1'):
+            sd.update(_norm(blk[b], f'{pre}conv2.{b}', stats.get(b)))
+        for fc in ('fc1', 'fc2'):
+            sd[f'{pre}conv2.{fc}.weight'] = _conv(blk[fc]['kernel'])
+            sd[f'{pre}conv2.{fc}.bias'] = _t(blk[fc]['bias'])
         if 'downsample' in blk:
             sd.update(_conv_bn_pair(blk['downsample'],
                                     stats.get('downsample', {}),
-                                    f'{pre}downsample.0',
-                                    f'{pre}downsample.1'))
+                                    f'{pre}downsample.1',
+                                    f'{pre}downsample.2'))
+    return sd
+
+
+def _dense(p: Mapping, key: str) -> StateDict:
+    """A flax Dense (kernel [in, out], bias if any) -> a torch Linear."""
+    sd = {key + '.weight': _t(np.asarray(p['kernel']).T)}
+    if 'bias' in p:
+        sd[key + '.bias'] = _t(p['bias'])
+    return sd
+
+
+def _rpb_tables(p: Mapping) -> Dict[str, np.ndarray]:
+    """Each Swin block's relative-position table in the window's layout:
+    JAX sizes a block's table by the window it ran at, smaller than the
+    configured one where the grid was (``min(window_size, h, w)``); the
+    largest table names the configured window, and a smaller one fills
+    its central offsets (the port's ``WindowAttention`` reads those)."""
+    tables = {k: np.asarray(v['attn']['relative_position_bias_table'])
+              for k, v in p.items() if k.startswith('stage_')}
+    if not tables:
+        return {}
+    span = int(round(max(t.shape[0] for t in tables.values()) ** 0.5))
+    out = {}
+    for k, t in tables.items():
+        n = int(round(t.shape[0] ** 0.5))
+        full = np.zeros((span, span, t.shape[1]), t.dtype)
+        o = (span - n) // 2
+        full[o:o + n, o:o + n] = t.reshape(n, n, -1)
+        out[k] = full.reshape(span * span, -1)
+    return out
+
+
+def _swin(p: Mapping, prefix: str) -> StateDict:
+    """JAX SwinTransformer -> the mmseg layout (the inverse of JAX
+    ``convert_swin_backbone``, l.364): PatchMerging's 4C axis back to
+    ``nn.Unfold``'s channel-major order."""
+    sd: StateDict = {}
+    if 'patch_embed' in p:
+        sd[prefix + 'patch_embed.projection.weight'] = _conv(
+            p['patch_embed']['kernel'])
+        sd[prefix + 'patch_embed.projection.bias'] = _t(
+            p['patch_embed']['bias'])
+    if 'patch_norm' in p:
+        sd.update(_norm(p['patch_norm'], prefix + 'patch_embed.norm'))
+    tables = _rpb_tables(p)
+    for name, blk in p.items():
+        m = re.fullmatch(r'stage_(\d+)_block_(\d+)', name)
+        if m is not None:
+            pre = f'{prefix}stages.{m.group(1)}.blocks.{m.group(2)}.'
+            sd.update(_norm(blk['norm1'], pre + 'norm1'))
+            sd.update(_norm(blk['norm2'], pre + 'norm2'))
+            sd.update(_dense(blk['attn']['qkv'], pre + 'attn.w_msa.qkv'))
+            sd.update(_dense(blk['attn']['proj'], pre + 'attn.w_msa.proj'))
+            sd[pre + 'attn.w_msa.relative_position_bias_table'] = _t(
+                tables[name])
+            sd.update(_dense(blk['fc1'], pre + 'ffn.layers.0.0'))
+            sd.update(_dense(blk['fc2'], pre + 'ffn.layers.1'))
+            continue
+        m = re.fullmatch(r'(merge_norm|merge|out_norm)_(\d+)', name)
+        if m is None:
+            continue
+        kind, stage = m.groups()
+        if kind == 'out_norm':
+            sd.update(_norm(blk, f'{prefix}norm{stage}'))
+            continue
+        # JAX index j = pos * C + c holds the reference's c * 4 + pos
+        c4 = np.asarray(blk['kernel' if kind == 'merge' else 'scale']
+                        ).shape[0]
+        c = c4 // 4
+        perm = np.asarray([(j % c) * 4 + j // c for j in range(c4)])
+        pre = f'{prefix}stages.{stage}.downsample.'
+        if kind == 'merge':
+            kernel = np.asarray(blk['kernel'])             # [4C, 2C]
+            red = np.empty((kernel.shape[1], c4), kernel.dtype)
+            red[:, perm] = kernel.T
+            sd[pre + 'reduction.weight'] = _t(red)
+        else:
+            for leaf, ref in (('scale', 'weight'), ('bias', 'bias')):
+                v = np.asarray(blk[leaf])
+                out = np.empty_like(v)
+                out[perm] = v
+                sd[f'{pre}norm.{ref}'] = _t(out)
+    return sd
+
+
+def _hrnet(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
+    """JAX HRNet -> the mmseg layout (the inverse of JAX
+    ``convert_hrnet_backbone``, l.694): ``layer1_{k}`` and
+    ``stage{s}_m{m}_br{b}_b{k}`` blocks as ResNet's; ``transition{t}_{i}
+    [_{j}]`` and ``stage{s}_m{m}_fuse_{i}_{j}[_{k}]`` ConvBNs at the
+    reference's ``Sequential`` indices (``.0`` conv, ``.1`` BN)."""
+    sd: StateDict = {}
+    for n in (1, 2):
+        sd.update(_conv_bn_pair(p[f'conv{n}'], bs.get(f'conv{n}', {}),
+                                f'{prefix}conv{n}', f'{prefix}bn{n}'))
+    blocks = {}
+    for name, c in p.items():
+        m = re.fullmatch(r'layer1_(\d+)', name)
+        if m is not None:
+            blocks[name] = f'layer1.{m.group(1)}'
+            continue
+        m = re.fullmatch(r'stage(\d)_m(\d+)_br(\d+)_b(\d+)', name)
+        if m is not None:
+            s_, mod, b, k = m.groups()
+            blocks[name] = f'stage{s_}.{mod}.branches.{b}.{k}'
+            continue
+        m = (re.fullmatch(r'transition(\d)_(\d+)((?:_\d+)?)', name) or
+             re.fullmatch(r'stage(\d)_m(\d+)_fuse_(\d+)_(\d+)((?:_\d+)?)',
+                          name))
+        if m is None:
+            continue
+        if name.startswith('transition'):
+            t, i, j = m.groups()
+            key = f'transition{t}.{i}' + j.replace('_', '.')
+        else:
+            s_, mod, i, j, k = m.groups()
+            key = f'stage{s_}.{mod}.fuse_layers.{i}.{j}' + k.replace('_', '.')
+        sd.update(_conv_bn_pair(c, bs.get(name, {}), f'{prefix}{key}.0',
+                                f'{prefix}{key}.1'))
+    for name, key in blocks.items():
+        sd.update(_block(p[name], bs.get(name, {}), f'{prefix}{key}.'))
     return sd
 
 
@@ -212,6 +383,51 @@ def _setr_up(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
         sd.update(_convbn(p[f'up_convs_{i}'], bs.get(f'up_convs_{i}', {}),
                           f'{prefix}up_convs.{i}.0.'))
         i += 1
+    sd.update(_conv_seg(p, prefix))
+    return sd
+
+
+def _convbns(p: Mapping, bs: Mapping, prefix: str,
+             names: Mapping[str, str]) -> StateDict:
+    """The ConvBNReLUs of ``names`` (JAX name -> reference key) present
+    in ``p``."""
+    sd: StateDict = {}
+    for ours, ref in names.items():
+        if ours in p:
+            sd.update(_convbn(p[ours], bs.get(ours, {}), f'{prefix}{ref}.'))
+    return sd
+
+
+def _uper(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
+    """JAX misc_heads.UPerHead -> the mmseg layout (the inverse of JAX
+    ``convert_uper_head``, l.1019)."""
+    names = {'psp_bottleneck': 'bottleneck',
+             'fpn_bottleneck': 'fpn_bottleneck'}
+    for name in p:
+        m = re.fullmatch(r'(psp|lateral|fpn)_(\d+)', name)
+        if m is not None:
+            kind, i = m.groups()
+            names[name] = {'psp': f'psp_modules.{i}.1',
+                           'lateral': f'lateral_convs.{i}',
+                           'fpn': f'fpn_convs.{i}'}[kind]
+    sd = _convbns(p, bs, prefix, names)
+    sd.update(_conv_seg(p, prefix))
+    return sd
+
+
+def _ocr(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
+    """JAX misc_heads.OCRHead -> the mmseg layout (the inverse of JAX
+    ``convert_ocr_head``, l.2225)."""
+    ocb = 'object_context_block.'
+    sd = _convbns(p, bs, prefix, {
+        'bottleneck': 'bottleneck',
+        'ocb_query_0': ocb + 'query_project.0',
+        'ocb_query_1': ocb + 'query_project.1',
+        'ocb_key_0': ocb + 'key_project.0',
+        'ocb_key_1': ocb + 'key_project.1',
+        'ocb_value': ocb + 'value_project',
+        'ocb_out': ocb + 'out_project',
+        'ocb_bottleneck': ocb + 'bottleneck'})
     sd.update(_conv_seg(p, prefix))
     return sd
 
@@ -490,8 +706,13 @@ def _backbone(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
         return _mit(p, prefix)
     if 'conv_sub1_0' in p:
         return _icnet(p, bs, prefix)
-    if 'layer1_0' in p:
-        return _resnet(p, bs, prefix)
+    if 'stage_0_block_0' in p:
+        return _swin(p, prefix)
+    if 'stage2_m0_br0_b0' in p:
+        return _hrnet(p, bs, prefix)
+    if 'layer1_0' in p:          # ResNet, ResNeXt (ResNet's keys), ResNeSt
+        return _resnest(p, bs, prefix) if 'bn0' in p['layer1_0'] else \
+            _resnet(p, bs, prefix)
     return _vit(p, prefix)
 
 
@@ -500,6 +721,10 @@ def _head(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
     ``convert_any_head`` (l.2281) tells the mmseg layouts apart."""
     if 'fusion_conv' in p:
         return _segformer(p, bs, prefix)
+    if 'ocb_query_0' in p:
+        return _ocr(p, bs, prefix)
+    if 'lateral_0' in p:
+        return _uper(p, bs, prefix)
     if 'dec_proj' in p:
         return _segmenter(p, prefix)
     if 'up_conv_0_a' in p:
@@ -536,6 +761,12 @@ def state_dict_from_jax_variables(variables: Mapping) -> StateDict:
     if 'decode_head_m' in params:
         sd.update(_head(params['decode_head_m'],
                         bs.get('decode_head_m', {}), 'decode_head.'))
+    i = 0
+    while f'cascade_heads_{i}' in params:    # CascadeEncoderDecoder
+        sd.update(_head(params[f'cascade_heads_{i}'],
+                        bs.get(f'cascade_heads_{i}', {}),
+                        f'decode_head.{i}.'))
+        i += 1
     if 'aux_heads' in params:     # the vmapped stack of identical aux heads
         stacked_p = params['aux_heads']['head']
         stacked_b = bs.get('aux_heads', {}).get('head', {})

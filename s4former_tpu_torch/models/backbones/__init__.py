@@ -3,4 +3,7 @@ from s4former_tpu_torch.models.backbones.vit import VisionTransformer  # noqa: F
 from s4former_tpu_torch.models.backbones.mit import MixVisionTransformer  # noqa: F401
 from s4former_tpu_torch.models.backbones.resnet import (  # noqa: F401
     ResNet, ResNetV1c, ResNetV1d)
-from s4former_tpu_torch.models.backbones.cnn_zoo import ICNet  # noqa: F401
+from s4former_tpu_torch.models.backbones.cnn_zoo import (  # noqa: F401
+    ICNet, ResNeSt, ResNeXt)
+from s4former_tpu_torch.models.backbones.hrnet import HRNet  # noqa: F401
+from s4former_tpu_torch.models.backbones.swin import SwinTransformer  # noqa: F401

@@ -4,6 +4,6 @@ from s4former_tpu_torch.models.decode_heads.segformer import SegformerHead  # no
 from s4former_tpu_torch.models.decode_heads.zoo_heads import (  # noqa: F401
     DepthwiseSeparableASPPHead)
 from s4former_tpu_torch.models.decode_heads.misc_heads import (  # noqa: F401
-    FCNHead, PSPHead, SETRMLAHead)
+    FCNHead, OCRHead, PSPHead, SETRMLAHead, UPerHead)
 from s4former_tpu_torch.models.decode_heads.extra_heads import (  # noqa: F401
     CCHead, FPNHead, SegmenterMaskTransformerHead)

@@ -1,6 +1,7 @@
-"""FCN, SETR-MLA and PSP decode heads (counterpart of
-``s4former_tpu/models/decode_heads/misc_heads.py``, l.41-177; reference:
-mmseg/models/decode_heads/fcn_head.py, setr_mla_head.py, psp_head.py).
+"""FCN, SETR-MLA, PSP, UPer and OCR decode heads (counterpart of
+``s4former_tpu/models/decode_heads/misc_heads.py``; reference:
+mmseg/models/decode_heads/fcn_head.py, setr_mla_head.py, psp_head.py,
+uper_head.py, ocr_head.py).
 
 NHWC, in f32 as the JAX heads (``zoo_heads.HeadBase``); the conv blocks
 are the SETR-PUP head's ``ConvBNReLU`` (bias-free conv, SyncBN over the
@@ -8,7 +9,10 @@ data group, ReLU). Parameter names follow the reference layout:
 
 - ``FCNHead``: ``convs.{i}.conv|bn``, ``conv_cat.conv|bn``, ``conv_seg``.
   With ``num_convs=0`` it is ``conv_seg`` on its (PatchShuffle-undone)
-  input, as SETR-MLA's four aux heads are.
+  input, as SETR-MLA's four aux heads are. Under ``resize_concat`` its
+  ``in_channels`` is the list of the levels' widths (OCRNet's first
+  stage: the four HRNet maps resized to the first's and concatenated,
+  the PatchShuffle undone on that map).
 - ``SETRMLAHead``: per input level ``up_convs.{i}.0`` and ``.1`` (two 3x3
   ``ConvBNReLU``s to ``mla_channels``), then a bilinear x``up_scale``; the
   levels concatenated; ``conv_seg``. Each level's PatchShuffle is undone
@@ -17,6 +21,24 @@ data group, ReLU). Parameter names follow the reference layout:
   adaptive average pool to s x s, a 1x1 ``ConvBNReLU``, bilinear back),
   the input first in the concatenation, ``bottleneck``, ``conv_seg``; the
   PatchShuffle undone on its input.
+- ``UPerHead``: PSP on the deepest level (``psp_modules.{i}.1``,
+  ``bottleneck``), 1x1 laterals on the others (``lateral_convs.{i}``),
+  the top-down sums (each level plus the next deeper one resized to it),
+  3x3 ``fpn_convs.{i}`` on all but the deepest, every level resized to
+  the first and concatenated, ``fpn_bottleneck``, ``conv_seg``. Like
+  JAX's (l.199-200), it never undoes a PatchShuffle.
+- ``OCRHead``: a cascade stage; its last input is the previous stage's
+  logits. ``bottleneck`` (3x3) on the resize-concat features; the
+  previous logits resized to that map if need be, a softmax over the
+  pixels of each class map, and the class contexts (``bpk,bpc->bkc``);
+  the object-attention block (``object_context_block``): the pixels'
+  query through two 1x1 conv-BN-ReLUs (``query_project.{0,1}``), the
+  contexts as a [B, K, 1, C] map (its BNs pool over batch and classes)
+  through two for the key (``key_project.{0,1}``) and one for the value
+  (``value_project``), attention over the classes scaled by
+  ``ocr_channels`` ** -0.5, ``out_project``, and the fusion
+  ``bottleneck`` on [context, pixels]; ``conv_seg``. It never undoes a
+  PatchShuffle (JAX l.264-268).
 """
 from __future__ import annotations
 
@@ -44,6 +66,8 @@ class FCNHead(HeadBase):
                  dilation: int = 1,
                  in_index: Union[int, Sequence[int]] = -1,
                  input_transform: Optional[str] = None, **kwargs):
+        if input_transform == 'resize_concat':
+            in_channels = sum(in_channels)
         super().__init__(num_classes, in_index, input_transform,
                          cls_channels=channels if num_convs else in_channels,
                          **kwargs)
@@ -135,4 +159,121 @@ class PSPHead(HeadBase):
                                           self.align_corners)
                           for m in self.psp_modules]
         y = self.bottleneck(torch.cat(branches, dim=-1), train)
+        return self._cls(y, train, generator)
+
+
+@HEADS.register_module()
+class UPerHead(HeadBase):
+    """PSP on the deepest level, FPN top-down fusion, the classifier."""
+
+    def __init__(self, in_channels: Sequence[int] = (96, 192, 384, 768),
+                 channels: int = 512, num_classes: int = 150,
+                 pool_scales: Sequence[int] = (1, 2, 3, 6),
+                 in_index: Sequence[int] = (0, 1, 2, 3),
+                 input_transform: str = 'multiple_select', **kwargs):
+        super().__init__(num_classes, tuple(in_index), input_transform,
+                         cls_channels=channels, **kwargs)
+        self.psp_modules = nn.ModuleList([
+            PooledConv(s, ConvBNReLU(in_channels[-1], channels, 1))
+            for s in pool_scales])
+        self.bottleneck = ConvBNReLU(
+            in_channels[-1] + len(pool_scales) * channels, channels, 3)
+        self.lateral_convs = nn.ModuleList([
+            ConvBNReLU(c, channels, 1) for c in in_channels[:-1]])
+        self.fpn_convs = nn.ModuleList([
+            ConvBNReLU(channels, channels, 3) for _ in in_channels[:-1]])
+        self.fpn_bottleneck = ConvBNReLU(len(in_channels) * channels,
+                                         channels, 3)
+
+    def forward(self, inputs, *, train: bool = False,
+                patchmix_perm: Optional[torch.Tensor] = None,
+                patchmix_n: int = 0,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        feats = [inputs[i].float() for i in self.in_index]
+        x = feats[-1]
+        hw = tuple(x.shape[1:3])
+        branches = [x] + [resize_bilinear(m(x, train), hw,
+                                          self.align_corners)
+                          for m in self.psp_modules]
+        laterals = [conv(f, train) for conv, f in
+                    zip(self.lateral_convs, feats[:-1])]
+        laterals.append(self.bottleneck(torch.cat(branches, dim=-1), train))
+        for i in range(len(laterals) - 1, 0, -1):
+            laterals[i - 1] = laterals[i - 1] + resize_bilinear(
+                laterals[i], tuple(laterals[i - 1].shape[1:3]),
+                self.align_corners)
+        outs = [conv(lat, train) for conv, lat in
+                zip(self.fpn_convs, laterals)] + [laterals[-1]]
+        hw = tuple(outs[0].shape[1:3])
+        outs = [o if tuple(o.shape[1:3]) == hw else
+                resize_bilinear(o, hw, self.align_corners) for o in outs]
+        y = self.fpn_bottleneck(torch.cat(outs, dim=-1), train)
+        return self._cls(y, train, generator)
+
+
+class _ObjectContextBlock(nn.Module):
+    """The reference's ``ObjectAttentionBlock`` parameters (1x1
+    conv-BN-ReLUs)."""
+
+    def __init__(self, channels: int, ocr_channels: int):
+        super().__init__()
+        self.query_project = nn.ModuleList([
+            ConvBNReLU(channels, ocr_channels, 1),
+            ConvBNReLU(ocr_channels, ocr_channels, 1)])
+        self.key_project = nn.ModuleList([
+            ConvBNReLU(channels, ocr_channels, 1),
+            ConvBNReLU(ocr_channels, ocr_channels, 1)])
+        self.value_project = ConvBNReLU(channels, ocr_channels, 1)
+        self.out_project = ConvBNReLU(ocr_channels, channels, 1)
+        self.bottleneck = ConvBNReLU(2 * channels, channels, 1)
+
+
+@HEADS.register_module()
+class OCRHead(HeadBase):
+    """Object-contextual representations: a cascade stage on the backbone
+    features and the previous stage's logits."""
+
+    def __init__(self, in_channels=2048, channels: int = 512,
+                 num_classes: int = 19, ocr_channels: int = 256,
+                 scale: int = 1, in_index: Union[int, Sequence[int]] = -1,
+                 input_transform: Optional[str] = None, **kwargs):
+        super().__init__(num_classes, in_index, input_transform,
+                         cls_channels=channels, **kwargs)
+        self.scale = scale
+        self.ocr_channels = ocr_channels
+        if input_transform == 'resize_concat':
+            in_channels = sum(in_channels)
+        self.bottleneck = ConvBNReLU(in_channels, channels, 3)
+        self.object_context_block = _ObjectContextBlock(channels,
+                                                        ocr_channels)
+
+    def forward(self, inputs, *, train: bool = False,
+                patchmix_perm: Optional[torch.Tensor] = None,
+                patchmix_n: int = 0,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        prev = inputs[-1].float()
+        x = self.bottleneck(self._pick(list(inputs[:-1]), None, 0).float(),
+                            train)
+        b, h, w, c = x.shape
+        if tuple(prev.shape[1:3]) != (h, w):
+            prev = resize_bilinear(prev, (h, w), self.align_corners)
+        # the class contexts: a softmax over the pixels of each class map
+        probs = torch.softmax(self.scale * prev.reshape(b, h * w, -1), dim=1)
+        context = torch.einsum('bpk,bpc->bkc', probs, x.reshape(b, h * w, c))
+        ctx = context[:, :, None, :]                  # [B, K, 1, C]
+        ocb = self.object_context_block
+        q = x
+        for conv in ocb.query_project:
+            q = conv(q, train)
+        k = ctx
+        for conv in ocb.key_project:
+            k = conv(k, train)
+        v = ocb.value_project(ctx, train)
+        sim = torch.einsum('bhwc,bkc->bhwk', q, k[:, :, 0]) * \
+            float(self.ocr_channels) ** -0.5
+        ocr = torch.einsum('bhwk,bkc->bhwc', sim.softmax(dim=-1), v[:, :, 0])
+        ocr = ocb.out_project(ocr, train)
+        y = ocb.bottleneck(torch.cat([ocr, x], dim=-1), train)
         return self._cls(y, train, generator)

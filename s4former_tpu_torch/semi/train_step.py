@@ -23,7 +23,11 @@ UniMatch branch (``semi/unimatch.py``) ahead of both; the sum of the
 entries whose key contains 'loss'; autograd; poly LR with the head x10
 multiplier, the layer-wise decay when
 ``paramwise_cfg`` is given, and torch SGD with momentum; the annealed EMA
-momentum for the next step. ``batch`` holds NHWC device tensors under the
+momentum for the next step. A ``CascadeEncoderDecoder``'s earlier stages
+train as aux heads ahead of the real ones, every stage takes the head x10
+('head' is in ``decode_head.{i}.``, as in JAX's ``cascade_heads_{i}``),
+and the EMA lerps the stages with the plain momentum, as JAX's, whose
+head group ``decode_head_m`` a cascade does not have. ``batch`` holds NHWC device tensors under the
 JAX keys (``sup_img``, ``sup_gt``, ``unsup_teacher_img``,
 ``unsup_student_img``) and optionally ``dbg_``-prefixed fixed draws that
 replace a mix's sampled draw and gate (keys in ``apply_strong_mixes`` and
@@ -160,11 +164,21 @@ def train_state_from_jax(model: nn.Module, jax_state) -> TrainState:
 
 
 def _head_loss_fns(model: nn.Module) -> Tuple[Callable, List[Callable]]:
-    """Loss callables from the heads' ``loss_decode`` configs."""
+    """Loss callables from the heads' ``loss_decode`` configs: the main
+    head's, then the aux heads' in ``forward_train_heads``' order, a
+    cascade's earlier stages first (JAX l.75-99)."""
     def build(head):
         return LOSSES.build(dict(head.loss_decode or
                                  {'type': 'CrossEntropyLoss'}))
-    return build(model.decode_head), [build(a) for a in model.auxiliary_head]
+    heads = list(model.decode_head) if _is_cascade(model) else \
+        [model.decode_head]
+    return build(heads[-1]), [build(h) for h in heads[:-1]] + \
+        [build(a) for a in model.auxiliary_head]
+
+
+def _is_cascade(model: nn.Module) -> bool:
+    """A ``CascadeEncoderDecoder``: its stages are a ``ModuleList``."""
+    return isinstance(model.decode_head, nn.ModuleList)
 
 
 def _sup_losses(model, main_loss, aux_losses, img, gt, generator):
@@ -424,8 +438,12 @@ def make_semi_train_step(model: nn.Module,
             paramwise_cfg['num_layers'], paramwise_cfg['decay_rate'],
             paramwise_cfg.get('decay_type', 'layer_wise'), mit=mit)
         lr_mults = {n: m * ld_mults[n] for n, m in lr_mults.items()}
-    head_params = ['decode_head.' + n
-                   for n, _ in model.decode_head.named_parameters()]
+    # JAX names a cascade's stages cascade_heads_{i}, outside the EMA's
+    # decode_head_m group (JAX semi/ema.py:76-88): they lerp with the
+    # plain momentum and skip no parameter
+    cascade = _is_cascade(model)
+    head_params = [] if cascade else [
+        'decode_head.' + n for n, _ in model.decode_head.named_parameters()]
 
     def train_step(state: TrainState, batch: Dict[str, Tensor],
                    generator: Optional[torch.Generator] = None
@@ -444,6 +462,8 @@ def make_semi_train_step(model: nn.Module,
                 m_head = state.annealed_momentum
                 if cfg.momentum_exp != 0:
                     m_backbone = state.annealed_momentum
+            if cascade:
+                m_head = cfg.ema_momentum
             head_skips = None
             if cfg.momentum_head_dropout > 0:
                 skips = overrides.get('ema_head_skip')

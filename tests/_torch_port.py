@@ -262,6 +262,69 @@ def cnn_model(depth: int = 50, num_classes: int = 5) -> dict:
                              loss_decode=dict(ce, loss_weight=0.4))])
 
 
+def upernet_swin_model(window_size: int = 7, num_classes: int = 5,
+                       stages: int = 4) -> dict:
+    """``configs/_base_/models/upernet_swin.py`` narrowed: Swin at embed
+    24, two blocks a stage, heads (1, 2, 3, 6); the first ``stages``
+    stages, each a level of the UPer head (12 channels); the FCN aux head
+    (8 channels) on the last but one; dropout 0."""
+    ce = dict(type='CrossEntropyLoss', loss_weight=1.0)
+    widths = [24 * 2 ** s for s in range(stages)]
+    return dict(
+        type='EncoderDecoder',
+        backbone=dict(type='SwinTransformer', embed_dims=24,
+                      depths=(2,) * stages, num_heads=(1, 2, 3, 6)[:stages],
+                      window_size=window_size,
+                      out_indices=tuple(range(stages))),
+        decode_head=dict(type='UPerHead', in_channels=widths,
+                         in_index=list(range(stages)),
+                         pool_scales=(1, 2, 3, 6), channels=12,
+                         dropout_ratio=0.0, num_classes=num_classes,
+                         loss_decode=ce),
+        auxiliary_head=[dict(type='FCNHead', in_channels=widths[-2],
+                             in_index=stages - 2, channels=8, num_convs=1,
+                             concat_input=False, dropout_ratio=0.0,
+                             num_classes=num_classes,
+                             loss_decode=dict(ce, loss_weight=0.4))])
+
+
+def hrnet_extra(stage3_modules: int = 2) -> dict:
+    """HRNet-W18's stages with one block a branch, stage 3 of
+    ``stage3_modules`` modules, branch widths 4, 8, 16, 32 (a bottleneck
+    layer1 of 8)."""
+    return dict(
+        stage1=dict(num_modules=1, num_branches=1, block='BOTTLENECK',
+                    num_blocks=(1,), num_channels=(8,)),
+        stage2=dict(num_modules=1, num_branches=2, block='BASIC',
+                    num_blocks=(1, 1), num_channels=(4, 8)),
+        stage3=dict(num_modules=stage3_modules, num_branches=3,
+                    block='BASIC', num_blocks=(1, 1, 1),
+                    num_channels=(4, 8, 16)),
+        stage4=dict(num_modules=1, num_branches=4, block='BASIC',
+                    num_blocks=(1, 1, 1, 1), num_channels=(4, 8, 16, 32)))
+
+
+def ocrnet_model(num_classes: int = 5, stage3_modules: int = 2) -> dict:
+    """``configs/_base_/models/ocrnet_hr18.py`` narrowed: ``hrnet_extra``,
+    the FCN stage at 12 channels, the OCR stage at 12 (8 for its
+    attention); dropout off, as the config's."""
+    ce = dict(type='CrossEntropyLoss', loss_weight=1.0)
+    widths = [4, 8, 16, 32]
+    return dict(
+        type='CascadeEncoderDecoder', num_stages=2,
+        backbone=dict(type='HRNet', extra=hrnet_extra(stage3_modules)),
+        decode_head=[
+            dict(type='FCNHead', in_channels=widths, in_index=(0, 1, 2, 3),
+                 input_transform='resize_concat', channels=12, num_convs=1,
+                 kernel_size=1, concat_input=False, dropout_ratio=-1,
+                 num_classes=num_classes,
+                 loss_decode=dict(ce, loss_weight=0.4)),
+            dict(type='OCRHead', in_channels=widths, in_index=(0, 1, 2, 3),
+                 input_transform='resize_concat', channels=12,
+                 ocr_channels=8, dropout_ratio=-1, num_classes=num_classes,
+                 loss_decode=ce)])
+
+
 LOGIT_GAIN = 8.0
 
 

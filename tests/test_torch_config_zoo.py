@@ -5,13 +5,15 @@ meta device, so no memory is spent) or raises the registry's KeyError
 naming a model type of that config that is not ported yet. The JAX
 package builds each of them.
 
-Then the tiny 64² forward of nine base models, held to JAX in f32 from
+Then the tiny 64² forward of eleven base models, held to JAX in f32 from
 perturbed JAX weights through the weight bridge: ``setr_mla.py`` and
 ``segmenter_vit-b_mask.py``, ``setr_pup.py`` and ``segformer_mit-b0.py``,
 and the five ResNet bases (``deeplabv3plus_r50-d8.py``,
 ``pspnet_r50-d8.py``, ``fpn_r50.py``, ``ccnet_r50-d8.py``,
 ``icnet_r50-d8.py``), narrowed through ``stem_channels`` /
-``base_channels`` and the heads' ``channels`` at depth 50, their
+``base_channels`` and the heads' ``channels`` at depth 50, and
+``upernet_swin.py`` (Swin-T's depths at embed 24) and ``ocrnet_hr18.py``
+(the cascade; ``tests/_torch_port.py:hrnet_extra``), their
 weights made from the JAX init's shapes
 (``tests/_torch_port.py:shaped_variables``; a jitted init of a ResNet-50
 takes many seconds to compile). The ViT-scale ones are shrunk as JAX's test
@@ -42,7 +44,7 @@ from s4former_tpu_torch.config import Config
 from s4former_tpu_torch.core.checkpoint import state_dict_from_jax_variables
 from s4former_tpu_torch.models import build_segmentor
 from s4former_tpu_torch.registry import MODELS
-from tests._torch_port import perturbed, shaped_variables
+from tests._torch_port import hrnet_extra, perturbed, shaped_variables
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 ALL_CONFIGS = sorted(
@@ -54,7 +56,8 @@ MODEL_CONFIGS = [p for p in ALL_CONFIGS if 'model' in Config.fromfile(p)]
 PORTED_BASES = ('setr_mla.py', 'segmenter_vit-b_mask.py', 'setr_pup.py',
                 'segformer_mit-b0.py', 'deeplabv3plus_r50-d8.py',
                 'pspnet_r50-d8.py', 'fpn_r50.py', 'ccnet_r50-d8.py',
-                'icnet_r50-d8.py')
+                'icnet_r50-d8.py', 'upernet_swin.py', 'ocrnet_hr18.py')
+# weights from the JAX init's shapes (a jitted init compiles for long)
 CNN_BASES = PORTED_BASES[4:]
 ATOL = 1e-4
 
@@ -96,6 +99,8 @@ def test_config_builds_or_names_an_unported_type(path):
         return
     assert not missing, (path, missing)
     head = cfg.model['decode_head']
+    if isinstance(head, list):      # a cascade: the last stage's classes
+        head = head[-1]
     assert model.num_classes == head['num_classes']
     assert sum(p.numel() for p in model.parameters()) > 0
 
@@ -115,6 +120,15 @@ def _shrunk(name):
         mc['backbone'].update(vit, num_layers=4, out_indices=(0, 1, 2, 3))
         for head in [mc['decode_head']] + mc['auxiliary_head']:
             head['in_channels'] = 64
+    elif name == 'upernet_swin.py':
+        mc['backbone'].update(embed_dims=24, num_heads=[1, 2, 3, 6])
+        mc['decode_head'].update(in_channels=[24, 48, 96, 192], channels=16)
+        mc['auxiliary_head'][0].update(in_channels=96, channels=16)
+    elif name == 'ocrnet_hr18.py':
+        mc['backbone']['extra'] = hrnet_extra()
+        for head in mc['decode_head']:
+            head.update(in_channels=[4, 8, 16, 32], channels=16)
+        mc['decode_head'][1]['ocr_channels'] = 8
     elif name in CNN_BASES:
         # ResNet-50 at stem 16, base 8: stages of 32, 64, 128, 256
         narrow = dict(stem_channels=16, base_channels=8)
