@@ -3146,14 +3146,20 @@ def run_zoo(fa, images, gpu_line, root):
 CNN_MODELS = {'deeplabv3plus': 'deeplabv3plus_r50-d8.py',
               'pspnet': 'pspnet_r50-d8.py', 'fpn': 'fpn_r50.py',
               'ccnet': 'ccnet_r50-d8.py', 'icnet': 'icnet_r50-d8.py',
-              'upernet_swin': 'upernet_swin.py', 'ocrnet': 'ocrnet_hr18.py'}
+              'upernet_swin': 'upernet_swin.py', 'ocrnet': 'ocrnet_hr18.py',
+              'bisenetv1': 'bisenetv1_r18-d32.py', 'bisenetv2': 'bisenetv2.py',
+              'stdc': 'stdc.py', 'fast_scnn': 'fast_scnn.py',
+              'cgnet': 'cgnet.py', 'erfnet': 'erfnet_fcn.py',
+              'lraspp': 'lraspp_m-v3-d8.py'}
 # the mixes' super-patch unit: a -D8 head undoes the PatchShuffle on its
 # 1/8 map in blocks of PatchMix_N features, so the image's super-patches
 # must be 8 * PatchMix_N pixels (at the default 16 the step fails on the
 # shapes, in JAX as in the port); OCRNet's first stage undoes it on its
-# 1/4 map (4); no head of UPerNet-Swin undoes it (the default 16)
+# 1/4 map (4), ERFNet's FCN head on its 1/2 map (2); no head of
+# UPerNet-Swin or LR-ASPP undoes it (the default 16). The other real-time
+# CNNs' decode heads read a 1/8 map (8)
 CNN_PATCHSIZE = 8
-PATCHSIZE = {'upernet_swin': 16, 'ocrnet': 4}
+PATCHSIZE = {'upernet_swin': 16, 'ocrnet': 4, 'erfnet': 2, 'lraspp': 16}
 # the backbones put in DeepLabV3+'s place (``cnn_config``'s ``backbone``):
 # ResNeXt-50 (32x4d) and ResNeSt-50 with their defaults and the -D8
 # stages of the ResNetV1c they replace
@@ -3177,17 +3183,20 @@ def cnn_config(root, which, backbone=None):
     [which]`` (its segmentor type too: OCRNet's cascade), its backbone's
     keys updated by ``CNN_BACKBONES[backbone]`` if given, written to
     ``root`` as ``zoo_config`` writes its config: 21 classes on every
-    head, the mixes' ``patchsize`` PATCHSIZE's (else CNN_PATCHSIZE). PASA
-    stays on (the CNNs and Swin ignore the bias, as JAX's do; the PASA
-    pass still runs, in the fused 2B batch), and PatchShuffle with CutMix,
-    NCR and the EMA. The backbones compute in f32 (JAX's have no dtype).
+    head but STDC's 2-class ``STDCHead`` (trained on the 21-class labels with
+    the cross-entropy, as JAX's step trains it), the mixes' ``patchsize``
+    PATCHSIZE's (else CNN_PATCHSIZE). PASA stays on (the CNNs and Swin ignore
+    the bias, as JAX's do; the PASA pass still runs, in the fused 2B batch),
+    and PatchShuffle with CutMix, NCR and the EMA. The backbones compute in f32
+    (JAX's have no dtype).
     Returns the path."""
     from s4former_tpu_torch.config import Config
     model = Config.fromfile(os.path.join(
         REPO, 'configs', '_base_', 'models', CNN_MODELS[which])).to_dict()[
             'model']
     for head in model_heads(model):
-        head['num_classes'] = 21
+        if head['type'] != 'STDCHead':      # STDC's keeps its 2 classes
+            head['num_classes'] = 21
     head = model['decode_head']
     over = dict(type=model['type'],
                 backbone=dict(model['backbone'],
@@ -3483,6 +3492,12 @@ def f32_step_vs_witness(fa, cfg, batch, calibrate=False):
         'update_err_abs_max': max(r[2] for r in leaves),
         'witness_abs_max': max(r[3] for r in leaves),
         'teacher_pinned': stats, 'witness_teacher': stats_w,
+        # the CPU teacher's max probabilities within 1e-6 of the threshold:
+        # pixels whose confidence the devices' softmaxes may put on either
+        # side of it, pinned logits or not
+        'teacher_near_threshold': sum(
+            int(((torch.softmax(t, -1).amax(-1) - threshold).abs() < 1e-6)
+                .sum()) for t in record),
         'card_step_s': sg, 'cpu_step_s': sc, 'witness_step_s': sw,
         'log_keys_same': sorted(lg) == sorted(lc)}, (cg, cc, cw)
 
@@ -3904,6 +3919,130 @@ def run_swin_hrnet(fa, images, gpu_line, root):
         bn_buffers=610, resume=True)
     seconds['ocrnet_train_cli'] = time.perf_counter() - t0
     emit({'phase': 'swin_hrnet_seconds', **seconds,
+          'total': sum(seconds.values())})
+    return paths
+
+
+# ------------------------------------------------ the real-time CNNs
+# BiSeNetV1 (ResNet-18), BiSeNetV2, STDC1, Fast-SCNN, CGNet, ERFNet and
+# LR-ASPP on MobileNetV3-large, each the model of its base config in the
+# fixture config (``cnn_config``). Each one's S4Former step is held
+# against the CPU's and the witness's (``f32_step_vs_witness``; ERFNet's
+# backbone dropout off, as every head's): STDC trains its 2-class
+# STDCHead on the 21-class labels (the cross-entropy gives the labels 2-20
+# an nll of 0, as JAX's one-hot does). These steps found PyTorch's
+# channels-last average-pool backward wrong on the card
+# (``ops/resize.py:avg_pool_nhwc``)
+REALTIME = ('bisenetv1', 'bisenetv2', 'stdc', 'fast_scnn', 'cgnet',
+            'erfnet', 'lraspp')
+# the models whose seeded BN statistics are first set from the request or
+# the batch (``calibrate_bn``): CGNet's seeded eval-mode logits reach ~56
+# on a 512² fixture request on the CPU, its softmax saturates (median max
+# probability 0.996), and near-ties would flip between the devices;
+# LR-ASPP's seeded teacher is flat: on the 256² witness batch most of its
+# max probabilities lie within 1e-6 of the median threshold, so the two
+# devices' softmaxes of one pinned logit map put different pixels above it
+# and the unsup losses part by ~0.5% (the step line's
+# 'teacher_near_threshold' counts them; 0 once calibrated)
+REALTIME_CALIBRATE = ('cgnet', 'lraspp')
+
+
+def phase_avg_pool_nhwc():
+    """PyTorch's CUDA average-pool backward on the channels-last view of
+    an NHWC map (3x3, stride 2, padding 1: BiSeNetV2's BGA, STDC's
+    stride-2 modules, ResNeSt's avd pool) against the CPU's, beside the
+    port's ``ops/resize.py:avg_pool_nhwc`` (a contiguous NCHW copy), which
+    must agree within 1e-6 of the largest gradient entry. Returns the
+    counts (no kernel)."""
+    import torch
+    import torch.nn.functional as F
+    from s4former_tpu_torch.ops.resize import avg_pool_nhwc
+    x0 = torch.randn(2, 64, 64, 32,
+                     generator=torch.Generator().manual_seed(0))
+    g0 = torch.randn(2, 32, 32, 32,
+                     generator=torch.Generator().manual_seed(1))
+    fns = {'torch_channels_last': lambda x: F.avg_pool2d(
+               x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1),
+           'avg_pool_nhwc': lambda x: avg_pool_nhwc(x, 3, 2, 1)}
+    errs = {}
+    for name, fn in fns.items():
+        grads = []
+        for device in ('cpu', 'cuda'):
+            x = x0.detach().to(device).requires_grad_(True)
+            fn(x).backward(g0.to(device))
+            grads.append(x.grad.cpu())
+        errs[name] = ((grads[1] - grads[0]).abs().max() /
+                      grads[0].abs().max()).item()
+    emit({'phase': 'avg_pool_nhwc', 'shape': [2, 64, 64, 32],
+          'grad_rel_err_vs_cpu': errs, 'tol': 1e-6})
+    check(errs['avg_pool_nhwc'] <= 1e-6, f'avg_pool_nhwc gradient on the '
+          f'card parts from the CPU\'s by {errs["avg_pool_nhwc"]}')
+    return {name: 0 for name in KERNELS}
+
+
+def run_realtime(fa, images, gpu_line, root):
+    """The real-time CNNs at their configs' full width and depth, f32,
+    TF32 off, every S4Former flag (``cnn_config``: 21 classes but STDC's
+    2-class head, the mixes' ``patchsize`` 8, ERFNet's 2, LR-ASPP's 16):
+    each serving a 500x375 request against the CPU (probabilities within
+    TOL_MAIN_F32; REALTIME_CALIBRATE's BN statistics set from the request
+    first), 4 requests after a warm-up (the mean ms), the 2 + 2 step at
+    512² (the first and 2 timed; img/s, peak memory); the 1 + 1 step at
+    256² against the CPU's and the witness's (``f32_step_vs_witness``;
+    REALTIME_CALIBRATE's BN statistics set from the batch), STDC's with
+    the 2-class head's loss among its logs; first ``phase_avg_pool_nhwc``.
+    None launches a kernel. Prints 'realtime_seconds'. Returns
+    the counts by path."""
+    import numpy as np
+    import torch
+    paths, seconds = {}, {}
+    t0 = time.perf_counter()
+    paths['avg_pool_nhwc'] = phase_avg_pool_nhwc()
+    seconds['avg_pool_nhwc'] = time.perf_counter() - t0
+
+    def serve(which, path):
+        path_counts, seg = phase_cnn_serve(fa, path, images[:4], gpu_line,
+                                           f'{which}_serve')
+        del seg
+        torch.cuda.empty_cache()
+        return path_counts
+
+    def train_f32(which, path):
+        cfg = cnn_f32_cfg(path)
+        if 'dropout_ratio' in cfg.model.backbone:        # ERFNet's
+            cfg.model.backbone.dropout_ratio = 0.0
+        r, launches = f32_step_vs_witness(
+            fa, cfg, cnn_f32_batch(images, CNN_WITNESS_SIZE,
+                                   PATCHSIZE.get(which, CNN_PATCHSIZE)),
+            calibrate=which in REALTIME_CALIBRATE)
+        heads = [(h.type, h.num_classes) for h in model_heads(cfg.model)[1:]]
+        emit({'phase': f'{which}_train_f32_vs_cpu',
+              'config': os.path.basename(path), **r,
+              'aux_head_classes': heads, 'tol': TOL_TRAIN_F32,
+              'settings': conv_settings(), 'launches': launches[0]})
+        check_witness(which, r, launches)
+        if which == 'stdc':
+            aux = f'aux_{heads.index(("STDCHead", 2))}.loss_ce'
+            check(all(np.isfinite(r[k].get(aux, np.nan))
+                      for k in ('losses_card', 'losses_cpu')),
+                  f'stdc: the 2-class STDCHead did not train: {heads}, '
+                  f'{sorted(r["losses_card"])}')
+        return launches[0]
+    for which in REALTIME:
+        path = cnn_config(root, which)
+        runs = [('serve_f32', lambda: phase_cnn_serve_f32(
+                    fa, path, images[0], f'{which}_serve_f32_vs_cpu',
+                    calibrate=which in REALTIME_CALIBRATE)),
+                ('serve', lambda: serve(which, path)),
+                ('train', lambda: phase_cnn_train(
+                    fa, path, images, gpu_line, n=2, timed=2,
+                    name=f'{which}_train')),
+                ('train_f32', lambda: train_f32(which, path))]
+        for name, run in runs:
+            t0 = time.perf_counter()
+            paths[f'{which}_{name}'] = run()
+            seconds[f'{which}_{name}'] = time.perf_counter() - t0
+    emit({'phase': 'realtime_seconds', **seconds,
           'total': sum(seconds.values())})
     return paths
 
@@ -6332,6 +6471,9 @@ def main() -> int:
         paths.update(run_cnn(fa, images, gpu_line, root))
         # UPerNet-Swin-T and OCRNet-HRNet-18 (no kernel)
         paths.update(run_swin_hrnet(fa, images, gpu_line, root))
+        # the real-time CNNs: BiSeNetV1/V2, STDC, Fast-SCNN, CGNet,
+        # ERFNet, LR-ASPP (no kernel)
+        paths.update(run_realtime(fa, images, gpu_line, root))
         # the ablation slice: the rest of the step's flags
         paths.update(run_ablation(fa, images, gpu_line, root))
         # the UniMatch slice and the ViT's remat

@@ -701,9 +701,253 @@ def _segformer(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
     return sd
 
 
+def _plain(leaf: Mapping, key: str) -> StateDict:
+    """A bare flax conv (kernel, maybe bias) -> ``key.weight`` (``.bias``)."""
+    sd = {key + '.weight': _conv(leaf['kernel'])}
+    if 'bias' in leaf:
+        sd[key + '.bias'] = _t(leaf['bias'])
+    return sd
+
+
+def _arm(p: Mapping, bs: Mapping, pre: str) -> StateDict:
+    """JAX ``AttentionRefinement`` -> ``conv_layer`` and
+    ``atten_conv_layer.1``."""
+    sd = _convbn(p['conv'], bs.get('conv', {}), pre + 'conv_layer.')
+    sd.update(_convbn({'conv': p['gate_conv'], 'bn': p['gate_bn']},
+                      {'bn': bs.get('gate_bn', {})},
+                      pre + 'atten_conv_layer.1.'))
+    return sd
+
+
+def _bisenetv1(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
+    """JAX cnn_zoo.BiSeNetV1 -> the mmseg layout (the inverse of JAX
+    ``convert_bisenetv1_backbone``, l.1537)."""
+    cp = prefix + 'context_path.'
+    sd = _resnet(p['context_backbone'], bs.get('context_backbone', {}),
+                 cp + 'backbone.')
+    sd.update(_convbns(p, bs, prefix, {
+        **{f'spatial_{i}': f'spatial_path.layer{i + 1}' for i in range(4)},
+        'refine32': 'context_path.conv_head32',
+        'refine16': 'context_path.conv_head16',
+        'gap_conv': 'context_path.gap_conv.1'}))
+    for arm in ('arm16', 'arm32'):
+        sd.update(_arm(p[arm], bs.get(arm, {}), f'{cp}{arm}.'))
+    sd.update(_convbns(p['ffm'], bs.get('ffm', {}), prefix + 'ffm.',
+                       {'conv': 'conv1', 'atten': 'conv_atten.0'}))
+    return sd
+
+
+def _bisenetv2(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
+    """JAX cnn_zoo.BiSeNetV2 -> the mmseg layout (the inverse of JAX
+    ``convert_bisenetv2_backbone``, l.1115)."""
+    names = {'stem_first': 'semantic.stage1.conv_first',
+             'stem_convs_0': 'semantic.stage1.convs.0',
+             'stem_convs_1': 'semantic.stage1.convs.1',
+             'stem_fuse': 'semantic.stage1.fuse_last',
+             'bga_detail_dw': 'bga.detail_dwconv.0.depthwise_conv',
+             'bga_detail_down': 'bga.detail_down.0',
+             'bga_semantic_conv': 'bga.semantic_conv.0',
+             'bga_semantic_dw': 'bga.semantic_dwconv.0.depthwise_conv',
+             'bga_conv': 'bga.conv'}
+    ge = {'conv1': 'conv1', 'dwconv_0': 'dwconv.0', 'dwconv_1': 'dwconv.1',
+          'conv2': 'conv2.0', 'short_dw': 'shortcut.0.depthwise_conv',
+          'short_pw': 'shortcut.0.pointwise_conv'}
+    sd: StateDict = {}
+    last = 1
+    for name in p:
+        m = re.fullmatch(r'detail_(\d+)_(\d+)', name)
+        if m is not None:
+            names[name] = 'detail.detail_branch.{}.{}'.format(*m.groups())
+        m = re.fullmatch(r'stage(\d+)_(\d+)', name)
+        if m is not None:       # a GE layer of semantic stage 2, 3, ...
+            last = max(last, int(m.group(1)))
+            sd.update(_convbns(p[name], bs.get(name, {}), '{}semantic.stage'
+                               '{}.{}.'.format(prefix, *m.groups()), ge))
+    ce = f'semantic.stage{last}_CEBlock.'
+    names.update(ce_conv_gap=ce + 'conv_gap', ce_conv_last=ce + 'conv_last')
+    sd.update(_convbns(p, bs, prefix, names))
+    sd.update(_norm(p['ce_gap_bn'], prefix + ce + 'gap.1',
+                    bs.get('ce_gap_bn')))
+    for ours, ref in (('bga_detail_pw', 'bga.detail_dwconv.0'),
+                      ('bga_semantic_pw', 'bga.semantic_dwconv.0')):
+        sd.update(_plain(p[ours], f'{prefix}{ref}.pointwise_conv.conv'))
+    return sd
+
+
+def _stdc_net(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
+    """JAX cnn_zoo.STDCNet -> the mmseg layout (the inverse of JAX
+    ``convert_stdc_backbone``, l.1442). An ``add`` module's downsample
+    sits at both ``layers.0.1`` and ``downsample``, as the reference
+    shares it."""
+    sd = _convbns(p, bs, prefix, {'stages_0': 'stages.0',
+                                  'stages_1': 'stages.1',
+                                  'final_conv': 'final_conv'})
+    for name, mp in p.items():
+        m = re.fullmatch(r'stages_(\d+)_(\d+)', name)
+        if m is None:
+            continue
+        pre = '{}stages.{}.{}.'.format(prefix, *m.groups())
+        mb = bs.get(name, {})
+        add = 'skip_0' in mp
+        names = {f'layers_{k}': f'layers.{k}' for k in range(1, len(mp))}
+        names.update(layers_0='layers.0.0' if add else 'layers.0',
+                     downsample='downsample', skip_0='skip.0',
+                     skip_1='skip.1')
+        sd.update(_convbns(mp, mb, pre, names))
+        if add:
+            sd.update(_convbns(mp, mb, pre, {'downsample': 'layers.0.1'}))
+    return sd
+
+
+def _stdc_context_path(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
+    """JAX cnn_zoo.STDCContextPathNet -> the mmseg layout (the inverse of
+    JAX ``convert_stdc_context_path``, l.1495)."""
+    sd = _stdc_net(p['backbone'], bs.get('backbone', {}),
+                   prefix + 'backbone.')
+    for i in (0, 1):
+        sd.update(_arm(p[f'arms_{i}'], bs.get(f'arms_{i}', {}),
+                       f'{prefix}arms.{i}.'))
+    sd.update(_convbns(p, bs, prefix, {'convs_0': 'convs.0',
+                                       'convs_1': 'convs.1',
+                                       'conv_avg': 'conv_avg'}))
+    sd.update(_convbn(p['ffm']['conv0'], bs.get('ffm', {}).get('conv0', {}),
+                      prefix + 'ffm.conv0.'))
+    for k, ours in ((1, 'atten_0'), (2, 'atten_1')):
+        sd.update(_plain(p['ffm'][ours], f'{prefix}ffm.attention.{k}.conv'))
+    return sd
+
+
+def _dw_bn(p: Mapping, bs: Mapping, conv: str, bn: str,
+           pre: str) -> StateDict:
+    """A bare JAX depthwise conv + its separate BN -> a ``ConvModule``."""
+    return _convbn({'conv': p[conv], 'bn': p[bn]}, {'bn': bs.get(bn, {})},
+                   pre)
+
+
+def _fastscnn(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
+    """JAX cnn_zoo.FastSCNN -> the mmseg layout (the inverse of JAX
+    ``convert_fastscnn_backbone``, l.1201)."""
+    lds = prefix + 'learning_to_downsample.'
+    gfe = prefix + 'global_feature_extractor.'
+    ff = prefix + 'feature_fusion.'
+    sd = _convbn(p['lds0'], bs.get('lds0', {}), lds + 'conv.')
+    for k in (1, 2):
+        sd.update(_dw_bn(p, bs, f'lds{k}_dw', f'lds{k}_bn',
+                         f'{lds}dsconv{k}.depthwise_conv.'))
+        sd.update(_convbn(p[f'lds{k}_pw'], bs.get(f'lds{k}_pw', {}),
+                          f'{lds}dsconv{k}.pointwise_conv.'))
+    names = {'ppm_out': 'out'}
+    for name, mp in p.items():
+        m = re.fullmatch(r'gfe_(\d+)_(\d+)', name)
+        if m is not None:
+            pre = f'{gfe}bottleneck{int(m.group(1)) + 1}.{m.group(2)}.conv.'
+            mb = bs.get(name, {})
+            sd.update(_convbn(mp['expand'], mb.get('expand', {}), pre + '0.'))
+            sd.update(_dw_bn(mp, mb, 'dw', 'dw_bn', pre + '1.'))
+            sd.update(_convbn(mp['proj'], mb.get('proj', {}), pre + '2.'))
+        m = re.fullmatch(r'ppm_(\d+)', name)
+        if m is not None:
+            names[name] = f'ppm.{m.group(1)}.1'
+    sd.update(_convbns(p, bs, gfe, names))
+    sd.update(_dw_bn(p, bs, 'ffm_dw', 'ffm_dw_bn', ff + 'dwconv.'))
+    sd.update(_convbns(p, bs, ff, {'ffm_low': 'conv_lower_res',
+                                   'ffm_high': 'conv_higher_res'}))
+    return sd
+
+
+def _cgnet(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
+    """JAX cnn_zoo.CGNet -> the mmseg layout (the inverse of JAX
+    ``convert_cgnet_backbone``, l.1358)."""
+    sd: StateDict = {}
+    for i in range(3):
+        sd.update(_convbn(p[f'stem_{i}'], bs.get(f'stem_{i}', {}),
+                          f'{prefix}stem.{i}.'))
+        sd[f'{prefix}stem.{i}.activate.weight'] = _t(
+            p[f'stem_{i}_act']['alpha'])
+    for k in range(3):
+        sd.update(_norm(p[f'norm_prelu_{k}_bn'], f'{prefix}norm_prelu_{k}.0',
+                        bs.get(f'norm_prelu_{k}_bn')))
+        sd[f'{prefix}norm_prelu_{k}.1.weight'] = _t(
+            p[f'norm_prelu_{k}_act']['alpha'])
+    for name, mp in p.items():
+        m = re.fullmatch(r'level(\d)_(\d+)', name)
+        if m is None:
+            continue
+        pre = '{}level{}.{}.'.format(prefix, *m.groups())
+        mb = bs.get(name, {})
+        sd.update(_convbn(mp['conv1x1'], mb.get('conv1x1', {}),
+                          pre + 'conv1x1.'))
+        sd[pre + 'conv1x1.activate.weight'] = _t(mp['conv1x1_act']['alpha'])
+        for conv in ('f_loc', 'f_sur', 'bottleneck'):
+            if conv in mp:
+                sd.update(_plain(mp[conv], pre + conv))
+        sd.update(_norm(mp['bn'], pre + 'bn', mb.get('bn')))
+        sd[pre + 'activate.weight'] = _t(mp['activate']['alpha'])
+        for fc, idx in (('fc1', 0), ('fc2', 2)):
+            sd.update(_dense(mp[fc], f'{pre}f_glo.fc.{idx}'))
+    return sd
+
+
+def _erfnet(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
+    """JAX cnn_zoo.ERFNet -> the mmseg layout (the inverse of JAX
+    ``convert_erfnet_backbone``, l.1289). The transposed conv: flax's
+    HWIO kernel, flipped in both spatial axes, is torch's [Cin, Cout,
+    kh, kw] ``ConvTranspose2d`` weight."""
+    sd: StateDict = {}
+    nb = (('c31a', '0'), ('c13a', '2'), ('c31b', '5'), ('c13b', '7'))
+    for name, mp in p.items():
+        m = re.fullmatch(r'(encoder|decoder)_(\d+)(_conv|_bn)?', name)
+        if m is None:
+            continue
+        kind, i, part = m.groups()
+        pre = f'{prefix}{kind}.{i}.'
+        mb = bs.get(name, {})
+        if part == '_conv':
+            k = np.asarray(mp['kernel'])[::-1, ::-1]
+            sd[pre + 'conv.weight'] = _t(np.transpose(k, (2, 3, 0, 1)))
+            sd[pre + 'conv.bias'] = _t(mp['bias'])
+        elif part == '_bn':
+            sd.update(_norm(mp, pre + 'bn', mb))
+        elif 'conv' in mp:                        # DownsamplerBlock
+            sd.update(_plain(mp['conv'], pre + 'conv'))
+            sd.update(_norm(mp['bn'], pre + 'bn', mb.get('bn')))
+        else:                                     # NonBottleneck1d
+            for ours, idx in nb:
+                sd.update(_plain(mp[ours], f'{pre}convs_layers.{idx}'))
+            for ours, idx in (('bn1', '3'), ('bn2', '8')):
+                sd.update(_norm(mp[ours], f'{pre}convs_layers.{idx}',
+                                mb.get(ours)))
+    return sd
+
+
+def _mobilenet_v3(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
+    """JAX mobilenet.MobileNetV3 -> the mmseg layout (the inverse of JAX
+    ``convert_mobilenet_v3_backbone``, l.1254)."""
+    sd: StateDict = {}
+    for name, mp in p.items():
+        m = re.fullmatch(r'(layer\d+)(?:_(expand|dw|linear|se1|se2))?', name)
+        if m is None:
+            continue
+        layer, part = m.groups()
+        if part in ('se1', 'se2'):
+            sd.update(_plain(mp, f'{prefix}{layer}.se.conv{part[-1]}.conv'))
+            continue
+        ref = {None: '', 'expand': 'expand_conv.', 'dw': 'depthwise_conv.',
+               'linear': 'linear_conv.'}[part]
+        sd.update(_convbn(mp, bs.get(name, {}), f'{prefix}{layer}.{ref}'))
+    return sd
+
+
 def _backbone(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
     if 'patch_embed_0' in p:
         return _mit(p, prefix)
+    for marker, fn in (('spatial_0', _bisenetv1), ('detail_0_0', _bisenetv2),
+                       ('arms_0', _stdc_context_path),
+                       ('stages_0', _stdc_net), ('lds0', _fastscnn),
+                       ('stem_0_act', _cgnet), ('encoder_0', _erfnet),
+                       ('layer0', _mobilenet_v3)):
+        if marker in p:
+            return fn(p, bs, prefix)
     if 'conv_sub1_0' in p:
         return _icnet(p, bs, prefix)
     if 'stage_0_block_0' in p:
@@ -714,6 +958,35 @@ def _backbone(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
         return _resnest(p, bs, prefix) if 'bn0' in p['layer1_0'] else \
             _resnet(p, bs, prefix)
     return _vit(p, prefix)
+
+
+def _sep_fcn(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
+    """JAX zoo_heads.DepthwiseSeparableFCNHead -> the mmseg layout (the
+    inverse of JAX ``convert_sep_fcn_head``, l.2182)."""
+    sd: StateDict = {}
+    for name in p:
+        if name.startswith('convs_') or name == 'conv_cat':
+            key = name.replace('convs_', 'convs.')
+            sd.update(_sepconv(p[name], bs.get(name, {}), f'{prefix}{key}.'))
+    sd.update(_conv_seg(p, prefix))
+    return sd
+
+
+def _lraspp(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
+    """JAX zoo_heads.LRASPPHead -> the mmseg layout (the inverse of JAX
+    ``convert_lraspp_head``, l.2200)."""
+    sd = _plain(p['conv_up_input'], prefix + 'conv_up_input')
+    sd.update(_plain(p['image_pool_conv'], prefix + 'image_pool.1.conv'))
+    names = {'aspp_conv': 'aspp_conv'}
+    for name in p:
+        m = re.fullmatch(r'(convs|conv_ups)_(\d+)', name)
+        if m is not None and m.group(1) == 'convs':
+            sd.update(_plain(p[name], f'{prefix}convs.conv{m.group(2)}'))
+        elif m is not None:
+            names[name] = f'conv_ups.conv_up{m.group(2)}'
+    sd.update(_convbns(p, bs, prefix, names))
+    sd.update(_conv_seg(p, prefix))
+    return sd
 
 
 def _head(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
@@ -739,6 +1012,10 @@ def _head(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
         return _fpn_head(p, bs, prefix)
     if 'cca' in p:
         return _cc(p, bs, prefix)
+    if 'conv_up_input' in p:
+        return _lraspp(p, bs, prefix)
+    if 'depthwise' in p.get('convs_0', {}):
+        return _sep_fcn(p, bs, prefix)
     return _fcn(p, bs, prefix)
 
 

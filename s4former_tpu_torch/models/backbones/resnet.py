@@ -43,7 +43,7 @@ from torch import nn
 from s4former_tpu_torch.models.decode_heads.setr_up import (BatchNorm,
                                                             conv_bn)
 from s4former_tpu_torch.models.dropout import channel_dropout
-from s4former_tpu_torch.ops.resize import resize_bilinear
+from s4former_tpu_torch.ops.resize import avg_pool_nhwc, resize_bilinear
 from s4former_tpu_torch.registry import BACKBONES
 
 ARCH = {
@@ -67,9 +67,7 @@ def _avg_pool_ceil(x: torch.Tensor, s: int) -> torch.Tensor:
     """torch ``AvgPool2d(s, s, ceil_mode=True, count_include_pad=False)``
     on an NHWC map, V1d's ``avg_down`` pool: a partial border window
     averages only its real pixels."""
-    y = F.avg_pool2d(x.permute(0, 3, 1, 2), s, s, ceil_mode=True,
-                     count_include_pad=False)
-    return y.permute(0, 2, 3, 1)
+    return avg_pool_nhwc(x, s, s, ceil_mode=True, count_include_pad=False)
 
 
 class _Downsample(nn.Module):

@@ -1,9 +1,10 @@
-"""FPN, CCNet and Segmenter decode heads (counterparts of ``FPNHead``
-l.37, ``CrissCrossAttention`` l.79, ``CCHead`` l.112 and
-``SegmenterMaskTransformerHead`` l.142-207 in
+"""FPN, CCNet, Segmenter and STDC decode heads (counterparts of
+``FPNHead`` l.37, ``CrissCrossAttention`` l.79, ``CCHead`` l.112,
+``SegmenterMaskTransformerHead`` l.142-207, ``_laplacian`` l.212,
+``stdc_boundary_targets`` l.219 and ``STDCHead`` l.238 in
 ``s4former_tpu/models/decode_heads/extra_heads.py``; reference:
 mmseg/models/decode_heads/fpn_head.py, cc_head.py with mmcv's
-CrissCrossAttention, segmenter_mask_head.py).
+CrissCrossAttention, segmenter_mask_head.py, stdc_head.py).
 
 ``FPNHead`` (Panoptic FPN): per level, one 3x3 ``ConvBNReLU`` a halving
 between its stride and the finest, each followed by a bilinear x2 where
@@ -50,7 +51,7 @@ from s4former_tpu_torch.models.decode_heads.misc_heads import FCNHead
 from s4former_tpu_torch.models.decode_heads.setr_up import (ConvBNReLU,
                                                             conv_nhwc)
 from s4former_tpu_torch.models.decode_heads.zoo_heads import HeadBase
-from s4former_tpu_torch.ops.resize import resize_bilinear
+from s4former_tpu_torch.ops.resize import resize_bilinear, resize_nearest
 from s4former_tpu_torch.registry import HEADS
 
 
@@ -235,3 +236,41 @@ class SegmenterMaskTransformerHead(HeadBase):
         masks = self.mask_norm(torch.einsum('bpd,bkd->bpk', patches,
                                             classes))
         return masks.reshape(b, h, w, k)
+
+
+def _laplacian(x: torch.Tensor, stride: int) -> torch.Tensor:
+    """The 3x3 laplacian (8 in the centre, -1 around) at ``stride``,
+    padding 1, on a [B, H, W, 1] float map (JAX l.212)."""
+    kernel = torch.full((1, 1, 3, 3), -1.0, dtype=x.dtype, device=x.device)
+    kernel[0, 0, 1, 1] = 8.0
+    y = F.conv2d(x.permute(0, 3, 1, 2).contiguous(), kernel, stride=stride,
+                 padding=1)
+    return y.permute(0, 2, 3, 1)
+
+
+def stdc_boundary_targets(seg_label: torch.Tensor,
+                          boundary_threshold: float = 0.1) -> torch.Tensor:
+    """STDC's detail-aggregation boundary target (JAX l.219; reference
+    stdc_head.py:34-85): the laplacian's positive responses at strides 1,
+    2 and 4, the coarse ones resized nearest to the label's size, each
+    binarised at ``boundary_threshold``, fused by the fixed weights 0.6,
+    0.3, 0.1 and binarised again. seg_label [B, H, W] int -> [B, H, W]
+    f32 of 0 and 1. No step builds it: the JAX step trains ``STDCHead``
+    with the 2-class cross-entropy on the segmentation labels."""
+    lab = seg_label.float()[..., None]
+    t1 = (_laplacian(lab, 1).clamp(min=0.0) > boundary_threshold).float()
+    hw = tuple(t1.shape[1:3])
+    t2, t4 = ((resize_nearest(_laplacian(lab, s).clamp(min=0.0), hw) >
+               boundary_threshold).float() for s in (2, 4))
+    fused = 0.6 * t1 + 0.3 * t2 + 0.1 * t4
+    return (fused[..., 0] > boundary_threshold).float()
+
+
+@HEADS.register_module()
+class STDCHead(FCNHead):
+    """STDC's detail head: an ``FCNHead`` (its keys, its forward) that
+    holds ``boundary_threshold`` for ``stdc_boundary_targets``."""
+
+    def __init__(self, boundary_threshold: float = 0.1, **kwargs):
+        super().__init__(**kwargs)
+        self.boundary_threshold = boundary_threshold

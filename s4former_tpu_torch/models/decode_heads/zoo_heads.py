@@ -1,8 +1,10 @@
-"""The shared base of the zoo's decode heads and DeepLabV3+'s head
-(counterpart of ``s4former_tpu/models/decode_heads/zoo_heads.py``:
-``_HeadBase`` l.38-65, ``SepConvBNReLU`` l.87,
-``DepthwiseSeparableASPPHead`` l.154; reference:
-mmseg/models/decode_heads/decode_head.py:35-105, sep_aspp_head.py).
+"""The shared base of the zoo's decode heads, DeepLabV3+'s, Fast-SCNN's
+and LR-ASPP's heads (counterpart of
+``s4former_tpu/models/decode_heads/zoo_heads.py``: ``_HeadBase``
+l.38-65, ``SepConvBNReLU`` l.87, ``DepthwiseSeparableASPPHead`` l.154,
+``DepthwiseSeparableFCNHead`` l.200, ``LRASPPHead`` l.729; reference:
+mmseg/models/decode_heads/decode_head.py:35-105, sep_aspp_head.py,
+sep_fcn_head.py, lraspp_head.py).
 
 ``HeadBase`` holds the ``BaseDecodeHead`` config surface every zoo head
 accepts (``dropout_ratio``, ``align_corners``, ``loss_decode``,
@@ -41,7 +43,8 @@ from s4former_tpu_torch.models.decode_heads.base import (
 from s4former_tpu_torch.models.decode_heads.setr_up import (ConvBNReLU,
                                                             conv_nhwc)
 from s4former_tpu_torch.models.dropout import dropout
-from s4former_tpu_torch.ops.resize import adaptive_avg_pool, resize_bilinear
+from s4former_tpu_torch.ops.resize import (adaptive_avg_pool, avg_pool_nhwc,
+                                           resize_bilinear)
 from s4former_tpu_torch.registry import HEADS
 
 
@@ -173,4 +176,96 @@ class DepthwiseSeparableASPPHead(HeadBase):
             y = torch.cat([y, c1], dim=-1)
         for sep in self.sep_bottleneck:
             y = sep(y, train)
+        return self._cls(y, train, generator)
+
+
+@HEADS.register_module()
+class DepthwiseSeparableFCNHead(HeadBase):
+    """Fast-SCNN's FCN head: ``num_convs`` separable 3x3s
+    (``convs.{i}``; the depthwise BN-only, as the reference's
+    ``dw_act_cfg=None``), with ``concat_input`` one more on [input,
+    convs] (``conv_cat``), then the classifier; the PatchShuffle undone
+    on its input."""
+
+    def __init__(self, in_channels: int = 128, channels: int = 128,
+                 num_classes: int = 19, num_convs: int = 2,
+                 concat_input: bool = False,
+                 in_index: Union[int, Sequence[int]] = -1,
+                 input_transform: Optional[str] = None, **kwargs):
+        super().__init__(num_classes, in_index, input_transform,
+                         cls_channels=channels, **kwargs)
+        self.convs = nn.ModuleList([
+            SepConvBNReLU(in_channels if i == 0 else channels, channels, 3,
+                          dw_act=False) for i in range(num_convs)])
+        self.conv_cat = SepConvBNReLU(in_channels + channels, channels, 3,
+                                      dw_act=False) if concat_input else None
+
+    def forward(self, inputs, *, train: bool = False,
+                patchmix_perm: Optional[torch.Tensor] = None,
+                patchmix_n: int = 0,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        x = inp = self._pick(inputs, patchmix_perm, patchmix_n).float()
+        for conv in self.convs:
+            x = conv(x, train)
+        if self.conv_cat is not None:
+            x = self.conv_cat(torch.cat([inp, x], dim=-1), train)
+        return self._cls(x, train, generator)
+
+
+@HEADS.register_module()
+class LRASPPHead(HeadBase):
+    """Lite R-ASPP (MobileNetV3): on the deepest input a 1x1
+    ``ConvBNReLU`` (``aspp_conv``) gated by the sigmoid of a bias-free
+    1x1 (``image_pool.1.conv``, no norm) on a VALID average pool of
+    window min(49, size) and strides (16, 20), resized bilinearly to the
+    map; a biased 1x1 (``conv_up_input``); then, from the deepest skip
+    level to the shallowest, resized to the level, concatenated with the
+    level through a bias-free 1x1 (``convs.conv{i}``) and fused by a 1x1
+    ``ConvBNReLU`` (``conv_ups.conv_up{i}``); the classifier. It reads
+    ``inputs[i]`` as they come and never undoes a PatchShuffle (JAX
+    l.729-761 has no ``_pick``)."""
+
+    def __init__(self, in_channels: Sequence[int] = (16, 24, 960),
+                 channels: int = 128, num_classes: int = 19,
+                 branch_channels: Sequence[int] = (32, 64),
+                 in_index: Sequence[int] = (0, 1, 2),
+                 input_transform: str = 'multiple_select', **kwargs):
+        super().__init__(num_classes, tuple(in_index), input_transform,
+                         cls_channels=channels, **kwargs)
+        self.branch_channels = tuple(branch_channels)
+        pool = nn.Module()
+        pool.conv = nn.Conv2d(in_channels[-1], channels, 1, bias=False)
+        self.image_pool = nn.ModuleDict({'1': pool})
+        self.aspp_conv = ConvBNReLU(in_channels[-1], channels, 1)
+        self.conv_up_input = nn.Conv2d(channels, channels, 1)
+        self.convs = nn.ModuleDict({
+            f'conv{i}': nn.Conv2d(in_channels[i], b, 1, bias=False)
+            for i, b in enumerate(branch_channels)})
+        self.conv_ups = nn.ModuleDict({
+            f'conv_up{i}': ConvBNReLU(channels + b, channels, 1)
+            for i, b in enumerate(branch_channels)})
+
+    def forward(self, inputs, *, train: bool = False,
+                patchmix_perm: Optional[torch.Tensor] = None,
+                patchmix_n: int = 0,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        feats = [inputs[i].float() for i in self.in_index] \
+            if isinstance(inputs, (list, tuple)) else [inputs.float()]
+        x = feats[-1]
+        hw = tuple(x.shape[1:3])
+        k = (min(49, hw[0]), min(49, hw[1]))
+        gate = avg_pool_nhwc(x, k, (16, 20))
+        gate = torch.sigmoid(conv_nhwc(gate, self.image_pool['1'].conv,
+                                       torch.float32))
+        gate = resize_bilinear(gate, hw, self.align_corners)
+        y = conv_nhwc(self.aspp_conv(x, train) * gate, self.conv_up_input,
+                      torch.float32)
+        for i in range(len(self.branch_channels) - 1, -1, -1):
+            y = resize_bilinear(y, tuple(feats[i].shape[1:3]),
+                                self.align_corners)
+            skip = conv_nhwc(feats[i], self.convs[f'conv{i}'], torch.float32)
+            y = self.conv_ups[f'conv_up{i}'](torch.cat([y, skip], dim=-1),
+                                             train)
         return self._cls(y, train, generator)

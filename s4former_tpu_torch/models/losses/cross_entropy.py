@@ -38,14 +38,25 @@ def softmax_cross_entropy_with_ignore(
         class_weight: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-pixel CE. logits [..., C], label [...] int. Returns (per-pixel
-    loss with ignored pixels zeroed, valid mask f32)."""
+    loss with ignored pixels zeroed, valid mask f32).
+
+    A label outside 0..C-1 that is not ``ignore_index`` (a 19-class label
+    on STDC's 2-class boundary head) gets an nll of 0 and a class weight of
+    0 but stays valid, so it counts in the mean's denominator: the JAX
+    package contracts with ``jax.nn.one_hot``, whose row for such a label
+    is all zero. Its gather reads a clamped index and is masked out."""
+    num_classes = logits.shape[-1]
     valid = label != ignore_index
     safe = torch.where(valid, label, torch.zeros_like(label)).long()
+    in_range = (safe >= 0) & (safe < num_classes)
+    safe = safe.clamp(0, num_classes - 1)
     log_probs = F.log_softmax(logits.float(), dim=-1)
     nll = -log_probs.gather(-1, safe[..., None])[..., 0]
+    nll = torch.where(in_range, nll, torch.zeros_like(nll))
     if class_weight is not None:
-        nll = nll * torch.as_tensor(class_weight, dtype=torch.float32,
-                                    device=nll.device)[safe]
+        cw = torch.as_tensor(class_weight, dtype=torch.float32,
+                             device=nll.device)[safe]
+        nll = nll * torch.where(in_range, cw, torch.zeros_like(cw))
     validf = valid.float()
     return nll * validf, validf
 

@@ -4,7 +4,8 @@ in NHWC (counterpart of ``s4former_tpu/ops/resize.py``).
 - bilinear, align_corners=False: half-pixel centres, clamped;
 - bilinear, align_corners=True: src = dst * (in-1)/(out-1);
 - nearest: torch's legacy ``floor(dst * in/out)`` rule;
-- adaptive average pooling: torch ``AdaptiveAvgPool2d``'s windows.
+- adaptive average pooling: torch ``AdaptiveAvgPool2d``'s windows;
+- average pooling of an NHWC map (``avg_pool_nhwc``).
 
 The 2-tap bilinear weights come from float64 host coordinates, as in the JAX
 package. The JAX package applies them as two matmuls (the TPU's matrix unit
@@ -94,6 +95,23 @@ def adaptive_avg_pool(x: torch.Tensor, out_hw: Tuple[int, int]
         m_w = torch.from_numpy(adaptive_pool_matrix_np(w, ow)).to(x.device)
         xf = torch.einsum('pw,nhwc->nhpc', m_w, xf)
     return xf.to(x.dtype)
+
+
+def avg_pool_nhwc(x: torch.Tensor, kernel, stride, padding=0,
+                  ceil_mode: bool = False,
+                  count_include_pad: bool = True) -> torch.Tensor:
+    """torch ``F.avg_pool2d`` (flax ``nn.avg_pool`` with its defaults) on
+    an NHWC map, NHWC out. The NCHW view is copied to contiguous first:
+    on the card PyTorch 2.11's average-pool backward on a channels-last
+    input with padding returns wrong gradients (0.92 of the largest
+    entry off at 3x3 stride 2 padding 1: ``chip_smoke.py``'s
+    'avg_pool_nhwc' line; its forward and a contiguous input's backward
+    are right), which trained BiSeNetV2's detail branch and STDC's
+    stride-2 modules wrongly."""
+    y = torch.nn.functional.avg_pool2d(
+        x.permute(0, 3, 1, 2).contiguous(), kernel, stride, padding,
+        ceil_mode=ceil_mode, count_include_pad=count_include_pad)
+    return y.permute(0, 2, 3, 1)
 
 
 def resize_bilinear_np(x: np.ndarray, out_hw: Tuple[int, int],

@@ -325,6 +325,35 @@ def ocrnet_model(num_classes: int = 5, stage3_modules: int = 2) -> dict:
                  loss_decode=ce)])
 
 
+def stdc_model(num_classes: int = 5) -> dict:
+    """``configs/_base_/models/stdc.py`` narrowed: STDCNet1 at channels
+    (8, 16, 32, 64, 128), two convs a module, the context path at 16 (its FFM
+    at 32), the FCN decode head (16) on the fused 1/8 map, the two FCN aux
+    heads (8) on the contexts and ``STDCHead`` (8) on the 1/8 map with its own
+    2 classes; dropout 0."""
+    ce = dict(type='CrossEntropyLoss', loss_weight=1.0)
+    fcn = dict(type='FCNHead', num_convs=1, concat_input=False,
+               dropout_ratio=0.0, align_corners=True, loss_decode=ce)
+    return dict(
+        type='EncoderDecoder',
+        backbone=dict(
+            type='STDCContextPathNet',
+            backbone_cfg=dict(type='STDCNet', stdc_type='STDCNet1',
+                              channels=(8, 16, 32, 64, 128),
+                              bottleneck_type='cat', num_convs=2),
+            last_in_channels=(128, 64), out_channels=16,
+            ffm_cfg=dict(in_channels=48, out_channels=32, scale_factor=4)),
+        decode_head=dict(fcn, in_channels=32, channels=16, in_index=3,
+                         num_classes=num_classes),
+        auxiliary_head=[
+            dict(fcn, in_channels=16, channels=8, in_index=2,
+                 num_classes=num_classes),
+            dict(fcn, in_channels=16, channels=8, in_index=1,
+                 num_classes=num_classes),
+            dict(fcn, type='STDCHead', in_channels=32, channels=8,
+                 in_index=0, num_classes=2, boundary_threshold=0.1)])
+
+
 LOGIT_GAIN = 8.0
 
 

@@ -5,7 +5,7 @@ meta device, so no memory is spent) or raises the registry's KeyError
 naming a model type of that config that is not ported yet. The JAX
 package builds each of them.
 
-Then the tiny 64² forward of eleven base models, held to JAX in f32 from
+Then the tiny 64² forward of eighteen base models, held to JAX in f32 from
 perturbed JAX weights through the weight bridge: ``setr_mla.py`` and
 ``segmenter_vit-b_mask.py``, ``setr_pup.py`` and ``segformer_mit-b0.py``,
 and the five ResNet bases (``deeplabv3plus_r50-d8.py``,
@@ -13,7 +13,10 @@ and the five ResNet bases (``deeplabv3plus_r50-d8.py``,
 ``icnet_r50-d8.py``), narrowed through ``stem_channels`` /
 ``base_channels`` and the heads' ``channels`` at depth 50, and
 ``upernet_swin.py`` (Swin-T's depths at embed 24) and ``ocrnet_hr18.py``
-(the cascade; ``tests/_torch_port.py:hrnet_extra``), their
+(the cascade; ``tests/_torch_port.py:hrnet_extra``), and the seven
+real-time CNNs at their configs' own widths (``bisenetv1_r18-d32.py``,
+``bisenetv2.py``, ``stdc.py``, ``fast_scnn.py``, ``cgnet.py``,
+``erfnet_fcn.py``, ``lraspp_m-v3-d8.py``), their
 weights made from the JAX init's shapes
 (``tests/_torch_port.py:shaped_variables``; a jitted init of a ResNet-50
 takes many seconds to compile). The ViT-scale ones are shrunk as JAX's test
@@ -56,9 +59,14 @@ MODEL_CONFIGS = [p for p in ALL_CONFIGS if 'model' in Config.fromfile(p)]
 PORTED_BASES = ('setr_mla.py', 'segmenter_vit-b_mask.py', 'setr_pup.py',
                 'segformer_mit-b0.py', 'deeplabv3plus_r50-d8.py',
                 'pspnet_r50-d8.py', 'fpn_r50.py', 'ccnet_r50-d8.py',
-                'icnet_r50-d8.py', 'upernet_swin.py', 'ocrnet_hr18.py')
+                'icnet_r50-d8.py', 'upernet_swin.py', 'ocrnet_hr18.py',
+                'bisenetv1_r18-d32.py', 'bisenetv2.py', 'stdc.py',
+                'fast_scnn.py', 'cgnet.py', 'erfnet_fcn.py',
+                'lraspp_m-v3-d8.py')
 # weights from the JAX init's shapes (a jitted init compiles for long)
 CNN_BASES = PORTED_BASES[4:]
+# the real-time CNNs run at their configs' own widths
+REALTIME_BASES = PORTED_BASES[11:]
 ATOL = 1e-4
 
 
@@ -105,6 +113,14 @@ def test_config_builds_or_names_an_unported_type(path):
     assert sum(p.numel() for p in model.parameters()) > 0
 
 
+def test_every_model_type_is_ported():
+    """With the real-time CNNs every module type that a config under
+    configs/ names is in the port's registry."""
+    missing = {t for p in MODEL_CONFIGS
+               for t in _types(Config.fromfile(p).model) if t not in MODELS}
+    assert not missing, sorted(missing)
+
+
 def _shrunk(name):
     mc = copy.deepcopy(dict(Config.fromfile(
         osp.join(REPO, 'configs', '_base_', 'models', name)).model))
@@ -129,6 +145,8 @@ def _shrunk(name):
         for head in mc['decode_head']:
             head.update(in_channels=[4, 8, 16, 32], channels=16)
         mc['decode_head'][1]['ocr_channels'] = 8
+    elif name in REALTIME_BASES:
+        pass
     elif name in CNN_BASES:
         # ResNet-50 at stem 16, base 8: stages of 32, 64, 128, 256
         narrow = dict(stem_channels=16, base_channels=8)

@@ -696,3 +696,25 @@ def test_ring_on_kernels_matches_the_dense_kernel(cuda, tmp_path, dtype, tol,
             got = [torch.from_numpy(g).to(dtype) for g in r[i]['grads']]
             _assert_grads_close(got, [t.grad.cpu() for t in (qt, kt, vt)],
                                 bwd_tol)
+
+
+@pytest.mark.parametrize('kernel,stride,padding,ceil_mode,include', [
+    (3, 2, 1, False, True),       # BiSeNetV2, STDC, CGNet, ResNeSt's avd
+    (2, 2, 0, True, False),       # V1d's avg_down on an odd map
+    ((8, 8), (16, 20), 0, False, True)])     # LRASPPHead's gate
+def test_avg_pool_nhwc_gradient_matches_cpu(cuda, kernel, stride, padding,
+                                            ceil_mode, include):
+    """The port's NHWC average pool on the card against the CPU, forward
+    and backward (PyTorch's channels-last CUDA backward with padding is
+    wrong; ``avg_pool_nhwc`` pools a contiguous NCHW copy)."""
+    from s4former_tpu_torch.ops.resize import avg_pool_nhwc
+    x0 = torch.randn(2, 33, 33, 16, generator=torch.Generator().manual_seed(0))
+    outs = []
+    for device in ('cpu', cuda):
+        x = x0.detach().to(device).requires_grad_(True)
+        y = avg_pool_nhwc(x, kernel, stride, padding, ceil_mode, include)
+        g = torch.randn(y.shape, generator=torch.Generator().manual_seed(1))
+        y.backward(g.to(device))
+        outs.append((y.detach().cpu(), x.grad.cpu()))
+    assert (outs[0][0] - outs[1][0]).abs().max().item() <= 1e-6
+    assert (outs[0][1] - outs[1][1]).abs().max().item() <= 1e-6
