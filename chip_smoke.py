@@ -944,8 +944,8 @@ def phase_main_f32(fa, images):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = load_config('float32')
+    p_cpu, cpu_s, cpu_launches = cpu_half('main_f32', images)
     gpu = init_segmentor(cfg, seed=0, device='cuda')
-    cpu = init_segmentor(cfg, seed=0, device='cpu')
     x, _ = _prepare_image(gpu, images[0])
     check(x.shape == (1, 512, 512, 3), f'request shape {x.shape}')
     fa.launch_count = 0
@@ -954,10 +954,7 @@ def phase_main_f32(fa, images):
     launches = fa.launch_count
     check(launches == 12, f'f32 forward launched the kernel {launches} '
           f'times, not 12')
-    t0 = time.perf_counter()
-    p_cpu = cpu.probs(torch.from_numpy(x))
-    cpu_s = time.perf_counter() - t0
-    check(fa.launch_count == 12, 'the CPU forward reached the kernel')
+    check(cpu_launches == 0, 'the CPU forward reached the kernel')
     check(p_gpu.shape == (1, 512, 512, 21), f'probs shape {p_gpu.shape}')
     check(torch.isfinite(p_gpu).all().item(), 'non-finite f32 probs')
     err = (p_gpu.cpu() - p_cpu).abs().max().item()
@@ -966,9 +963,22 @@ def phase_main_f32(fa, images):
           'probs_max_abs_err': err, 'tol': TOL_MAIN_F32,
           'argmax_agreement': agree.item(), 'cpu_forward_s': cpu_s})
     check(err <= TOL_MAIN_F32, f'f32 card vs CPU probs differ by {err}')
-    del gpu, cpu
+    del gpu
     torch.cuda.empty_cache()
     return p_gpu
+
+
+def cpu_main_f32(fa, images, root):
+    """``phase_main_f32``'s CPU request: (probabilities, seconds, kernel
+    launches)."""
+    import torch
+    from s4former_tpu_torch.apis import _prepare_image, init_segmentor
+    cpu = init_segmentor(load_config('float32'), seed=0, device='cpu')
+    x, _ = _prepare_image(cpu, images[0])
+    fa.launch_count = 0
+    t0 = time.perf_counter()
+    p_cpu = cpu.probs(torch.from_numpy(x))
+    return p_cpu, time.perf_counter() - t0, fa.launch_count
 
 
 def phase_main_bf16(fa, images, p_f32, gpu_line):
@@ -1157,6 +1167,50 @@ def floats(logs):
     return {k: float(v) for k, v in logs.items()}
 
 
+def one_step(fa, state, step, batch, device, wrap=contextlib.nullcontext):
+    """One step of ``step`` from ``state`` on the numpy ``batch``, on
+    ``device``, inside ``wrap()``: (logs, each parameter's update on the
+    CPU, seconds, launch counts)."""
+    import torch
+    before = {n: p.detach().cpu().clone()
+              for n, p in state.model.named_parameters()}
+    dev_batch = to_device(batch, device)
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    with wrap():
+        state, logs = step(state, dev_batch,
+                           torch.Generator(device=device).manual_seed(0))
+    if device == 'cuda':
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    delta = {n: p.detach().cpu() - before[n]
+             for n, p in state.model.named_parameters()}
+    out = (floats(logs), delta, seconds, counts(fa))
+    del state, step, dev_batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def flagship_f32_batch(images):
+    """``phase_train_f32_vs_cpu``'s batch: 1 + 1 at 512², a CutMix box and
+    a seeded PatchShuffle permutation."""
+    import numpy as np
+    batch = train_batch(images, 1, 1)
+    mask = np.ones((1, 512, 512), np.float32)
+    mask[0, 96:352, 128:320] = 0
+    batch['dbg_cutmix_mask'] = mask
+    batch['dbg_patchmix_perm'] = np.random.RandomState(0).permutation(
+        16)[None].astype(np.int32)
+    return batch
+
+
+def cpu_train_f32(fa, images, root):
+    """``phase_train_f32_vs_cpu``'s CPU step."""
+    state, step, _ = make_trainer('ours', 'cpu', 'float32', 4,
+                                  unsup_confidence=UNSUP_CONFIDENCE_F32)
+    return one_step(fa, state, step, flagship_f32_batch(images), 'cpu')
+
+
 def phase_train_f32_vs_cpu(fa, images):
     """One S4Former step of ``..._MT_w_ours.py`` in f32 at full width, depth
     cut to 4 layers (out_indices 0-3), 1 sup + 1 unsup image at 512², the
@@ -1167,33 +1221,12 @@ def phase_train_f32_vs_cpu(fa, images):
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    batch = train_batch(images, 1, 1)
-    mask = np.ones((1, 512, 512), np.float32)
-    mask[0, 96:352, 128:320] = 0
-    batch['dbg_cutmix_mask'] = mask
-    batch['dbg_patchmix_perm'] = np.random.RandomState(0).permutation(
-        16)[None].astype(np.int32)
-    runs = {}
-    for device in ('cuda', 'cpu'):
-        state, step, _ = make_trainer(
-            'ours', device, 'float32', 4,
-            unsup_confidence=UNSUP_CONFIDENCE_F32)
-        before = {n: p.detach().cpu().clone()
-                  for n, p in state.model.named_parameters()}
-        dev_batch = to_device(batch, device)
-        reset_counts(fa)
-        t0 = time.perf_counter()
-        state, logs = step(state, dev_batch,
-                           torch.Generator(device=device).manual_seed(0))
-        if device == 'cuda':
-            torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        delta = {n: p.detach().cpu() - before[n]
-                 for n, p in state.model.named_parameters()}
-        runs[device] = (floats(logs), delta, seconds, counts(fa))
-        del state, step, dev_batch
-        torch.cuda.empty_cache()
-    (lg, dg, sg, cg), (lc, dc, sc, cc) = runs['cuda'], runs['cpu']
+    lc, dc, sc, cc = cpu_half('train_f32', images)
+    state, step, _ = make_trainer('ours', 'cuda', 'float32', 4,
+                                  unsup_confidence=UNSUP_CONFIDENCE_F32)
+    lg, dg, sg, cg = one_step(fa, state, step, flagship_f32_batch(images),
+                              'cuda')
+    del state, step
     check(cg == {'flash_attn_fwd': 12, 'flash_attn_bwd_fused': 8,
                  'flash_attn_bwd_dkv': 0, 'flash_attn_bwd_dq': 0},
           f'f32 step launches {cg}')
@@ -2151,8 +2184,8 @@ def phase_mit_serve_f32(fa, image):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = load_mit_config('sup', 'float32', MIT_SERVE_F32_DEPTH)
+    p_cpu, cpu_s = cpu_half('mit_serve_f32', None)
     gpu = init_segmentor(cfg, seed=0, device='cuda')
-    cpu = init_segmentor(cfg, seed=0, device='cpu')
     check((gpu.mode, gpu.crop_size, gpu.stride) ==
           ('slide', (768, 768), (512, 512)), 'slide geometry')
     windows = len(window_origins(*CITY_HW, gpu.crop_size, gpu.stride))
@@ -2163,9 +2196,6 @@ def phase_mit_serve_f32(fa, image):
     p_gpu = gpu.probs(torch.from_numpy(x).cuda())
     torch.cuda.synchronize()
     path_counts = counts(fa)                       # the main path ends
-    t0 = time.perf_counter()
-    p_cpu = cpu.probs(torch.from_numpy(x))
-    cpu_s = time.perf_counter() - t0
     check(p_gpu.shape == (1,) + CITY_HW + (MIT_CLASSES,),
           f'probs shape {p_gpu.shape}')
     check(torch.isfinite(p_gpu).all().item(), 'non-finite f32 probs')
@@ -2178,9 +2208,27 @@ def phase_mit_serve_f32(fa, image):
           'cpu_forward_s': cpu_s, 'launches': path_counts})
     check(all_zero(path_counts), f'the MiT launched a kernel: {path_counts}')
     check(err <= TOL_MAIN_F32, f'f32 card vs CPU probs differ by {err}')
-    del gpu, cpu, p_gpu, p_cpu
+    del gpu, p_gpu, p_cpu
     torch.cuda.empty_cache()
     return path_counts
+
+
+def cpu_mit_serve_f32(fa, images, root):
+    """``phase_mit_serve_f32``'s CPU request: (probabilities, seconds).
+    Its frame is the first of ``write_city_pngs`` from RandomState(4), as
+    ``main`` writes them."""
+    import numpy as np
+    import torch
+    from s4former_tpu_torch.apis import _prepare_image, init_segmentor
+    frame, = write_city_pngs(np.random.RandomState(4),
+                             os.path.join(root, 'frames'), 1)
+    cpu = init_segmentor(load_mit_config('sup', 'float32',
+                                         MIT_SERVE_F32_DEPTH),
+                         seed=0, device='cpu')
+    x, _ = _prepare_image(cpu, frame)
+    t0 = time.perf_counter()
+    p_cpu = cpu.probs(torch.from_numpy(x))
+    return p_cpu, time.perf_counter() - t0
 
 
 def phase_mit_serve_bf16(fa, images, gpu_line):
@@ -2249,6 +2297,34 @@ def trainer_of(model, cfg, paramwise_cfg=None, **semi_over):
     return state, step
 
 
+def mit_f32_batch():
+    """``phase_mit_train_f32_vs_cpu``'s batch: 1 + 1 seeded scenes at
+    MIT_CROP², a CutMix box and a seeded PatchShuffle permutation."""
+    import numpy as np
+    rs = np.random.RandomState(5)
+    batch = mit_train_batch(rs, 1, 1)
+    mask = np.ones((1, MIT_CROP, MIT_CROP), np.float32)
+    mask[0, 128:512, 192:480] = 0
+    batch['dbg_cutmix_mask'] = mask
+    batch['dbg_patchmix_perm'] = rs.permutation(36)[None].astype(np.int32)
+    return batch
+
+
+def cpu_mit_train_f32(fa, images, root):
+    """``phase_mit_train_f32_vs_cpu``'s threshold (the median of the CPU
+    teacher's max softmax) and CPU step."""
+    import torch
+    batch = mit_f32_batch()
+    cfg = load_mit_config('ours', 'float32', MIT_TRAIN_F32_DEPTH, drop=False)
+    state, _ = trainer_from_config(cfg, 'cpu')
+    with torch.no_grad():
+        t_logits = state.model.forward_decode_from_img(
+            torch.from_numpy(batch['unsup_teacher_img']), train=False)
+    threshold = float(torch.softmax(t_logits.float(), -1).amax(-1).median())
+    state, step = trainer_from_config(cfg, 'cpu', unsup_confidence=threshold)
+    return threshold, one_step(fa, state, step, batch, 'cpu')
+
+
 def phase_mit_train_f32_vs_cpu(fa):
     """One S4Former step of ``..._MT_w_ours.py`` in f32 cut to depth
     MIT_TRAIN_F32_DEPTH, drop path and dropout at 0, 1 + 1 seeded scenes at
@@ -2262,38 +2338,11 @@ def phase_mit_train_f32_vs_cpu(fa):
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    rs = np.random.RandomState(5)
-    batch = mit_train_batch(rs, 1, 1)
-    mask = np.ones((1, MIT_CROP, MIT_CROP), np.float32)
-    mask[0, 128:512, 192:480] = 0
-    batch['dbg_cutmix_mask'] = mask
-    batch['dbg_patchmix_perm'] = rs.permutation(36)[None].astype(np.int32)
+    threshold, (lc, dc, sc, cc) = cpu_half('mit_train_f32', None)
     cfg = load_mit_config('ours', 'float32', MIT_TRAIN_F32_DEPTH, drop=False)
-    state, _ = trainer_from_config(cfg, 'cpu')
-    with torch.no_grad():
-        t_logits = state.model.forward_decode_from_img(
-            torch.from_numpy(batch['unsup_teacher_img']), train=False)
-    threshold = float(torch.softmax(t_logits.float(), -1).amax(-1).median())
-    runs = {}
-    for device in ('cuda', 'cpu'):
-        state, step = trainer_from_config(cfg, device,
-                                          unsup_confidence=threshold)
-        before = {n: p.detach().cpu().clone()
-                  for n, p in state.model.named_parameters()}
-        dev_batch = to_device(batch, device)
-        reset_counts(fa)
-        t0 = time.perf_counter()
-        state, logs = step(state, dev_batch,
-                           torch.Generator(device=device).manual_seed(0))
-        if device == 'cuda':
-            torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        delta = {n: p.detach().cpu() - before[n]
-                 for n, p in state.model.named_parameters()}
-        runs[device] = (floats(logs), delta, seconds, counts(fa))
-        del state, step, dev_batch
-        torch.cuda.empty_cache()
-    (lg, dg, sg, cg), (lc, dc, sc, cc) = runs['cuda'], runs['cpu']
+    state, step = trainer_from_config(cfg, 'cuda', unsup_confidence=threshold)
+    lg, dg, sg, cg = one_step(fa, state, step, mit_f32_batch(), 'cuda')
+    del state, step
     check(sorted(lg) == sorted(lc), 'log keys differ')
     loss_err = {k: abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-6) for k in lc}
     scale = max(d.abs().max().item() for d in dc.values())
@@ -2841,16 +2890,13 @@ def phase_zoo_serve_f32(fa, which, path, image):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = zoo_cfg(path, 'float32', ZOO_F32_LAYERS)
+    p_cpu, cpu_s = cpu_half(f'zoo_serve_f32:{which}', [image])
     gpu = init_segmentor(cfg, seed=0, device='cuda')
-    cpu = init_segmentor(cfg, seed=0, device='cpu')
     x, _ = _prepare_image(gpu, image)
     reset_counts(fa)                               # the main path starts
     p_gpu = gpu.probs(torch.from_numpy(x).cuda())
     torch.cuda.synchronize()
     path_counts = counts(fa)                       # the main path ends
-    t0 = time.perf_counter()
-    p_cpu = cpu.probs(torch.from_numpy(x))
-    cpu_s = time.perf_counter() - t0
     check(p_gpu.shape == (1, 512, 512, 21), f'probs shape {p_gpu.shape}')
     check(torch.isfinite(p_gpu).all().item(), 'non-finite f32 probs')
     err = (p_gpu.cpu() - p_cpu).abs().max().item()
@@ -2867,9 +2913,22 @@ def phase_zoo_serve_f32(fa, which, path, image):
           f'{which} f32 request launched {path_counts}')
     check(err <= TOL_MAIN_F32, f'{which} f32 card vs CPU probs differ by '
           f'{err}')
-    del gpu, cpu
+    del gpu
     torch.cuda.empty_cache()
     return path_counts
+
+
+def cpu_zoo_serve_f32(fa, which, images, root):
+    """``phase_zoo_serve_f32``'s CPU request of ``images[0]``:
+    (probabilities, seconds)."""
+    import torch
+    from s4former_tpu_torch.apis import _prepare_image, init_segmentor
+    cpu = init_segmentor(zoo_cfg(zoo_config(root, which), 'float32',
+                                 ZOO_F32_LAYERS), seed=0, device='cpu')
+    x, _ = _prepare_image(cpu, images[0])
+    t0 = time.perf_counter()
+    p_cpu = cpu.probs(torch.from_numpy(x))
+    return p_cpu, time.perf_counter() - t0
 
 
 def phase_zoo_serve_bf16(fa, which, path, images, gpu_line):
@@ -2930,6 +2989,22 @@ def half_confident(max_prob):
     return float((v[i] + v[i + 1]) / 2)
 
 
+def cpu_zoo_train_f32(fa, which, images, root):
+    """``phase_zoo_train_f32``'s threshold (``half_confident`` of the CPU
+    teacher) and CPU step."""
+    import torch
+    batch = flagship_f32_batch(images)
+    cfg = zoo_cfg(zoo_config(root, which), 'float32', ZOO_F32_LAYERS,
+                  drop=False)
+    state, _ = trainer_from_config(cfg, 'cpu')
+    with torch.no_grad():
+        t_logits = state.model.forward_decode_from_img(
+            torch.from_numpy(batch['unsup_teacher_img']), train=False)
+    threshold = half_confident(torch.softmax(t_logits.float(), -1).amax(-1))
+    state, step = trainer_from_config(cfg, 'cpu', unsup_confidence=threshold)
+    return threshold, one_step(fa, state, step, batch, 'cpu')
+
+
 def phase_zoo_train_f32(fa, which, path, images):
     """One S4Former step of the zoo config in f32 at ZOO_F32_LAYERS layers,
     dropout and drop path at 0, 1 + 1 fixture images at 512², the same
@@ -2944,39 +3019,12 @@ def phase_zoo_train_f32(fa, which, path, images):
     from s4former_tpu_torch.semi.config import SemiConfig
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    batch = train_batch(images, 1, 1)
-    mask = np.ones((1, 512, 512), np.float32)
-    mask[0, 96:352, 128:320] = 0
-    batch['dbg_cutmix_mask'] = mask
-    batch['dbg_patchmix_perm'] = np.random.RandomState(0).permutation(
-        16)[None].astype(np.int32)
+    threshold, (lc, dc, sc, cc) = cpu_half(f'zoo_train_f32:{which}', images)
     cfg = zoo_cfg(path, 'float32', ZOO_F32_LAYERS, drop=False)
-    state, _ = trainer_from_config(cfg, 'cpu')
-    with torch.no_grad():
-        t_logits = state.model.forward_decode_from_img(
-            torch.from_numpy(batch['unsup_teacher_img']), train=False)
-    threshold = half_confident(torch.softmax(t_logits.float(), -1).amax(-1))
-    del state
-    runs = {}
-    for device in ('cuda', 'cpu'):
-        state, step = trainer_from_config(cfg, device,
-                                          unsup_confidence=threshold)
-        before = {n: p.detach().cpu().clone()
-                  for n, p in state.model.named_parameters()}
-        dev_batch = to_device(batch, device)
-        reset_counts(fa)
-        t0 = time.perf_counter()
-        state, logs = step(state, dev_batch,
-                           torch.Generator(device=device).manual_seed(0))
-        if device == 'cuda':
-            torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        delta = {n: p.detach().cpu() - before[n]
-                 for n, p in state.model.named_parameters()}
-        runs[device] = (floats(logs), delta, seconds, counts(fa))
-        del state, step, dev_batch
-        torch.cuda.empty_cache()
-    (lg, dg, sg, cg), (lc, dc, sc, cc) = runs['cuda'], runs['cpu']
+    state, step = trainer_from_config(cfg, 'cuda', unsup_confidence=threshold)
+    lg, dg, sg, cg = one_step(fa, state, step, flagship_f32_batch(images),
+                              'cuda')
+    del state, step
     want = predicted_launches(SemiConfig.from_model_cfg(cfg.model),
                               ZOO_F32_LAYERS)
     check(sorted(lg) == sorted(lc), 'log keys differ')
@@ -3246,32 +3294,63 @@ def calibrate_bn(model, x):
         h.remove()
 
 
-def phase_cnn_serve_f32(fa, path, image, name='cnn_serve_f32_vs_cpu',
-                        calibrate=False):
-    """The config (DeepLabV3+'s) at full depth in f32 on the card against
-    the same seeded weights on the CPU, one 512² request; probabilities
-    within TOL_MAIN_F32; no kernel launch. With ``calibrate`` the BN
-    statistics are first set on the CPU from the request (``calibrate_bn``)
-    and copied to the card. Returns the card's counts."""
+def f32_config(root, which):
+    """The config file of ``which``, written to ``root``: this slice's
+    models by ``context_config``, 'resnext' and 'resnest' as DeepLabV3+'s
+    backbone, the rest by ``cnn_config``."""
+    if which == 'mobilenet_v2' or which in CONTEXT_HEADS:
+        return context_config(root, which)
+    if which in CNN_BACKBONES:
+        return cnn_config(root, 'deeplabv3plus', which)
+    return cnn_config(root, which)
+
+
+def calibrates(which):
+    """Whether ``which``'s f32 phases first set its BN statistics from
+    their inputs (``calibrate_bn``): OCRNet's and REALTIME_CALIBRATE's."""
+    return which == 'ocrnet' or which in REALTIME_CALIBRATE
+
+
+def cpu_serve_f32(fa, which, images, root):
+    """``phase_cnn_serve_f32``'s CPU request of ``images[0]``:
+    (probabilities, seconds, the calibrated weights or None)."""
+    import torch
+    from s4former_tpu_torch.apis import _prepare_image, init_segmentor
+    from s4former_tpu_torch.config import Config
+    cpu = init_segmentor(Config.fromfile(f32_config(root, which)), seed=0,
+                         device='cpu')
+    x, _ = _prepare_image(cpu, images[0])
+    weights = None
+    if calibrates(which):
+        calibrate_bn(cpu.model, torch.from_numpy(x))
+        weights = cpu.model.state_dict()
+    t0 = time.perf_counter()
+    p_cpu = cpu.probs(torch.from_numpy(x))
+    return p_cpu, time.perf_counter() - t0, weights
+
+
+def phase_cnn_serve_f32(fa, which, root, image, name):
+    """The config of ``which`` (``f32_config``) at full depth in f32 on the
+    card against the same seeded weights on the CPU (``cpu_half``), one
+    512² request; probabilities within TOL_MAIN_F32; no kernel launch.
+    Where it ``calibrates``, the BN statistics are first set on the CPU
+    from the request (``calibrate_bn``) and copied to the card. Returns
+    the card's counts."""
     import torch
     from s4former_tpu_torch.apis import _prepare_image, init_segmentor
     from s4former_tpu_torch.config import Config
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = Config.fromfile(path)
-    gpu = init_segmentor(cfg, seed=0, device='cuda')
-    cpu = init_segmentor(cfg, seed=0, device='cpu')
+    path = f32_config(root, which)
+    p_cpu, cpu_s, weights = cpu_half(f'serve_f32:{which}', [image], root)
+    gpu = init_segmentor(Config.fromfile(path), seed=0, device='cuda')
     x, _ = _prepare_image(gpu, image)
-    if calibrate:
-        calibrate_bn(cpu.model, torch.from_numpy(x))
-        gpu.model.load_state_dict(cpu.model.state_dict())
+    if weights is not None:
+        gpu.model.load_state_dict(weights)
     reset_counts(fa)                               # the main path starts
     p_gpu = gpu.probs(torch.from_numpy(x).cuda())
     torch.cuda.synchronize()
     path_counts = counts(fa)                       # the main path ends
-    t0 = time.perf_counter()
-    p_cpu = cpu.probs(torch.from_numpy(x))
-    cpu_s = time.perf_counter() - t0
     same = p_gpu.shape == p_cpu.shape == (1, 512, 512, 21)
     err = (p_gpu.cpu() - p_cpu).abs().max().item() if same else None
     agree = (p_gpu.cpu().argmax(-1) == p_cpu.argmax(-1)).float().mean() \
@@ -3286,7 +3365,7 @@ def phase_cnn_serve_f32(fa, path, image, name='cnn_serve_f32_vs_cpu',
     check(all_zero(path_counts), f'a CNN request launched {path_counts}')
     check(err <= TOL_MAIN_F32, f'{name}: f32 card vs CPU probs differ '
           f'by {err}')
-    del gpu, cpu
+    del gpu
     torch.cuda.empty_cache()
     return path_counts
 
@@ -3396,28 +3475,31 @@ def ulp_moved(batch):
 
 
 def cnn_f32_threshold(cfg, batch, weights=None):
-    """``half_confident`` of the card's teacher on the batch (from
-    ``weights`` if given)."""
+    """``half_confident`` of the CPU's teacher on the batch (from
+    ``weights`` if given): the card's step takes the CPU teacher's logits
+    (``teacher_hook``, pinned), so the CPU's labels are the ones that
+    count."""
     import torch
-    state, _ = trainer_from_config(cfg, 'cuda', weights=weights)
+    state, _ = trainer_from_config(cfg, 'cpu', weights=weights)
     with torch.no_grad():
         t_logits = state.model.forward_decode_from_img(
-            torch.from_numpy(batch['unsup_teacher_img']).cuda(), train=False)
-    threshold = half_confident(torch.softmax(t_logits.float(), -1).amax(-1))
-    del state, t_logits
-    torch.cuda.empty_cache()
-    return threshold
+            torch.from_numpy(batch['unsup_teacher_img']), train=False)
+    return half_confident(torch.softmax(t_logits.float(), -1).amax(-1))
 
 
-def cnn_f32_step(fa, cfg, batch, threshold, device, hook, weights=None):
+def cnn_f32_step(fa, cfg, batch, threshold, device, hook, weights=None,
+                 buffers=()):
     """One step of ``cfg`` from the seeded weights (or ``weights``) on
-    ``device`` under the teacher hook ``hook()``: (logs, parameter updates
-    on the CPU, seconds, launch counts)."""
+    ``device`` under the teacher hook ``hook()``: (logs, the updates of
+    the parameters and of the state-dict entries ``buffers``, on the CPU,
+    seconds, launch counts)."""
     import torch
     state, step = trainer_from_config(cfg, device, weights=weights,
                                       unsup_confidence=threshold)
     before = {n: p.detach().cpu().clone()
               for n, p in state.model.named_parameters()}
+    before.update({n: state.model.state_dict()[n].cpu().clone()
+                   for n in buffers})
     dev_batch = to_device(batch, device)
     unhook = hook()
     reset_counts(fa)
@@ -3432,23 +3514,37 @@ def cnn_f32_step(fa, cfg, batch, threshold, device, hook, weights=None):
     seconds = time.perf_counter() - t0
     delta = {n: p.detach().cpu() - before[n]
              for n, p in state.model.named_parameters()}
+    sd = state.model.state_dict()
+    delta.update({n: sd[n].cpu() - before[n] for n in buffers})
     launches = counts(fa)
     del state, step, dev_batch
     torch.cuda.empty_cache()
     return floats(logs), delta, seconds, launches
 
 
-def f32_step_vs_witness(fa, cfg, batch, calibrate=False):
-    """One S4Former step of ``cfg`` (f32) from the seeded weights on the
-    CPU, again on the CPU on ``ulp_moved`` inputs (the witness), and on the
-    card, the teacher of each pinned to the CPU's (``teacher_hook``), the
-    threshold ``half_confident`` of the card's teacher. With ``calibrate``
-    the weights' BN statistics are first set on the CPU from the batch's
-    sup and teacher images (``calibrate_bn``), the same for every step.
-    Returns the line's fields and the launches of the three steps;
-    ``check_witness`` holds them."""
+def witness_case(which, root, images):
+    """(cfg, batch, calibrate, buffers) of ``which``'s 1 + 1 step at
+    CNN_WITNESS_SIZE² (``f32_step_vs_witness``): its config written to
+    ``root`` (``f32_config``), every head's dropout 0 (ERFNet's
+    backbone's too), the mixes' super-patches of its ``patchsize``; its BN
+    statistics set from the batch where it ``calibrates``; EMANet's
+    ``bases`` held too."""
+    cfg = cnn_f32_cfg(f32_config(root, which))
+    if which in REALTIME and 'dropout_ratio' in cfg.model.backbone:
+        cfg.model.backbone.dropout_ratio = 0.0            # ERFNet's
+    batch = cnn_f32_batch(images, CNN_WITNESS_SIZE, cfg.model.patchsize)
+    buffers = (EMA_BASES,) if which == 'emanet' else ()
+    return cfg, batch, calibrates(which), buffers
+
+
+def cpu_witness(fa, which, images, root):
+    """The CPU's half of ``f32_step_vs_witness`` for ``which``: the
+    calibrated weights (or None), the threshold (``cnn_f32_threshold``),
+    the CPU's step (its teacher's logits recorded) and the witness's (the
+    CPU step on ``ulp_moved`` inputs, its teacher pinned to the CPU's)."""
     import numpy as np
     import torch
+    cfg, batch, calibrate, buffers = witness_case(which, root, images)
     weights = None
     if calibrate:
         from s4former_tpu_torch.apis import init_segmentor
@@ -3457,18 +3553,48 @@ def f32_step_vs_witness(fa, cfg, batch, calibrate=False):
             [batch['sup_img'], batch['unsup_teacher_img']])))
         weights = model.state_dict()
     threshold = cnn_f32_threshold(cfg, batch, weights)
-    record, stats, stats_w = [], [], []
-    lc, dc, sc, cc = cnn_f32_step(fa, cfg, batch, threshold, 'cpu',
-                                  lambda: teacher_hook(record=record),
-                                  weights)
-    lw, dw, sw, cw = cnn_f32_step(
+    record, stats_w = [], []
+    cpu = cnn_f32_step(fa, cfg, batch, threshold, 'cpu',
+                       lambda: teacher_hook(record=record), weights, buffers)
+    wit = cnn_f32_step(
         fa, cfg, ulp_moved(batch), threshold, 'cpu',
         lambda: teacher_hook(reference=record, pin=True, stats=stats_w),
-        weights)
+        weights, buffers)
+    return {'weights': weights, 'threshold': threshold, 'record': record,
+            'cpu': cpu, 'wit': wit, 'stats_w': stats_w}
+
+
+def f32_step_vs_witness(fa, which, root, images):
+    """One S4Former step of ``which`` (``witness_case``, f32) from the
+    seeded weights on the CPU, again on the CPU on ``ulp_moved`` inputs
+    (the witness), both from ``cpu_half``, and on the card, the teacher
+    of each pinned to the CPU's (``teacher_hook``), the threshold
+    ``half_confident`` of the CPU's teacher. Where the case calibrates,
+    the weights' BN statistics are first set on the CPU from the batch's
+    sup and teacher images (``calibrate_bn``), the same for every step.
+    Its ``buffers`` (state-dict keys, EMAHead's ``bases``): each one's
+    change in the step, card against CPU, within CNN_WITNESS_MULT x the
+    witness's distance or TOL_TRAIN_F32 of the CPU's largest change, and
+    moved by the card's step. Returns the line's fields and the launches
+    of the three steps; ``check_witness`` holds them."""
+    import torch
+    cfg, batch, _, buffers = witness_case(which, root, images)
+    half = cpu_half(f'witness:{which}', images, root)
+    threshold, record = half['threshold'], half['record']
+    stats, stats_w = [], half['stats_w']
+    (lc, dc, sc, cc), (lw, dw, sw, cw) = half['cpu'], half['wit']
     lg, dg, sg, cg = cnn_f32_step(
         fa, cfg, batch, threshold, 'cuda',
         lambda: teacher_hook(reference=record, pin=True, stats=stats),
-        weights)
+        half['weights'], buffers)
+    kept = {}
+    for n in buffers:
+        card, cpu, wit = dg.pop(n), dc.pop(n), dw.pop(n)
+        kept[n] = {'err': (card - cpu).abs().max().item(),
+                   'allowed': max(
+                       CNN_WITNESS_MULT * (wit - cpu).abs().max().item(),
+                       TOL_TRAIN_F32 * cpu.abs().max().item()),
+                   'moved': card.abs().max().item()}
     scale = max(d.abs().max().item() for d in dc.values())
     leaves = []
     for n in dc:
@@ -3499,7 +3625,138 @@ def f32_step_vs_witness(fa, cfg, batch, calibrate=False):
             int(((torch.softmax(t, -1).amax(-1) - threshold).abs() < 1e-6)
                 .sum()) for t in record),
         'card_step_s': sg, 'cpu_step_s': sc, 'witness_step_s': sw,
+        'buffers': kept,
         'log_keys_same': sorted(lg) == sorted(lc)}, (cg, cc, cw)
+
+
+# ------------------------------------------------------------ the CPU side
+# The f32 phases' CPU halves (the CPU's steps, requests and head runs, and
+# the one-ulp witnesses) read nothing that the card computes. ``main``
+# starts a second process, ``chip_smoke.py --cpu-side DIR`` (``cpu_side``),
+# at nice CPU_SIDE_NICE on CPU_SIDE_THREADS threads and without the card,
+# that computes them in the order the phases take them (``cpu_jobs``)
+# while this process drives the card; a phase takes its half with
+# ``cpu_half``. Without it (a phase run alone) the half runs here.
+CPU_SIDE_THREADS = 4
+CPU_SIDE_NICE = 19
+CPU_SIDE = None
+
+
+def cpu_jobs():
+    """Every CPU half, in the order ``main`` takes them."""
+    return (['main_f32', 'train_f32', 'mit_serve_f32', 'mit_train_f32']
+            + [f'{kind}:{which}' for which in ZOO_MODELS
+               for kind in ('zoo_serve_f32', 'zoo_train_f32')]
+            + ['serve_f32:deeplabv3plus', 'cnn_f32', 'witness:deeplabv3plus',
+               'serve_f32:resnext', 'serve_f32:resnest']
+            + [f'{kind}:{which}' for which in SWIN_HRNET + REALTIME +
+               ('mobilenet_v2',) for kind in ('serve_f32', 'witness')]
+            + [job for which in CONTEXT_HEADS for job in
+               [f'head:{which}'] + (['witness:emanet']
+                                    if which == 'emanet' else [])]
+            + ['ablation_f32']
+            + [f'unimatch:{name}' for name in UNIMATCH_F32_CASES])
+
+
+def run_cpu_job(name, images, root):
+    """The CPU half ``name`` (a ``cpu_jobs`` entry), its configs and files
+    written to ``root``."""
+    from s4former_tpu_torch.ops import flash_attention as fa
+    kind, _, which = name.partition(':')
+    if which:
+        job = {'zoo_serve_f32': cpu_zoo_serve_f32,
+               'zoo_train_f32': cpu_zoo_train_f32,
+               'serve_f32': cpu_serve_f32, 'witness': cpu_witness,
+               'head': cpu_head, 'unimatch': cpu_unimatch}[kind]
+        return job(fa, which, images, root)
+    job = {'main_f32': cpu_main_f32, 'train_f32': cpu_train_f32,
+           'mit_serve_f32': cpu_mit_serve_f32,
+           'mit_train_f32': cpu_mit_train_f32, 'cnn_f32': cpu_cnn_f32,
+           'ablation_f32': cpu_ablation_f32}[kind]
+    return job(fa, images, root)
+
+
+def job_file(name):
+    return name.replace(':', '_') + '.pt'
+
+
+def cpu_half(name, images, root=None):
+    """The CPU half ``name``: from the CPU side if it runs (waiting for
+    it), else computed here (``images`` and ``root`` as the phase has
+    them; a temporary directory for ``root`` if None)."""
+    if CPU_SIDE is not None:
+        return CPU_SIDE.get(name)
+    if root is not None:
+        return run_cpu_job(name, images, root)
+    with tempfile.TemporaryDirectory() as tmp:
+        return run_cpu_job(name, images, tmp)
+
+
+def cpu_side(directory):
+    """The CPU side's process: each of ``cpu_jobs`` in turn on the fixture
+    images, its configs and files in a subdirectory of ``directory``, its
+    result saved to ``directory`` (written under another name, then
+    renamed) and a line of its seconds printed."""
+    import torch
+    os.nice(CPU_SIDE_NICE)
+    torch.set_num_threads(CPU_SIDE_THREADS)
+    sys.path.insert(0, REPO)
+    os.chdir(REPO)
+    images = sorted(glob.glob(IMAGES))
+    root = os.path.join(directory, 'work')
+    os.makedirs(root)
+    for name in cpu_jobs():
+        t0 = time.perf_counter()
+        result = run_cpu_job(name, images, root)
+        path = os.path.join(directory, job_file(name))
+        torch.save(result, path + '.tmp')
+        os.replace(path + '.tmp', path)
+        print(json.dumps({'job': name, 'seconds': time.perf_counter() - t0}),
+              flush=True)
+    return 0
+
+
+class CpuSide:
+    """The running CPU side (``cpu_side``) on ``directory``: ``get`` waits
+    for a half and loads it (its file then goes), ``waited`` keeps how
+    long each wait took, ``close`` ends the process."""
+
+    def __init__(self, directory):
+        self.dir = directory
+        self.log = os.path.join(directory, 'cpu_side.log')
+        with open(self.log, 'w') as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), '--cpu-side',
+                 directory], cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
+                env=dict(os.environ, CUDA_VISIBLE_DEVICES=''))
+        self.waited = {}
+
+    def get(self, name):
+        import torch
+        path = os.path.join(self.dir, job_file(name))
+        t0 = time.perf_counter()
+        while not os.path.exists(path):
+            if self.proc.poll() is not None and not os.path.exists(path):
+                with open(self.log) as f:
+                    tail = f.read()[-6000:]
+                raise SmokeFailure(f'the CPU side exited with '
+                                   f'{self.proc.returncode} before {name}:'
+                                   f'\n{tail}')
+            time.sleep(0.02)
+        self.waited[name] = time.perf_counter() - t0
+        out = torch.load(path, weights_only=False)
+        os.remove(path)
+        return out
+
+    def job_seconds(self):
+        with open(self.log) as f:
+            return {r['job']: r['seconds'] for r in map(json.loads, f)
+                    if 'job' in r}
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
 
 
 def check_witness(name, r, launches):
@@ -3520,34 +3777,48 @@ def check_witness(name, r, launches):
           f'{name}: f32 losses, card vs CPU: {r["loss_rel_err"]}')
     check(r['update_err_worst'][-1][0] <= 1, f'{name}: f32 updates beyond '
           f'the witness: {r["update_err_worst"]}')
+    for key, b in r['buffers'].items():
+        check(b['err'] <= b['allowed'] and b['moved'] > 0,
+              f'{name}: {key} after the step, card vs CPU: {b}')
+
+
+def cpu_cnn_f32(fa, images, root):
+    """``phase_cnn_train_f32``'s CPU step at ResNetV1c-CNN_F32_DEPTH:
+    (threshold, the teacher's logits, the step)."""
+    cfg = cnn_f32_cfg(cnn_config(root, 'deeplabv3plus'), CNN_F32_DEPTH)
+    batch = cnn_f32_batch(images)
+    threshold = cnn_f32_threshold(cfg, batch)
+    record = []
+    cpu = cnn_f32_step(fa, cfg, batch, threshold, 'cpu',
+                       lambda: teacher_hook(record=record))
+    return threshold, record, cpu
 
 
 def phase_cnn_train_f32(fa, path, images):
     """One S4Former step of DeepLabV3+ in f32, 1 + 1 fixture images,
     dropout 0, the same CutMix box and PatchShuffle permutation, on the CPU
-    and then on the card from the same seeded weights. The threshold
-    (``half_confident``, from the card's teacher) leaves about half of the
-    teacher's pixels confident, so pseudo-CE, NCR and the PASA pass are
-    live; the card's step takes the CPU teacher's logits (``teacher_hook``,
-    pinned: its labels, mask and bias are the CPU's; the labels its own
-    logits would give are counted). At ResNetV1c-CNN_F32_DEPTH and 512²:
-    losses within TOL_TRAIN_F32 relative, updates within TOL_TRAIN_F32 of
-    the largest CPU update. At ResNetV1c-50 (full depth) and
-    CNN_WITNESS_SIZE²: losses as before, and every parameter's update
-    within CNN_WITNESS_MULT x the
-    witness's distance from the CPU's (the CPU step on ``ulp_moved``
-    inputs, the teacher pinned to the CPU's) or TOL_TRAIN_F32 of the
-    largest CPU update. No kernel launch. Returns the card's counts."""
+    (``cpu_half``) and on the card from the same seeded weights. The
+    threshold (``half_confident``, from the CPU's teacher) leaves about
+    half of the teacher's pixels confident, so pseudo-CE, NCR and the PASA
+    pass are live; the card's step takes the CPU teacher's logits
+    (``teacher_hook``, pinned: its labels, mask and bias are the CPU's;
+    the labels its own logits would give are counted). At
+    ResNetV1c-CNN_F32_DEPTH and 512²: losses within TOL_TRAIN_F32
+    relative, updates within TOL_TRAIN_F32 of the largest CPU update. At
+    ResNetV1c-50 (full depth) and CNN_WITNESS_SIZE²: losses as before, and
+    every parameter's update within CNN_WITNESS_MULT x the witness's
+    distance from the CPU's (the CPU step on ``ulp_moved`` inputs, the
+    teacher pinned to the CPU's) or TOL_TRAIN_F32 of the largest CPU
+    update. No kernel launch. Returns the card's counts."""
     import numpy as np
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = cnn_f32_cfg(path, CNN_F32_DEPTH)
     batch = cnn_f32_batch(images)
-    threshold = cnn_f32_threshold(cfg, batch)
-    record, stats = [], []
-    lc, dc, sc, cc = cnn_f32_step(fa, cfg, batch, threshold, 'cpu',
-                                  lambda: teacher_hook(record=record))
+    root = os.path.dirname(path)
+    threshold, record, (lc, dc, sc, cc) = cpu_half('cnn_f32', images, root)
+    stats = []
     lg, dg, sg, cg = cnn_f32_step(
         fa, cfg, batch, threshold, 'cuda',
         lambda: teacher_hook(reference=record, pin=True, stats=stats))
@@ -3559,8 +3830,8 @@ def phase_cnn_train_f32(fa, path, images):
     upd_err = by_param[-1][0]
 
     # ResNetV1c-50 against the witness
-    depth50, launches50 = f32_step_vs_witness(
-        fa, cnn_f32_cfg(path), cnn_f32_batch(images, CNN_WITNESS_SIZE))
+    depth50, launches50 = f32_step_vs_witness(fa, 'deeplabv3plus', root,
+                                              images)
     emit({'phase': 'cnn_train_f32_vs_cpu', 'config': os.path.basename(path),
           'cut': f'ResNetV1c-{CNN_F32_DEPTH}, dropout 0',
           'batch': f'1 sup + 1 unsup at 512², unsup_confidence {threshold} '
@@ -3589,11 +3860,12 @@ def phase_cnn_train_f32(fa, path, images):
 
 
 def phase_cnn_train(fa, path, images, gpu_line, n=4, timed=3,
-                    name='cnn_train', cover=False):
+                    name='cnn_train', cover=False, moved=()):
     """The config's step (DeepLabV3+'s) at full depth, f32, dropout as
     configured, ``n`` + ``n`` fixture images at 512² (``cover``: scaled to
     cover it, ``fixture_arrays``): the first step, ``timed`` timed; peak
-    memory; finite logs; no kernel launch. Returns the counts of the
+    memory; finite logs; no kernel launch; each buffer of ``moved`` (a
+    state-dict key) changed by the steps. Returns the counts of the
     steps."""
     import numpy as np
     import torch
@@ -3604,13 +3876,17 @@ def phase_cnn_train(fa, path, images, gpu_line, n=4, timed=3,
                                             device='cuda').model, cfg)
     batch = to_device(train_batch(images, n, n, cover=cover), 'cuda')
     gen = torch.Generator(device='cuda').manual_seed(0)
+    before = {k: state.model.state_dict()[k].clone() for k in moved}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(fa)                               # the main path starts
     state, logs, ms = timed_steps(state, step, batch, gen, 1 + timed)
     path_counts = counts(fa)                       # the main path ends
     lg = floats(logs)
+    shift = {k: (state.model.state_dict()[k] - v).abs().max().item()
+             for k, v in before.items()}
     emit({'phase': name, 'config': os.path.basename(path),
+          'moved': shift,
           'batch': f'{n} + {n} at 512²' + (', scaled to cover it' if cover
                                            else '') + ', f32',
           'first_step_ms': ms[0],
@@ -3621,6 +3897,7 @@ def phase_cnn_train(fa, path, images, gpu_line, n=4, timed=3,
           'gpu': gpu_line})
     check(all(np.isfinite(v) for v in lg.values()), f'non-finite logs {lg}')
     check(all_zero(path_counts), f'{name} launched {path_counts}')
+    check(all(v > 0 for v in shift.values()), f'{name}: unmoved {shift}')
     del state, step, batch
     torch.cuda.empty_cache()
     return path_counts
@@ -3821,8 +4098,9 @@ def run_cnn(fa, images, gpu_line, root):
         torch.cuda.empty_cache()
         return counts_
     for name, run in (
-            ('cnn_serve_f32', lambda: phase_cnn_serve_f32(fa, path,
-                                                          images[0])),
+            ('cnn_serve_f32', lambda: phase_cnn_serve_f32(
+                fa, 'deeplabv3plus', root, images[0],
+                'cnn_serve_f32_vs_cpu')),
             ('cnn_serve', serve),
             ('cnn_train_f32', lambda: phase_cnn_train_f32(fa, path, images)),
             ('cnn_train', lambda: phase_cnn_train(fa, path, images,
@@ -3831,11 +4109,9 @@ def run_cnn(fa, images, gpu_line, root):
                                                   gpu_line)),
             # ResNeXt-50 and ResNeSt-50 in DeepLabV3+'s place
             ('resnext_serve_f32', lambda: phase_cnn_serve_f32(
-                fa, cnn_config(root, 'deeplabv3plus', 'resnext'), images[0],
-                'resnext_serve_f32_vs_cpu')),
+                fa, 'resnext', root, images[0], 'resnext_serve_f32_vs_cpu')),
             ('resnest_serve_f32', lambda: phase_cnn_serve_f32(
-                fa, cnn_config(root, 'deeplabv3plus', 'resnest'), images[0],
-                'resnest_serve_f32_vs_cpu')),
+                fa, 'resnest', root, images[0], 'resnest_serve_f32_vs_cpu')),
             ('cnn_train_cli', lambda: phase_cnn_train_cli(fa, gpu_line, root,
                                                           path))):
         t0 = time.perf_counter()
@@ -3888,10 +4164,7 @@ def run_swin_hrnet(fa, images, gpu_line, root):
         return path_counts
 
     def train_f32(which, path):
-        r, launches = f32_step_vs_witness(
-            fa, cnn_f32_cfg(path),
-            cnn_f32_batch(images, CNN_WITNESS_SIZE, PATCHSIZE[which]),
-            calibrate=which == 'ocrnet')
+        r, launches = f32_step_vs_witness(fa, which, root, images)
         emit({'phase': f'{which}_train_f32_vs_cpu',
               'config': os.path.basename(path), **r,
               'tol': TOL_TRAIN_F32, 'settings': conv_settings(),
@@ -3902,8 +4175,8 @@ def run_swin_hrnet(fa, images, gpu_line, root):
         path = cnn_config(root, which)
         for name, run in (
                 ('serve_f32', lambda: phase_cnn_serve_f32(
-                    fa, path, images[0], f'{which}_serve_f32_vs_cpu',
-                    calibrate=which == 'ocrnet')),
+                    fa, which, root, images[0],
+                    f'{which}_serve_f32_vs_cpu')),
                 ('serve', lambda: serve(which, path)),
                 ('train', lambda: phase_cnn_train(
                     fa, path, images, gpu_line, n=2, timed=2,
@@ -4008,14 +4281,9 @@ def run_realtime(fa, images, gpu_line, root):
         return path_counts
 
     def train_f32(which, path):
-        cfg = cnn_f32_cfg(path)
-        if 'dropout_ratio' in cfg.model.backbone:        # ERFNet's
-            cfg.model.backbone.dropout_ratio = 0.0
-        r, launches = f32_step_vs_witness(
-            fa, cfg, cnn_f32_batch(images, CNN_WITNESS_SIZE,
-                                   PATCHSIZE.get(which, CNN_PATCHSIZE)),
-            calibrate=which in REALTIME_CALIBRATE)
-        heads = [(h.type, h.num_classes) for h in model_heads(cfg.model)[1:]]
+        r, launches = f32_step_vs_witness(fa, which, root, images)
+        heads = [(h.type, h.num_classes)
+                 for h in model_heads(cnn_f32_cfg(path).model)[1:]]
         emit({'phase': f'{which}_train_f32_vs_cpu',
               'config': os.path.basename(path), **r,
               'aux_head_classes': heads, 'tol': TOL_TRAIN_F32,
@@ -4031,8 +4299,8 @@ def run_realtime(fa, images, gpu_line, root):
     for which in REALTIME:
         path = cnn_config(root, which)
         runs = [('serve_f32', lambda: phase_cnn_serve_f32(
-                    fa, path, images[0], f'{which}_serve_f32_vs_cpu',
-                    calibrate=which in REALTIME_CALIBRATE)),
+                    fa, which, root, images[0],
+                    f'{which}_serve_f32_vs_cpu')),
                 ('serve', lambda: serve(which, path)),
                 ('train', lambda: phase_cnn_train(
                     fa, path, images, gpu_line, n=2, timed=2,
@@ -4043,6 +4311,341 @@ def run_realtime(fa, images, gpu_line, root):
             paths[f'{which}_{name}'] = run()
             seconds[f'{which}_{name}'] = time.perf_counter() - t0
     emit({'phase': 'realtime_seconds', **seconds,
+          'total': sum(seconds.values())})
+    return paths
+
+
+# ------------------------------------------------ the context heads
+# the heads of JAX zoo_heads.py on ResNetV1c-50-D8 (``cnn_config``'s
+# DeepLabV3+ backbone and FCN aux head), each with mmseg's ``*_r50-d8``
+# head settings (PSANet's mask at its 512x512 configs' (66, 66)), 21
+# classes; and DeepLabV3 on MobileNetV2-D8 (``deeplabv3_m-v2-d8``: the
+# ASPP on stage 6 of 320, the FCN aux head on stage 4 of 96)
+CONTEXT_HEADS = {
+    'nonlocal': dict(type='NLHead', reduction=2, use_scale=True,
+                     mode='embedded_gaussian'),
+    'gcnet': dict(type='GCHead', ratio=1 / 4., pooling_type='att',
+                  fusion_types=('channel_add',)),
+    'dnl': dict(type='DNLHead', reduction=2, use_scale=True,
+                mode='embedded_gaussian'),
+    'ann': dict(type='ANNHead', in_channels=[1024, 2048], in_index=[2, 3],
+                project_channels=256, query_scales=(1,),
+                key_pool_scales=(1, 3, 6, 8)),
+    'apcnet': dict(type='APCHead', pool_scales=(1, 2, 3, 6)),
+    'dmnet': dict(type='DMHead', filter_sizes=(1, 3, 5, 7)),
+    'emanet': dict(type='EMAHead', channels=256, ema_channels=512,
+                   num_bases=64, num_stages=3, momentum=0.1),
+    'encnet': dict(type='EncHead', in_channels=[512, 1024, 2048],
+                   in_index=(1, 2, 3), num_codes=32, use_se_loss=True,
+                   add_lateral=False,
+                   loss_se_decode=dict(type='CrossEntropyLoss',
+                                       use_sigmoid=True, loss_weight=0.2)),
+    'isanet': dict(type='ISAHead', isa_channels=256, down_factor=(8, 8)),
+    'psanet': dict(type='PSAHead', mask_size=(66, 66),
+                   psa_type='bi-direction', compact=False, shrink_factor=2,
+                   normalization_factor=1.0, psa_softmax=True),
+    'danet': dict(type='DAHead', pam_channels=64),
+}
+# the mixes' super-patches: EncHead never undoes the PatchShuffle (JAX
+# l.631), so it keeps the default 16; every other head here undoes it on
+# the 1/8 map (8)
+CONTEXT_PATCHSIZE = {'encnet': 16}
+CONTEXT_STEPS = ('emanet', 'psanet', 'danet')
+EMA_BASES = 'decode_head.ema_module.bases'
+# the head alone, card against CPU (f32, train mode; ReLU signs pinned to
+# the CPU's, ``phase_context_head_f32``): each tensor (the logits, each
+# feature's gradient, each parameter's gradient) within CNN_WITNESS_MULT x
+# its one-ulp witness's distance on either device, or this share of the
+# largest CPU entry of its group (the f32 step's TOL_TRAIN_F32)
+TOL_HEAD_F32 = 1e-3
+# a ReLU input whose sign the card and the CPU see differently must be a
+# tie: within this share of that ReLU input's largest CPU value on both
+# devices (f32 sums in another order part by ~1e-6 of it; a fault that
+# flipped a real value would part by O(1))
+TOL_TIE = 1e-4
+
+
+def context_config(root, which):
+    """The fixture config (as ``cnn_config`` writes it) with a model of
+    this slice: ``mobilenet_v2`` or a key of CONTEXT_HEADS. Returns the
+    path."""
+    ce = dict(type='CrossEntropyLoss', loss_weight=1.0)
+    if which == 'mobilenet_v2':
+        backbone = dict(type='MobileNetV2', widen_factor=1.,
+                        strides=(1, 2, 2, 1, 1, 1, 1),
+                        dilations=(1, 1, 1, 2, 2, 4, 4),
+                        out_indices=(1, 2, 4, 6))
+        head = dict(type='ASPPHead', in_channels=320, in_index=3,
+                    channels=512, dilations=(1, 12, 24, 36))
+        aux_in = 96
+    else:
+        from s4former_tpu_torch.config import Config
+        backbone = Config.fromfile(os.path.join(
+            REPO, 'configs', '_base_', 'models',
+            CNN_MODELS['deeplabv3plus'])).to_dict()['model']['backbone']
+        head = dict(dict(in_channels=2048, in_index=3, channels=512),
+                    **CONTEXT_HEADS[which])
+        aux_in = 1024
+    head = dict(head, dropout_ratio=0.1, num_classes=21, align_corners=False,
+                loss_decode=ce, _delete_=True)
+    aux = [dict(type='FCNHead', in_channels=aux_in, in_index=2,
+                channels=256, num_convs=1, concat_input=False,
+                dropout_ratio=0.1, num_classes=21, align_corners=False,
+                loss_decode=dict(ce, loss_weight=0.4))]
+    over = dict(type='EncoderDecoder',
+                backbone=dict(backbone, _delete_=True), decode_head=head,
+                auxiliary_head=aux,
+                patchsize=CONTEXT_PATCHSIZE.get(which, CNN_PATCHSIZE))
+    path = os.path.join(root, f'{which}_voc_mini_MT_w_ours.py')
+    with open(path, 'w') as f:
+        f.write(f'_base_ = [{FULLFLAG!r}]\nmodel = {over!r}\n')
+    return path
+
+
+class ReluPin:
+    """``torch.nn.functional.relu``, which every ReLU of the heads calls,
+    patched for the head checks. Without ``masks`` the ReLUs run as they
+    are and each call's input is kept (``inputs``, on the CPU); with
+    ``masks`` (a recorded run's signs, one a call) each call passes its
+    input where the mask is set, whatever its own sign, and ``flips`` gets
+    a call's (index, the positions, |input| there) where its own sign
+    differs."""
+
+    def __init__(self, masks=None):
+        self.masks, self.inputs, self.flips, self.calls = masks, [], [], 0
+
+    def __enter__(self):
+        import torch
+        import torch.nn.functional as F
+        self.original = F.relu
+
+        def relu(x, inplace=False):
+            i, self.calls = self.calls, self.calls + 1
+            if self.masks is None:
+                self.inputs.append(x.detach().cpu())
+                return self.original(x)
+            mask = self.masks[i].to(x.device)
+            check(mask.shape == x.shape, f'ReLU call {i}: {tuple(x.shape)}, '
+                  f'recorded {tuple(mask.shape)}')
+            flip = (x.detach() > 0) != mask
+            if flip.any():
+                self.flips.append((i, flip.nonzero().cpu(),
+                                   x.detach()[flip].abs().cpu()))
+            return torch.where(mask, x, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
+        F.relu = relu
+        return self
+
+    def __exit__(self, *exc):
+        import torch.nn.functional as F
+        F.relu = self.original
+
+
+def head_case(which, root):
+    """(the decode head of ``context_config(root, which)``, dropout 0,
+    seeded; the ResNetV1c-50-D8 features of one 256² image: seeded ReLU'd
+    noise at the stages' widths, 64² x 256, 32² x 512, 1024, 2048; the
+    same with every non-zero value moved one ulp up or down, seeded (a
+    zero stays: one ulp from 0 is a subnormal, which the CPU computes
+    with slowly); a seeded cotangent of the logits)."""
+    import numpy as np
+    import torch
+    import s4former_tpu_torch.models  # noqa: F401  (registers the heads)
+    from s4former_tpu_torch.config import Config
+    from s4former_tpu_torch.registry import MODELS
+    cfg = Config.fromfile(context_config(root, which))
+    torch.manual_seed(0)
+    head = MODELS.build(dict(cfg.model.decode_head, dropout_ratio=0.0))
+    gen = torch.Generator().manual_seed(1)
+    feats = [torch.randn(1, s, s, c, generator=gen).relu()
+             for s, c in ((64, 256), (32, 512), (32, 1024), (32, 2048))]
+    cot = torch.randn(1, 32, 32, 21, generator=gen)
+    rs = np.random.RandomState(0)
+    moved = []
+    for f in feats:
+        x = f.numpy()
+        to = np.where(rs.rand(*x.shape) < 0.5, -np.inf, np.inf)
+        moved.append(torch.from_numpy(np.where(
+            x == 0, x, np.nextafter(x, to.astype(np.float32)))))
+    return head, feats, moved, cot
+
+
+def head_grads(fa, head, device, inputs, cot, pin):
+    """The head (a copy on ``device``) in train mode on ``inputs``, its
+    logits times ``cot`` summed and differentiated, inside ``pin`` (a
+    ``ReluPin``): ({'logits', 'input i', parameter names: on the CPU},
+    seconds, launch counts)."""
+    import copy
+    import torch
+    h = copy.deepcopy(head).to(device)
+    xs = [f.detach().to(device).requires_grad_(True) for f in inputs]
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    with pin:
+        out = h(xs, train=True)
+        (out * cot.to(device)).sum().backward()
+    if device == 'cuda':
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    grads = {'logits': out.detach().cpu()}
+    grads.update({f'input {i}': x.grad.cpu() for i, x in enumerate(xs)
+                  if x.grad is not None})
+    grads.update({n: p.grad.cpu() for n, p in h.named_parameters()
+                  if p.grad is not None})
+    return grads, seconds, counts(fa)
+
+
+def cpu_head(fa, which, images, root):
+    """``phase_context_head_f32``'s CPU half: the head's run (its ReLU
+    inputs kept) and the witness's on the moved features (the ReLUs
+    pinned to the run's signs)."""
+    head, feats, moved, cot = head_case(which, root)
+    rec = ReluPin()
+    cpu, cpu_s, cc = head_grads(fa, head, 'cpu', feats, cot, rec)
+    masks = [z > 0 for z in rec.inputs]
+    wit, _, _ = head_grads(fa, head, 'cpu', moved, cot, ReluPin(masks))
+    return {'cpu': cpu, 'wit': wit, 'relu_inputs': rec.inputs,
+            'cpu_s': cpu_s, 'launches': cc}
+
+
+def phase_context_head_f32(fa, which, root):
+    """The decode head of ``context_config(root, which)`` alone (dropout
+    0), seeded, in train mode, f32, forward and backward on the
+    ResNetV1c-50-D8 features of one 256² image and a seeded cotangent of
+    the logits (``head_case``), on the CPU and on the card, and on both
+    again on the features moved one ulp (the witness on each device). The
+    card's ReLUs and both witnesses' take the CPU run's signs
+    (``ReluPin``): a ReLU input at a tie, which the two devices' f32 sums
+    put on either side of 0, would otherwise move a weight gradient's
+    entries above it by percents of the largest (GCNet's ``conv_cat``:
+    one entry of its BN output, 1.9%). Each entry where the card's own
+    sign differs must be such a tie (TOL_TIE). Then every tensor (the
+    logits, each feature's and each parameter's gradient) within
+    CNN_WITNESS_MULT x the larger witness distance of its own, or
+    TOL_HEAD_F32 of the largest CPU entry of its group. Returns the
+    counts of the card's call (no kernel)."""
+    import torch
+    head, feats, moved, cot = head_case(which, root)
+    half = cpu_half(f'head:{which}', None, root)
+    cpu, wit, z = half['cpu'], half['wit'], half['relu_inputs']
+    masks = [v > 0 for v in z]
+    pin = ReluPin(masks)
+    card, card_s, launches = head_grads(fa, head, 'cuda', feats, cot, pin)
+    card_wit, _, _ = head_grads(fa, head, 'cuda', moved, cot,
+                                ReluPin(masks))
+    check(pin.calls == len(masks), f'{which}: {pin.calls} ReLU calls on '
+          f'the card, {len(masks)} on the CPU')
+    ties = []
+    for i, where, card_abs in pin.flips:
+        cpu_abs = z[i][tuple(where.t())].abs()
+        scale = z[i].abs().max().item()
+        ties.append({'call': i, 'shape': list(z[i].shape),
+                     'entries': len(card_abs),
+                     'worst': max(card_abs.max().item(),
+                                  cpu_abs.max().item()) / max(scale, 1e-30)})
+    groups = {'logits': ['logits'],
+              'inputs': [n for n in cpu if n.startswith('input')],
+              'params': [n for n in cpu if n != 'logits' and
+                         not n.startswith('input')]}
+    rows = []
+    for group, names in groups.items():
+        scale = max(cpu[n].abs().max().item() for n in names)
+        for n in names:
+            if n not in card:
+                continue
+            err = (card[n] - cpu[n]).abs().max().item()
+            w = max((wit[n] - cpu[n]).abs().max().item(),
+                    (card_wit[n] - card[n]).abs().max().item())
+            allowed = max(CNN_WITNESS_MULT * w, TOL_HEAD_F32 * scale)
+            rows.append((err / allowed, n, err, w, allowed))
+    rows.sort()
+    emit({'phase': f'{which}_head_f32_vs_cpu',
+          'head': head.__class__.__name__,
+          'features': '1 x 256² of ResNetV1c-50-D8',
+          'logits_shape': list(card['logits'].shape),
+          'tensors': len(cpu), 'witness_mult': CNN_WITNESS_MULT,
+          'tol': TOL_HEAD_F32, 'relu_calls': len(masks),
+          # entries whose sign the card's own sums put otherwise: (call,
+          # how many, the larger |input| on either device over the call's
+          # largest CPU |input|)
+          'relu_ties': ties, 'tol_tie': TOL_TIE,
+          # (err / allowed, name, max |card - CPU|, the larger witness
+          #  distance, allowed)
+          'err_over_allowed_worst': rows[-3:],
+          'card_s': card_s, 'cpu_s': half['cpu_s'], 'launches': launches})
+    check(tuple(card['logits'].shape) == (1, 32, 32, 21), f'{which}: '
+          f'logits {tuple(card["logits"].shape)}')
+    check(sorted(card) == sorted(cpu), f'{which}: gradients on '
+          f'{sorted(set(card) ^ set(cpu))} differ in presence')
+    check(all_zero(launches) and all_zero(half['launches']),
+          f'{which} head launched {launches}, {half["launches"]}')
+    check(all(t['worst'] <= TOL_TIE for t in ties),
+          f'{which}: a ReLU sign differs beyond a tie: {ties}')
+    check(rows[-1][0] <= 1, f'{which}: f32 head, card vs CPU beyond the '
+          f'witness: {rows[-3:]}')
+    return launches
+
+
+def run_context(fa, images, gpu_line, root):
+    """The context-head slice, f32, TF32 off, every S4Former flag
+    (``context_config``). DeepLabV3 on MobileNetV2-D8: a 500x375 request
+    against the CPU (probabilities within TOL_MAIN_F32), 4 requests, the
+    2 + 2 step at 512² (the first and 2 timed), the 1 + 1 step at 256²
+    against the CPU's and the witness's (``f32_step_vs_witness``). Each
+    head of CONTEXT_HEADS on ResNetV1c-50-D8: alone against the CPU
+    (``phase_context_head_f32``), then one request at 512² after a
+    warm-up (ms, peak memory). CONTEXT_STEPS: the 2 + 2 step at 512²
+    (EMANet's ``bases`` must move), and EMANet's 1 + 1 step at 256²
+    against the CPU's and the witness's, its ``bases`` held too. None
+    launches a kernel. Prints 'context_seconds'. Returns the counts by
+    path."""
+    import torch
+    paths, seconds = {}, {}
+
+    def serve(which, path, n):
+        path_counts, seg = phase_cnn_serve(fa, path, images[:n], gpu_line,
+                                           f'{which}_serve')
+        del seg
+        torch.cuda.empty_cache()
+        return path_counts
+
+    def train_f32(which, path):
+        r, launches = f32_step_vs_witness(fa, which, root, images)
+        emit({'phase': f'{which}_train_f32_vs_cpu',
+              'config': os.path.basename(path), **r, 'tol': TOL_TRAIN_F32,
+              'settings': conv_settings(), 'launches': launches[0]})
+        check_witness(which, r, launches)
+        return launches[0]
+    runs = []
+    path = context_config(root, 'mobilenet_v2')
+    runs += [('mobilenet_v2_serve_f32', lambda: phase_cnn_serve_f32(
+                 fa, 'mobilenet_v2', root, images[0],
+                 'mobilenet_v2_serve_f32_vs_cpu')),
+             ('mobilenet_v2_serve', lambda: serve('mobilenet_v2', path, 4)),
+             ('mobilenet_v2_train', lambda: phase_cnn_train(
+                 fa, path, images, gpu_line, n=2, timed=2,
+                 name='mobilenet_v2_train')),
+             ('mobilenet_v2_train_f32', lambda: train_f32('mobilenet_v2',
+                                                          path))]
+    for which in CONTEXT_HEADS:
+        p = context_config(root, which)
+        runs += [(f'{which}_head_f32',
+                  lambda w=which: phase_context_head_f32(fa, w, root)),
+                 (f'{which}_serve', lambda w=which, p=p: serve(w, p, 1))]
+        if which in CONTEXT_STEPS:
+            moved = (EMA_BASES,) if which == 'emanet' else ()
+            runs.append((f'{which}_train', lambda w=which, p=p, m=moved:
+                         phase_cnn_train(fa, p, images, gpu_line, n=2,
+                                         timed=2, name=f'{w}_train',
+                                         moved=m)))
+        if which == 'emanet':
+            runs.append(('emanet_train_f32', lambda p=p: train_f32(
+                'emanet', p)))
+    for name, run in runs:
+        t0 = time.perf_counter()
+        paths[name] = run()
+        seconds[name] = time.perf_counter() - t0
+    emit({'phase': 'context_seconds', **seconds,
           'total': sum(seconds.values())})
     return paths
 
@@ -4158,19 +4761,10 @@ def ablation_draws(semi, n, size, num_classes, n_head_params, seed=0):
     return {'dbg_' + k: v.numpy() for k, v in out.items()}
 
 
-def phase_ablation_f32_vs_cpu(fa, images):
-    """One S4Former step of ``..._MT_w_ours.py`` with ABLATION_F32's flags
-    and set (c)'s layer decay and sigmoid aux CE, in f32 at full width,
-    depth cut to 4 layers, 2 + 2 images at 512², dropout rates 0: on the
-    card and on the CPU from the same weights and the same draws (every
-    mix, gate and EMA head skip from ``ablation_draws``). Tolerances of
-    train_f32_vs_cpu. Returns the card's launch counts."""
+def ablation_f32_case():
+    """``phase_ablation_f32_vs_cpu``'s (cfg, SemiConfig, layer decay)."""
     import dataclasses
-    import numpy as np
-    import torch
     from s4former_tpu_torch.semi.config import SemiConfig
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg = ablation_config('ours', 'float32', 4, regularisers=True)
     for head in [cfg.model.decode_head] + list(cfg.model.auxiliary_head):
         head.dropout_ratio = 0.0
@@ -4178,33 +4772,41 @@ def phase_ablation_f32_vs_cpu(fa, images):
     semi = dataclasses.replace(SemiConfig.from_model_cfg(cfg.model),
                                unsup_confidence=UNSUP_CONFIDENCE_F32,
                                **ABLATION_F32)
-    batch = train_batch(images, 2, 2)
-    layer_decay = dict(ABLATION_LAYER_DECAY, num_layers=4)
-    runs = {}
-    for device in ('cuda', 'cpu'):
-        state, step = trainer_from_config(
-            cfg, device, layer_decay, unsup_confidence=UNSUP_CONFIDENCE_F32,
-            **ABLATION_F32)
-        if device == 'cuda':
-            n_head = len(list(state.model.decode_head.parameters()))
-            batch.update(ablation_draws(semi, 2, 512, state.model.num_classes,
-                                        n_head))
-        before = {n: p.detach().cpu().clone()
-                  for n, p in state.model.named_parameters()}
-        dev_batch = to_device(batch, device)
-        reset_counts(fa)
-        t0 = time.perf_counter()
-        state, logs = step(state, dev_batch,
-                           torch.Generator(device=device).manual_seed(0))
-        if device == 'cuda':
-            torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        delta = {n: p.detach().cpu() - before[n]
-                 for n, p in state.model.named_parameters()}
-        runs[device] = (floats(logs), delta, seconds, counts(fa))
-        del state, step, dev_batch
-        torch.cuda.empty_cache()
-    (lg, dg, sg, cg), (lc, dc, sc, cc) = runs['cuda'], runs['cpu']
+    return cfg, semi, dict(ABLATION_LAYER_DECAY, num_layers=4)
+
+
+def cpu_ablation_f32(fa, images, root):
+    """``phase_ablation_f32_vs_cpu``'s batch (2 + 2 at 512² and every draw
+    of ``ablation_draws``, which the card's step takes too) and CPU
+    step."""
+    cfg, semi, layer_decay = ablation_f32_case()
+    state, step = trainer_from_config(
+        cfg, 'cpu', layer_decay, unsup_confidence=UNSUP_CONFIDENCE_F32,
+        **ABLATION_F32)
+    n_head = len(list(state.model.decode_head.parameters()))
+    batch = dict(train_batch(images, 2, 2), **ablation_draws(
+        semi, 2, 512, state.model.num_classes, n_head))
+    return batch, one_step(fa, state, step, batch, 'cpu')
+
+
+def phase_ablation_f32_vs_cpu(fa, images):
+    """One S4Former step of ``..._MT_w_ours.py`` with ABLATION_F32's flags
+    and set (c)'s layer decay and sigmoid aux CE, in f32 at full width,
+    depth cut to 4 layers, 2 + 2 images at 512², dropout rates 0: on the
+    card and on the CPU from the same weights and the same draws (every
+    mix, gate and EMA head skip from ``ablation_draws``). Tolerances of
+    train_f32_vs_cpu. Returns the card's launch counts."""
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, semi, layer_decay = ablation_f32_case()
+    batch, (lc, dc, sc, cc) = cpu_half('ablation_f32', images)
+    state, step = trainer_from_config(
+        cfg, 'cuda', layer_decay, unsup_confidence=UNSUP_CONFIDENCE_F32,
+        **ABLATION_F32)
+    lg, dg, sg, cg = one_step(fa, state, step, batch, 'cuda')
+    del state, step
     expect = predicted_launches(semi, 4)
     loss_err = {k: abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-6) for k in lc}
     scale = max(d.abs().max().item() for d in dc.values())
@@ -4520,31 +5122,53 @@ def masks_from_cpu(seed=0):
         dropout.keep_mask = original
 
 
-def unimatch_step_vs_cpu(fa, cfg, batch, semi_over):
-    """One step of ``cfg`` on the card and on the CPU from the same seeded
-    weights, batch, injected draws and masks: (logs, parameter updates,
-    seconds, launch counts) by device."""
+UNIMATCH_F32_CASES = ('deit_pasa', 'deit_fdrop', 'mit_pasa')
+
+
+def unimatch_case(name, images, threshold=None):
+    """(cfg, batch with the streams' draws, the step's flags, SemiConfig,
+    crop) of a case of ``phase_unimatch_f32_vs_cpu``: 'deit_pasa' and
+    'deit_fdrop' at 4 layers and 512²; 'mit_pasa' at MIT_TRAIN_F32_DEPTH
+    and MIT_CROP² with ``threshold``."""
+    import dataclasses
+    import numpy as np
+    from s4former_tpu_torch.semi.config import SemiConfig
+    if name.startswith('deit'):
+        cfg = load_config('float32', 'ours', 4)
+        cfg.model.backbone.update(drop_rate=0.0, drop_path_rate=0.0)
+        batch = unimatch_batch(images, 1, 1)
+        over = dict(UNIMATCH_FLAGS, unsup_confidence=UNSUP_CONFIDENCE_F32,
+                    attn_mask_seperate_head=name == 'deit_pasa')
+        size = 512
+    else:
+        cfg = load_mit_config('ours', 'float32', MIT_TRAIN_F32_DEPTH,
+                              drop=False)
+        batch = mit_train_batch(np.random.RandomState(5), 1, 1)
+        batch = with_mix_views(batch, batch['sup_img'])
+        over = dict(UNIMATCH_FLAGS, unsup_confidence=threshold)
+        size = MIT_CROP
+    semi = dataclasses.replace(SemiConfig.from_model_cfg(cfg.model), **over)
+    n = batch['unsup_student_img'].shape[0]
+    return cfg, dict(batch, **unimatch_draws(semi, n, size)), over, semi, size
+
+
+def cpu_unimatch(fa, name, images, root):
+    """A case's threshold (for 'mit_pasa' the CPU teacher's median
+    max-probability) and its CPU step, the fdrop masks
+    ``masks_from_cpu``'s."""
     import torch
-    runs = {}
-    for device in ('cuda', 'cpu'):
-        state, step = trainer_from_config(cfg, device, **semi_over)
-        before = {n: p.detach().cpu().clone()
-                  for n, p in state.model.named_parameters()}
-        dev_batch = to_device(batch, device)
-        reset_counts(fa)
-        t0 = time.perf_counter()
-        with masks_from_cpu():
-            state, logs = step(state, dev_batch,
-                               torch.Generator(device=device).manual_seed(0))
-        if device == 'cuda':
-            torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        delta = {n: p.detach().cpu() - before[n]
-                 for n, p in state.model.named_parameters()}
-        runs[device] = (floats(logs), delta, seconds, counts(fa))
-        del state, step, dev_batch
-        torch.cuda.empty_cache()
-    return runs
+    threshold = None
+    if name == 'mit_pasa':
+        cfg, batch, _, _, _ = unimatch_case(name, images)
+        state, _ = trainer_from_config(cfg, 'cpu')
+        with torch.no_grad():
+            t_logits = state.model.forward_decode_from_img(
+                torch.from_numpy(batch['unsup_teacher_img']), train=False)
+        threshold = float(torch.softmax(t_logits.float(), -1).amax(-1)
+                          .median())
+    cfg, batch, over, _, _ = unimatch_case(name, images, threshold)
+    state, step = trainer_from_config(cfg, 'cpu', **over)
+    return threshold, one_step(fa, state, step, batch, 'cpu', masks_from_cpu)
 
 
 def phase_unimatch_f32_vs_cpu(fa, images):
@@ -4557,40 +5181,19 @@ def phase_unimatch_f32_vs_cpu(fa, images):
     MIT_TRAIN_F32_DEPTH, 1 + 1 at 768², the threshold the CPU teacher's
     median max-probability. Tolerances of train_f32_vs_cpu. Returns the
     card's launch counts summed."""
-    import dataclasses
     import numpy as np
     import torch
-    from s4former_tpu_torch.semi.config import SemiConfig
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cases = []
-    vit_cfg = load_config('float32', 'ours', 4)
-    vit_cfg.model.backbone.update(drop_rate=0.0, drop_path_rate=0.0)
-    vit_batch = unimatch_batch(images, 1, 1)
-    for head in ('pasa', 'fdrop'):
-        over = dict(UNIMATCH_FLAGS, unsup_confidence=UNSUP_CONFIDENCE_F32,
-                    attn_mask_seperate_head=head == 'pasa')
-        cases.append((f'deit_{head}', vit_cfg, vit_batch, over, 512))
-    mit_cfg = load_mit_config('ours', 'float32', MIT_TRAIN_F32_DEPTH,
-                              drop=False)
-    mit_batch = mit_train_batch(np.random.RandomState(5), 1, 1)
-    mit_batch = with_mix_views(mit_batch, mit_batch['sup_img'])
-    state, _ = trainer_from_config(mit_cfg, 'cpu')
-    with torch.no_grad():
-        t_logits = state.model.forward_decode_from_img(
-            torch.from_numpy(mit_batch['unsup_teacher_img']), train=False)
-    threshold = float(torch.softmax(t_logits.float(), -1).amax(-1).median())
-    del state
-    cases.append(('mit_pasa', mit_cfg, mit_batch,
-                  dict(UNIMATCH_FLAGS, unsup_confidence=threshold), MIT_CROP))
     total = None
-    for name, cfg, batch, over, size in cases:
-        semi = dataclasses.replace(SemiConfig.from_model_cfg(cfg.model),
-                                   **over)
+    for name in UNIMATCH_F32_CASES:
+        threshold, (lc, dc, sc, cc) = cpu_half(f'unimatch:{name}', images)
+        cfg, batch, over, semi, size = unimatch_case(name, images, threshold)
         n = batch['unsup_student_img'].shape[0]
-        batch = dict(batch, **unimatch_draws(semi, n, size))
-        runs = unimatch_step_vs_cpu(fa, cfg, batch, over)
-        (lg, dg, sg, cg), (lc, dc, sc, cc) = runs['cuda'], runs['cpu']
+        state, step = trainer_from_config(cfg, 'cuda', **over)
+        lg, dg, sg, cg = one_step(fa, state, step, batch, 'cuda',
+                                  masks_from_cpu)
+        del state, step
         mit = name.startswith('mit')
         expect = {k: 0 for k in KERNELS} if mit else \
             predicted_launches(semi, 4)
@@ -5420,7 +6023,9 @@ def dp_worker(spec_path):
     """The ranks' side of a start-up by ``launch_ranks``: ``python -m
     torch.distributed.run ... chip_smoke.py --dp-worker SPEC``. SPEC lists
     tasks, each a rank phase of DP_RANK_PHASES with its spec, run one after
-    the other in this process. A step task runs in a process group of its
+    the other in this process; a task of fewer 'ranks' than the start-up
+    runs on the lowest ranks, in a group of that size, and the others
+    pass it by. A step task runs in a process group of its
     'backend' and 'device' (gloo with every rank on cuda:0, since NCCL
     takes one card per rank; or NCCL, one rank a card), kept for the next
     step task that wants the same one (the mesh is reset after each); CLI
@@ -5445,12 +6050,18 @@ def dp_worker(spec_path):
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     results = []
+    world = int(os.environ['WORLD_SIZE'])
     try:
         for task in spec['tasks']:
+            n = task.get('ranks') or world
+            if int(os.environ['RANK']) >= n:
+                results.append(None)       # a task of the lower ranks
+                continue
+            os.environ['WORLD_SIZE'] = str(n)
             (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32) = tf32
             want = None if task['kind'] in ('cli', 'test') else (
-                task['backend'], task['device'])
+                task['backend'], task['device'], n)
             if group is not None and group != want:
                 torch.distributed.destroy_process_group()
                 group = device = None
@@ -5492,9 +6103,10 @@ def free_port():
 
 def launch_ranks(tasks, n, directory, timeout):
     """One start-up of ``n`` ranks under torch.distributed.run running
-    ``tasks`` (each {'kind', 'spec', 'backend', 'device'}) in turn
-    (``dp_worker``); with more than one, each task gets a port of its own
-    for a group it makes. Returns each task's results, rank 0 first."""
+    ``tasks`` (each {'kind', 'spec', 'ranks', 'backend', 'device'}; a task
+    of fewer ranks on the lowest) in turn (``dp_worker``); with more than
+    one, each task gets a port of its own for a group it makes. Returns
+    each task's results, rank 0 first."""
     if len(tasks) > 1:
         tasks = [dict(t, port=free_port()) for t in tasks]
     name = '_'.join(t['kind'] for t in tasks)[:60] + f'_{n}'
@@ -5516,10 +6128,11 @@ def launch_ranks(tasks, n, directory, timeout):
     for r in range(n):
         with open(f'{out}.rank{r}.json') as f:
             by_rank.append(json.load(f))
-        for result in by_rank[-1]:
+        for result in filter(None, by_rank[-1]):
             FWD_SEEN.update(tuple(x) for x in result['fwd_shapes'])
             BWD_SEEN.update(tuple(x) for x in result['bwd_shapes'])
-    return [[ranks[i] for ranks in by_rank] for i in range(len(tasks))]
+    return [[ranks[i] for ranks in by_rank if ranks[i] is not None]
+            for i in range(len(tasks))]
 
 
 def run_here(fa, tasks):
@@ -5564,9 +6177,12 @@ def run_together(fa, phases, directory, timeout=900):
     tasks of every phase that run on the same number of ranks go to one
     start-up, the CLI tasks first, then the step tasks, each kind in the
     phases' order: starting the ranks (interpreter, torch, the card) is
-    the cost this saves. CLI tasks of one rank run in this process
-    (``run_here``). Returns (each phase's value, each phase's seconds: its own work
-    and its tasks' on the ranks, each start-up's wall seconds)."""
+    the cost this saves. Tasks of more than one rank but fewer than the
+    most any task asks for run in that start-up too, on its lowest ranks,
+    after its CLI tasks and before its own step tasks. CLI tasks of one
+    rank run in this process (``run_here``). Returns (each phase's value,
+    each phase's seconds: its own work and its tasks' on the ranks, each
+    start-up's wall seconds)."""
     import torch
     gens, asked, seconds = {}, {}, {}
     for name, make in phases:
@@ -5576,16 +6192,20 @@ def run_together(fa, phases, directory, timeout=900):
         seconds[name] = time.perf_counter() - t0
     torch.cuda.empty_cache()        # the ranks share the card
     groups = {}
+    most = max((t['ranks'] for tasks in asked.values() for t in tasks),
+               default=1)
     for name, tasks in asked.items():
         for i, t in enumerate(tasks):
-            groups.setdefault(t['ranks'], []).append((name, i, t))
+            n = most if t['ranks'] > 1 else 1
+            groups.setdefault(n, []).append((name, i, t))
     results = {name: [None] * len(tasks) for name, tasks in asked.items()}
     startups = {}
     for n, items in groups.items():
         # the CLI runs first, each as the first of its kind in fresh
         # processes (their in-loop evals then run as in a start-up of
         # their own); then the step tasks
-        items.sort(key=lambda item: item[2]['kind'] not in ('cli', 'test'))
+        items.sort(key=lambda item: (item[2]['kind'] not in ('cli', 'test'),
+                                     item[2]['ranks'] == n))
         t0 = time.perf_counter()
         tasks = [t for _, _, t in items]
         here = n == 1 and all(t['kind'] in ('cli', 'test') for t in tasks)
@@ -5594,7 +6214,9 @@ def run_together(fa, phases, directory, timeout=900):
         else:
             done = launch_ranks(tasks, n, directory, timeout)
         label = ('this process: ' if here else f'{n} ranks: ') + ', '.join(
-            f'{name}/{t["kind"]}' for name, _, t in items)
+            f'{name}/{t["kind"]}' + ('' if t['ranks'] == n else
+                                     f' on {t["ranks"]}')
+            for name, _, t in items)
         startups[label] = time.perf_counter() - t0
         for (name, i, _), ranks in zip(items, done):
             results[name][i] = ranks
@@ -6339,6 +6961,8 @@ def phase_build(libs, seconds):
 def main() -> int:
     if sys.argv[1:2] == ['--dp-worker']:
         return dp_worker(sys.argv[2])
+    if sys.argv[1:2] == ['--cpu-side']:
+        return cpu_side(sys.argv[2])
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; the port '
@@ -6349,13 +6973,29 @@ def main() -> int:
     emit({'phase': 'device', 'nvidia_smi': gpu_line,
           'torch': torch.__version__, 'cuda': torch.version.cuda,
           'kind': torch.cuda.get_device_name(0),
-          'count': torch.cuda.device_count()})
+          'count': torch.cuda.device_count(),
+          'host_cpus': os.cpu_count(),
+          'cpus_allowed': len(os.sched_getaffinity(0)),
+          'torch_threads': torch.get_num_threads()})
 
     sys.path.insert(0, REPO)
     os.chdir(REPO)             # the configs' data roots are repo-relative
     from s4former_tpu_torch.native import build as native_build
     from s4former_tpu_torch.ops import cuda_build
     from s4former_tpu_torch.ops import flash_attention as fa
+    global CPU_SIDE
+    side_dir = tempfile.mkdtemp(prefix='chip_smoke_cpu_side_')
+    CPU_SIDE = CpuSide(side_dir)
+    try:
+        return drive(fa, native_build, cuda_build, gpu_line)
+    finally:
+        CPU_SIDE.close()
+        shutil.rmtree(side_dir, ignore_errors=True)
+
+
+def drive(fa, native_build, cuda_build, gpu_line) -> int:
+    """``main``'s phases, the CPU side running."""
+    import torch
     t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:   # g++ beside the two nvcc builds
         native_lib = pool.submit(native_build.build)
@@ -6474,6 +7114,9 @@ def main() -> int:
         # the real-time CNNs: BiSeNetV1/V2, STDC, Fast-SCNN, CGNet,
         # ERFNet, LR-ASPP (no kernel)
         paths.update(run_realtime(fa, images, gpu_line, root))
+        # the context heads: DeepLabV3 on MobileNetV2-D8 and the NL, GC,
+        # DNL, ANN, APC, DM, EMA, Enc, ISA, PSA and DA heads (no kernel)
+        paths.update(run_context(fa, images, gpu_line, root))
         # the ablation slice: the rest of the step's flags
         paths.update(run_ablation(fa, images, gpu_line, root))
         # the UniMatch slice and the ViT's remat
@@ -6489,6 +7132,12 @@ def main() -> int:
         entries[name]['launches_by_path'] = {k: p[name]
                                              for k, p in paths.items()}
         check(entries[name]['launches'] > 0, f'{name} never ran on a path')
+    # how long each phase waited for its CPU half, and each half's seconds
+    # in the CPU side
+    emit({'phase': 'cpu_side', 'threads': CPU_SIDE_THREADS,
+          'nice': CPU_SIDE_NICE, 'waited_s': CPU_SIDE.waited,
+          'total_waited_s': sum(CPU_SIDE.waited.values()),
+          'jobs_s': CPU_SIDE.job_seconds()})
     emit({'phase': 'total', 'seconds': time.perf_counter() - T_START})
     print(gpu_line)
     emit({'kernels': [entries[name] for name in KERNELS]})

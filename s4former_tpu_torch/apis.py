@@ -21,6 +21,7 @@ The runs are eval mode under ``torch.inference_mode``.
 """
 from __future__ import annotations
 
+import logging
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -78,8 +79,11 @@ def init_segmentor(config, checkpoint: Optional[str] = None,
     (bare or timm keys), whose entries overlay the seeded weights (a
     backbone-only file keeps the seeded heads), or a training checkpoint
     directory of the port's runner (``work_dir/iter_N``), whose student
-    is loaded whole. The log says how many of the model's tensors a file
-    overlaid; a file that overlays none raises ValueError."""
+    is loaded whole. The package logger ('s4former_tpu_torch') says how
+    many of the model's tensors a file overlaid, where a CLI has set it up
+    (``utils.logger.get_root_logger``); this function adds no handler, so
+    it writes nothing to stdout, as JAX's writes nothing. A file that
+    overlays none raises ValueError."""
     import os.path as osp
 
     import s4former_tpu_torch.models  # noqa: F401  (registers modules)
@@ -90,8 +94,8 @@ def init_segmentor(config, checkpoint: Optional[str] = None,
     from s4former_tpu_torch.models import (build_segmentor,
                                            init_segmentor_weights)
     from s4former_tpu_torch.models.init_utils import skip_default_init
-    from s4former_tpu_torch.utils.logger import get_root_logger
 
+    logger = logging.getLogger('s4former_tpu_torch')
     if isinstance(config, str):
         config = Config.fromfile(config)
     with skip_default_init():
@@ -99,7 +103,7 @@ def init_segmentor(config, checkpoint: Optional[str] = None,
     init_segmentor_weights(model, torch.Generator().manual_seed(seed))
     if checkpoint and osp.isdir(checkpoint):
         model.load_state_dict(load_model_state_dict(checkpoint))
-        get_root_logger().info(f'loaded {checkpoint}')
+        logger.info(f'loaded {checkpoint}')
     elif checkpoint:
         bb = config.model.get('backbone', {})
         crop = tuple(config.get('crop_size', (512, 512)))
@@ -107,7 +111,7 @@ def init_segmentor(config, checkpoint: Optional[str] = None,
         sd = load_reference_state_dict(
             checkpoint, dst_grid=(crop[0] // patch, crop[1] // patch))
         n = overlay_state_dict(model, sd, checkpoint)
-        get_root_logger().info(
+        logger.info(
             f'{checkpoint} overlaid {n["loaded"]} of the model\'s '
             f'{n["total"]} tensors ({n["backbone_loaded"]} of '
             f'{n["backbone_total"]} backbone tensors)')

@@ -23,7 +23,11 @@ The port's modules carry the reference (mmseg) parameter names, so its
   (l.560), Swin (l.364; PatchMerging's 4C axis back to mmseg's
   channel-major order, and a shrunk window's table at the centre of the
   window's), HRNet (l.694), the UPer (l.1019) and OCR (l.2225) heads and a
-  cascade's stages (``cascade_heads_{i}`` -> ``decode_head.{i}.``). The
+  cascade's stages (``cascade_heads_{i}`` -> ``decode_head.{i}.``); and
+  for the context slice: MobileNetV2 (l.790), the ASPP head and the NL,
+  DNL, GC, APC, DM, EMA (its ``bases`` from JAX's [1, K, C] batch stats to
+  mmseg's [1, C, K] buffer), ANN (APNB's shared query/key projection under
+  both of mmseg's names), PSA, Enc, ISA and DA heads (l.1074, 1834-2156). The
   aux heads that JAX builds one by one in ``aux_logits`` (identical heads
   on levels of different shapes, ICNet's) arrive as ``{Type}_{j}`` and
   land at ``auxiliary_head.{j}.``.
@@ -938,6 +942,23 @@ def _mobilenet_v3(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
     return sd
 
 
+def _mobilenet_v2(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
+    """JAX mobilenet.MobileNetV2 -> the mmseg layout (the inverse of JAX
+    ``convert_mobilenet_v2_backbone``, l.790): ``stem`` -> ``conv1``,
+    ``layer{s}_{j}``'s [expand,] dw, project -> ``layer{s+1}.{j}.conv.{k}``."""
+    sd = _convbn(p['stem'], bs.get('stem', {}), prefix + 'conv1.')
+    for name, blk in p.items():
+        m = re.fullmatch(r'layer(\d+)_(\d+)', name)
+        if m is None:
+            continue
+        s, j = int(m.group(1)), m.group(2)
+        parts = [k for k in ('expand', 'dw', 'project') if k in blk]
+        for k, part in enumerate(parts):
+            sd.update(_convbn(blk[part], bs.get(name, {}).get(part, {}),
+                              f'{prefix}layer{s + 1}.{j}.conv.{k}.'))
+    return sd
+
+
 def _backbone(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
     if 'patch_embed_0' in p:
         return _mit(p, prefix)
@@ -945,7 +966,8 @@ def _backbone(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
                        ('arms_0', _stdc_context_path),
                        ('stages_0', _stdc_net), ('lds0', _fastscnn),
                        ('stem_0_act', _cgnet), ('encoder_0', _erfnet),
-                       ('layer0', _mobilenet_v3)):
+                       ('layer0', _mobilenet_v3),
+                       ('layer0_0', _mobilenet_v2)):
         if marker in p:
             return fn(p, bs, prefix)
     if 'conv_sub1_0' in p:
@@ -989,9 +1011,168 @@ def _lraspp(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
     return sd
 
 
+def _nonlocal(p: Mapping, bs: Mapping, pre: str) -> StateDict:
+    """JAX ``NonLocal2d`` (or DNL's block, whose leaves sit on its head)
+    -> mmcv NonLocal2d keys under ``pre`` (the inverse of JAX
+    ``_nonlocal_block``, l.1817)."""
+    sd: StateDict = {}
+    for name in ('theta', 'phi', 'g'):
+        sd.update(_plain(p[name], f'{pre}{name}.conv'))
+    sd.update(_convbn({'conv': p['conv_out'], 'bn': p['bn_out']},
+                      {'bn': bs.get('bn_out', {})}, pre + 'conv_out.'))
+    if 'conv_mask' in p:
+        sd.update(_plain(p['conv_mask'], pre + 'conv_mask'))
+    return sd
+
+
+def _context_head(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
+    """The context heads of JAX ``zoo_heads.py`` -> the mmseg layout (the
+    inverses of JAX ``convert_nl_head``, ``convert_gc_head``,
+    ``convert_apc_head``, ``convert_dm_head``, ``convert_ema_head``,
+    ``convert_ann_head``, ``convert_enc_head``, ``convert_isa_head``,
+    ``convert_psa_head`` and ``convert_da_head``, l.1834-2156)."""
+    sd: StateDict = {}
+    names: Dict[str, str] = {}
+    if 'nl_block' in p:                                          # NL
+        sd.update(_nonlocal(p['nl_block'], bs.get('nl_block', {}),
+                            prefix + 'nl_block.'))
+    elif 'theta' in p:                                           # DNL
+        sd.update(_nonlocal(p, bs, prefix + 'dnl_block.'))
+    if 'add_ln' in p:                                            # GC
+        g = prefix + 'gc_block.'
+        if 'conv_mask' in p:
+            sd.update(_plain(p['conv_mask'], g + 'conv_mask'))
+        for i, name in ((0, 'add_conv_0'), (3, 'add_conv_1')):
+            sd[f'{g}channel_add_conv.{i}.weight'] = _dense_as_conv1x1(
+                p[name]['kernel'])
+            sd[f'{g}channel_add_conv.{i}.bias'] = _t(p[name]['bias'])
+        for leaf, key in (('scale', 'weight'), ('bias', 'bias')):
+            sd[f'{g}channel_add_conv.1.{key}'] = _t(
+                np.asarray(p['add_ln'][leaf]).reshape(-1, 1, 1))
+    if 'ema_in' in p:                                            # EMA
+        names.update(ema_in='ema_in_conv')
+        sd.update(_plain(p['ema_mid'], prefix + 'ema_mid_conv.conv'))
+        sd.update(_convbn({'conv': p['ema_out'], 'bn': p['ema_out_bn']},
+                          {'bn': bs.get('ema_out_bn', {})},
+                          prefix + 'ema_out_conv.'))
+        if 'bases' in bs:
+            sd[prefix + 'ema_module.bases'] = _t(
+                np.transpose(np.asarray(bs['bases']), (0, 2, 1)))
+    if 'fusion_bottleneck' in p:                                 # ANN
+        sd.update(_convbn({'conv': p['fusion_bottleneck'],
+                           'bn': p['fusion_bottleneck_bn']},
+                          {'bn': bs.get('fusion_bottleneck_bn', {})},
+                          prefix + 'fusion.bottleneck.'))
+        names.update(context_bottleneck='context.bottleneck')
+    if 'encoding' in p:                                          # Enc
+        e = prefix + 'enc_module.'
+        names.update(encoding_project='enc_module.encoding_project',
+                     fusion='fusion')
+        sd[e + 'encoding.0.codewords'] = _t(p['encoding']['codewords'])
+        sd[e + 'encoding.0.scale'] = _t(p['encoding']['scale'])
+        sd.update(_norm(p['enc_bn'], e + 'encoding.1', bs.get('enc_bn')))
+        sd.update(_dense(p['fc'], e + 'fc.0'))
+        if 'se_layer' in p:
+            sd.update(_dense(p['se_layer'], prefix + 'se_layer'))
+    if 'pam_in' in p:                                            # DA
+        for ours, ref in (('pam_q', 'query_project'),
+                          ('pam_k', 'key_project'),
+                          ('pam_v', 'value_project')):
+            sd.update(_plain(p[ours], f'{prefix}pam.{ref}'))
+        for name in ('pam', 'cam'):
+            sd[f'{prefix}{name}.gamma.scale'] = _t(
+                np.asarray(p[f'{name}_gamma']).reshape(1))
+            sd.update(_plain(p[f'{name}_conv_seg'],
+                             f'{prefix}{name}_conv_seg'))
+            names.update({f'{name}_in': f'{name}_in_conv',
+                          f'{name}_out': f'{name}_out_conv'})
+    for name, leaf in p.items():
+        m = re.fullmatch(r'(fusion|context)_(\d+)_(query|key|value|out)',
+                         name)
+        if m is not None:                                        # ANN
+            stage, i, part = m.groups()
+            key = f'{prefix}{stage}.stages.{i}.{part}_project'
+            if part in ('value', 'out'):
+                sd.update(_plain(leaf, key))
+                continue
+            sd.update(_convbn(leaf, bs.get(name, {}), key + '.'))
+            if stage == 'context':      # the one projection, two names
+                sd.update(_convbn(leaf, bs.get(name, {}), key.replace(
+                    'key_project', 'query_project') + '.'))
+            continue
+        m = re.fullmatch(r'acm_(\d+)_(pooled_redu|input_redu|global|gla|'
+                         r'residual|fusion)', name)
+        if m is not None:                                        # APC
+            i, part = m.groups()
+            key = f'{prefix}acm_modules.{i}.' + {
+                'pooled_redu': 'pooled_redu_conv',
+                'input_redu': 'input_redu_conv', 'global': 'global_info',
+                'gla': 'gla', 'residual': 'residual_conv',
+                'fusion': 'fusion_conv'}[part]
+            if part == 'gla':
+                sd.update(_plain(leaf, key))
+            else:
+                names[name] = key[len(prefix):]
+            continue
+        m = re.fullmatch(r'dcm_(\d+)_(filter_gen|input_redu|norm|fusion)',
+                         name)
+        if m is not None:                                        # DM
+            i, part = m.groups()
+            key = f'{prefix}dcm_modules.{i}.'
+            if part == 'filter_gen':
+                sd.update(_plain(leaf, key + 'filter_gen_conv'))
+            elif part == 'norm':
+                sd.update(_norm(leaf, key + 'norm', bs.get(name)))
+            else:
+                names[name] = key[len(prefix):] + part + '_conv'
+            continue
+        m = re.fullmatch(r'(global|local)_relation_(query|key)_(\d)', name)
+        if m is not None:                                        # ISA
+            rel, part, i = m.groups()
+            names[name] = f'{rel}_relation.{part}_project.{i}'
+            continue
+        m = re.fullmatch(r'(global|local)_relation_(value|output)', name)
+        if m is not None:
+            rel, part = m.groups()
+            key = f'{rel}_relation.{part}_project'
+            if part == 'value':
+                sd.update(_plain(leaf, prefix + key))
+            else:
+                names[name] = key
+            continue
+        m = re.fullmatch(r'(attention|attention_p)_([01])', name)
+        if m is not None:                                        # PSA
+            att, i = m.groups()
+            if i == '1':
+                sd.update(_plain(leaf, f'{prefix}{att}.1'))
+            else:
+                names[name] = f'{att}.0'
+            continue
+        m = re.fullmatch(r'(lateral|convs)_(\d+)', name)
+        if m is not None:                    # Enc's laterals, the FCN convs
+            kind, i = m.groups()
+            names[name] = f'{"lateral_convs" if kind == "lateral" else kind}' \
+                f'.{i}'
+    for name in ('bottleneck', 'conv_cat', 'in_conv', 'out_conv', 'reduce',
+                 'reduce_p', 'proj'):
+        names.setdefault(name, name)
+    sd.update(_convbns(p, bs, prefix, names))
+    sd.update(_conv_seg(p, prefix))
+    return sd
+
+
+# a leaf each context head of JAX ``zoo_heads.py`` alone has
+CONTEXT_MARKERS = ('nl_block', 'theta', 'add_ln', 'ema_in',
+                   'fusion_bottleneck', 'encoding', 'pam_in', 'acm_0_gla',
+                   'dcm_0_filter_gen', 'global_relation_value',
+                   'attention_1')
+
+
 def _head(p: Mapping, bs: Mapping, prefix: str) -> StateDict:
     """Any ported head's subtree, told apart by its leaves as JAX
     ``convert_any_head`` (l.2281) tells the mmseg layouts apart."""
+    if any(k in p for k in CONTEXT_MARKERS):
+        return _context_head(p, bs, prefix)
     if 'fusion_conv' in p:
         return _segformer(p, bs, prefix)
     if 'ocb_query_0' in p:

@@ -6,6 +6,7 @@ from s4former_tpu_torch.models.backbones.resnet import (  # noqa: F401
 from s4former_tpu_torch.models.backbones.cnn_zoo import (  # noqa: F401
     BiSeNetV1, BiSeNetV2, CGNet, ERFNet, FastSCNN, ICNet, ResNeSt, ResNeXt,
     STDCContextPathNet, STDCNet)
-from s4former_tpu_torch.models.backbones.mobilenet import MobileNetV3  # noqa: F401
+from s4former_tpu_torch.models.backbones.mobilenet import (  # noqa: F401
+    MobileNetV2, MobileNetV3)
 from s4former_tpu_torch.models.backbones.hrnet import HRNet  # noqa: F401
 from s4former_tpu_torch.models.backbones.swin import SwinTransformer  # noqa: F401

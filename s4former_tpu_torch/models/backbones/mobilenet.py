@@ -1,11 +1,15 @@
-"""MobileNetV3 (counterpart of ``s4former_tpu/models/backbones/mobilenet.py``
-l.22-235; reference: mmseg/models/backbones/mobilenet_v3.py with mmseg's
-InvertedResidualV3 and SELayer).
+"""MobileNetV2 and MobileNetV3 (counterpart of
+``s4former_tpu/models/backbones/mobilenet.py`` l.22-235; reference:
+mmseg/models/backbones/mobilenet_v2.py with mmcv's InvertedResidual,
+mobilenet_v3.py with mmseg's InvertedResidualV3 and SELayer).
 
 NHWC, f32 (the JAX modules carry no ``dtype``). Every conv is bias-free
 and followed by BN with flax's eps 1e-5 and momentum 0.9, whatever the
 config's ``norm_cfg`` asks (``lraspp_m-v3-d8.py`` asks eps 1e-3; the JAX
-``ConvBNAct`` takes flax's default), then ReLU, hard swish or nothing.
+``ConvBNAct`` takes flax's default), then ReLU6, ReLU, hard swish or
+nothing.
+
+MobileNetV3 (JAX l.126-235):
 
 - The stem (``layer0``: 3x3 s2 to 16, hard swish) and every depthwise
   conv whose table stride is 2 pad as TensorFlow's 'SAME' (mmcv
@@ -23,6 +27,21 @@ config's ``norm_cfg`` asks (``lraspp_m-v3-d8.py`` asks eps 1e-3; the JAX
   shortcut before it changes the stride).
 - ``layer{N+1}``: a 1x1 to 960 (``large``) or 576 (``small``), hard
   swish.
+
+MobileNetV2 (JAX l.56-123, ``_V2_ARCH`` l.88):
+
+- ``conv1``: a 3x3 stride-2 conv to ``ch(32)``, ReLU6, where
+  ``ch(c) = max(int(c * widen_factor), 8)`` (JAX's rounding: mmseg's
+  ``make_divisible(c * widen_factor, 8)`` gives the same widths at
+  ``widen_factor`` 1).
+- ``layer{s}`` (s = 1..7, the rows of ``V2_ARCH``): blocks ``{j}`` whose
+  ``conv`` holds the expansion 1x1 (where ``expand_ratio`` is not 1), the
+  depthwise 3x3 at the stage's stride (first block) and dilation (every
+  block of the stage, as JAX's), both ReLU6, and the linear 1x1
+  projection; the input added where the stride is 1 and the width is
+  kept. Padding is symmetric, ``dilation * (k - 1) // 2``, as JAX's
+  ``ConvBNAct(same_pad=False)`` and mmseg's ConvModule pad.
+- the maps of ``out_indices`` (stage indices 0..6) are returned.
 
 The forward takes the segmentor's semi keywords and ignores them, fdrop
 included, as JAX's does.
@@ -141,6 +160,81 @@ class InvertedResidualV3(nn.Module):
             y = self.se(y)
         y = self.linear_conv(y, train)
         return x + y if self.residual else y
+
+
+class InvertedResidual(nn.Module):
+    """MobileNetV2's block (mmcv ``InvertedResidual``): ``conv.{k}`` are
+    [expand 1x1,] depthwise 3x3, project 1x1 (BN only)."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int,
+                 expand_ratio: int, dilation: int):
+        super().__init__()
+        hidden = in_channels * expand_ratio
+        self.residual = stride == 1 and in_channels == out_channels
+        convs = [ConvBNAct(in_channels, hidden, 1)] \
+            if expand_ratio != 1 else []
+        convs += [ConvBNAct(hidden, hidden, 3, stride, groups=hidden,
+                            dilation=dilation),
+                  ConvBNAct(hidden, out_channels, 1, act='none')]
+        self.conv = nn.ModuleList(convs)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = x
+        for conv in self.conv:
+            y = conv(y, train)
+        return x + y if self.residual else y
+
+
+# (expand_ratio, channels, num_blocks, stride) per stage (JAX l.88)
+V2_ARCH = [(1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2), (6, 64, 4, 2),
+           (6, 96, 3, 1), (6, 160, 3, 2), (6, 320, 1, 1)]
+
+
+@BACKBONES.register_module()
+class MobileNetV2(nn.Module):
+    """MobileNetV2; a tuple of the ``out_indices`` stages' maps.
+    ``strides`` and ``dilations`` are per stage (the -D8 recipe: strides
+    (1, 2, 2, 1, 1, 1, 1), dilations (1, 1, 1, 2, 2, 4, 4))."""
+
+    def __init__(self, widen_factor: float = 1.0,
+                 strides: Sequence[int] = (1, 2, 2, 2, 1, 2, 1),
+                 dilations: Sequence[int] = (1, 1, 1, 1, 1, 1, 1),
+                 out_indices: Sequence[int] = (1, 2, 4, 6),
+                 norm_cfg: Optional[dict] = None,
+                 act_cfg: Optional[dict] = None,
+                 init_cfg: Optional[dict] = None,
+                 pretrained: Optional[str] = None):
+        super().__init__()
+        self.out_indices = tuple(out_indices)
+
+        def ch(c):
+            return max(int(c * widen_factor), 8)
+        self.conv1 = ConvBNAct(3, ch(32), 3, 2)
+        cin = ch(32)
+        for i, (t, c, n, _) in enumerate(V2_ARCH):
+            blocks = []
+            for j in range(n):
+                blocks.append(InvertedResidual(
+                    cin, ch(c), strides[i] if j == 0 else 1, t,
+                    dilations[i]))
+                cin = ch(c)
+            self.add_module(f'layer{i + 1}', nn.ModuleList(blocks))
+
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                attn_bias: Optional[torch.Tensor] = None,
+                pos_mode: str = 'default', use_fdrop: bool = False,
+                return_attn: bool = False,
+                generator: Optional[torch.Generator] = None):
+        x = self.conv1(x.float(), train)
+        outs = []
+        for i in range(len(V2_ARCH)):
+            for block in getattr(self, f'layer{i + 1}'):
+                x = block(x, train)
+            if i in self.out_indices:
+                outs.append(x)
+        if return_attn:
+            return tuple(outs), ([], None)
+        return tuple(outs)
 
 
 # [kernel, mid_channels, out_channels, with_se, act, stride] (the

@@ -5,7 +5,9 @@ Follows flax's default initialisers in kind: dense and conv kernels are
 normal with std 1/sqrt(fan_in) (lecun normal), biases zero, norms identity,
 the ViT ``pos_embed``, Segmenter's ``cls_emb`` and Swin's
 ``relative_position_bias_table`` normal with std 0.02 and ``cls_token``
-zero. The draws
+zero. A module with its own initialisers draws them in ``init_seeded``
+(EncNet's ``Encoding``: uniform codewords and scales; EMANet's bases, a
+buffer). The draws
 come from an explicit ``torch.Generator`` on the CPU, so one seed gives the
 same weights on every device; they do not reproduce ``jax.random`` streams.
 """
@@ -57,4 +59,10 @@ def init_segmentor_weights(model: nn.Module,
             p.fill_(1.0)
         else:                                     # biases, cls_token
             p.zero_()
+    for m in model.modules():
+        if isinstance(m, nn.LayerNorm) and m.elementwise_affine:
+            m.weight.fill_(1.0)     # GCNet's LayerNorm([planes, 1, 1]) too
+            m.bias.zero_()
+        elif hasattr(m, 'init_seeded'):
+            m.init_seeded(generator)
     return model

@@ -2,7 +2,9 @@
 reference: ``update_ema_variables``, encoder_decoder.py:1044-1066).
 
 teacher <- m * teacher + (1 - m) * student, in place, over the parameters
-and the BN running statistics. States are dicts of tensors under the
+and every floating-point buffer: the BN running statistics and EMAHead's
+``bases``, as JAX lerps its whole ``batch_stats`` collection. States are
+dicts of tensors under the
 reference names (``model.state_dict()`` of the student and of the teacher
 copy). The scope follows the reference's four update calls (:416-423):
 ``backbone.`` lerps with the backbone momentum, ``decode_head.`` with the
@@ -10,6 +12,9 @@ head momentum, ``neck.``, ``auxiliary_head.`` and anything else with the
 plain momentum; these prefixes are where the JAX names ``backbone_m``,
 ``decode_head_m``, ``neck_m`` and ``aux_heads`` land. ``m`` may be a
 0-d device tensor (the mask-ratio-annealed momentum).
+
+A tensor that a state dict holds under two names (a module registered
+twice, as ANN's shared query/key projection) is lerped once.
 
 ``momentum_head_dropout`` (reference :1050-1053, JAX ``ema_update_with_
 dropout``): each PARAMETER tensor of the decode head keeps its teacher
@@ -56,6 +61,10 @@ def head_skip_draw(generator: Optional[torch.Generator], n: int, p: float,
     return torch.rand((n,), generator=generator, device=device) < p
 
 
+def _where(t: torch.Tensor):
+    return t.untyped_storage().data_ptr(), t.storage_offset()
+
+
 def ema_update_scoped(teacher: Dict[str, torch.Tensor],
                       student: Dict[str, torch.Tensor],
                       momentum_backbone: Momentum, momentum_head: Momentum,
@@ -70,6 +79,9 @@ def ema_update_scoped(teacher: Dict[str, torch.Tensor],
               '': ([], [], momentum_plain)}
     head_skips = head_skips or {}
     dropped = ([], [], [])          # teacher, student, skip
+    # a module registered under two names (ANN's shared query/key
+    # projection) has its tensors twice in a state dict: lerp them once
+    seen = {_where(teacher[n]) for n in head_skips}
     for name, t in teacher.items():
         if not t.is_floating_point():
             continue
@@ -78,6 +90,9 @@ def ema_update_scoped(teacher: Dict[str, torch.Tensor],
             dropped[1].append(student[name])
             dropped[2].append(head_skips[name])
             continue
+        if _where(t) in seen:
+            continue
+        seen.add(_where(t))
         prefix = next(p for p in groups if name.startswith(p))
         groups[prefix][0].append(t)
         groups[prefix][1].append(student[name])

@@ -444,6 +444,11 @@ def make_semi_train_step(model: nn.Module,
     cascade = _is_cascade(model)
     head_params = [] if cascade else [
         'decode_head.' + n for n, _ in model.decode_head.named_parameters()]
+    # the parameters the modules declare that no loss reads
+    declared_unused = sorted(
+        f'{prefix}.{n}' if prefix else n
+        for prefix, m in model.named_modules()
+        for n in getattr(m, 'unused_parameters', ()))
 
     def train_step(state: TrainState, batch: Dict[str, Tensor],
                    generator: Optional[torch.Generator] = None
@@ -662,8 +667,18 @@ def make_semi_train_step(model: nn.Module,
 
         total = sum(v for key, v in losses.items() if 'loss' in key)
         params = dict(model.named_parameters())
-        grads = dict(zip(params, torch.autograd.grad(total,
-                                                     list(params.values()))))
+        # a parameter no loss reads gets a zero gradient, as in JAX; only
+        # those a module declares so (DA's per-branch classifiers, EMA's
+        # frozen ema_mid_conv, Enc's se_layer) may be unread
+        grads = dict(zip(params, torch.autograd.grad(
+            total, list(params.values()), allow_unused=True)))
+        unread = sorted(n for n, g in grads.items() if g is None)
+        if unread != declared_unused:
+            raise RuntimeError(
+                f'parameters no loss reads: {unread}; declared unused: '
+                f'{declared_unused}')
+        for n in unread:
+            grads[n] = torch.zeros_like(params[n])
         # each data index's total is its share of the global loss; the
         # ZeRO-3 shards' backward has summed theirs already
         plan = state.plan

@@ -11,6 +11,16 @@ from __future__ import annotations
 import os.path as osp
 
 import numpy as np
+import torch
+
+# One torch intra-op thread a test process. The suite runs as several
+# pytest-xdist workers on one machine; with torch's default of a thread
+# a core, each worker's OpenMP threads spin against the others' and the
+# port's tests ran ~3x slower in all (``tests/test_torch_*_step.py`` under
+# -n 6: 1814 s of summed test time with the default, 519 s with one
+# thread). A test that needs another count sets it (the CLI tests pin 2,
+# the count their spawned ranks use).
+torch.set_num_threads(1)
 
 TINY_CFG = """
 crop_size = (64, 64)
@@ -352,6 +362,42 @@ def stdc_model(num_classes: int = 5) -> dict:
                  num_classes=num_classes),
             dict(fcn, type='STDCHead', in_channels=32, channels=8,
                  in_index=0, num_classes=2, boundary_threshold=0.1)])
+
+
+def emanet_model(num_classes: int = 5) -> dict:
+    """``cnn_model(18)`` with ``EMAHead`` (``emanet_r50-d8.py``'s head,
+    narrowed: 16 channels, 8 EMA channels, 4 bases, momentum 0.1) in
+    place of the separable ASPP, the FCN aux head on stage 3 as before."""
+    m = cnn_model(depth=18, num_classes=num_classes)
+    m['decode_head'] = dict(
+        type='EMAHead', in_channels=m['decode_head']['in_channels'],
+        in_index=3, channels=16, ema_channels=8, num_bases=4, num_stages=3,
+        momentum=0.1, concat_input=True, dropout_ratio=0.0,
+        num_classes=num_classes, loss_decode=m['decode_head']['loss_decode'])
+    return m
+
+
+def mobilenet_v2_model(num_classes: int = 5) -> dict:
+    """mmseg's ``deeplabv3_m-v2-d8`` narrowed: MobileNetV2 at
+    ``widen_factor`` 0.25 with the -D8 strides and dilations (stages 1, 2,
+    4, 6 of widths 8, 8, 24, 80), ``ASPPHead`` (16 channels, dilations 1,
+    2, 3: small enough to reach across the 8 x 8 map) on the last, the FCN
+    aux head (8 channels) on the third; dropout 0."""
+    ce = dict(type='CrossEntropyLoss', loss_weight=1.0)
+    return dict(
+        type='EncoderDecoder',
+        backbone=dict(type='MobileNetV2', widen_factor=0.25,
+                      strides=(1, 2, 2, 1, 1, 1, 1),
+                      dilations=(1, 1, 1, 2, 2, 4, 4),
+                      out_indices=(1, 2, 4, 6)),
+        decode_head=dict(type='ASPPHead', in_channels=80, in_index=3,
+                         channels=16, dilations=(1, 2, 3),
+                         dropout_ratio=0.0, num_classes=num_classes,
+                         loss_decode=ce),
+        auxiliary_head=[dict(type='FCNHead', in_channels=24, in_index=2,
+                             channels=8, num_convs=1, concat_input=False,
+                             dropout_ratio=0.0, num_classes=num_classes,
+                             loss_decode=dict(ce, loss_weight=0.4))])
 
 
 LOGIT_GAIN = 8.0
